@@ -34,15 +34,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "atomics.cuh"
+
 namespace {
+
+using airv2x::atomic_max_float;
 
 constexpr float kNeg = -1e9f;
 constexpr int kThreads = 256;
 
 int blocks_for(long long total) {
-  long long b = (total + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 64;  // grid-stride beyond ~64 blocks per SM
-  return static_cast<int>(b < cap ? b : cap);
+  return airv2x::grid_stride_blocks(total, kThreads);
 }
 
 __global__ void init_kernel(float* __restrict__ maxbuf, long long n_max,
@@ -54,19 +56,6 @@ __global__ void init_kernel(float* __restrict__ maxbuf, long long n_max,
        i < n; i += stride) {
     if (i < n_max) maxbuf[i] = kNeg;
     if (i < n_sum) sumbuf[i] = 0.0f;
-  }
-}
-
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  int bits = __float_as_int(v);
-  if (bits == static_cast<int>(0x80000000u)) bits = 0;  // -0.0 -> +0.0
-  v = __int_as_float(bits);
-  if (*addr >= v) return;  // stored values only grow: a stale read is safe
-  if (bits >= 0) {
-    atomicMax(reinterpret_cast<int*>(addr), bits);
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr),
-              static_cast<unsigned int>(bits));
   }
 }
 

@@ -1,5 +1,7 @@
-"""Detection decode: logits -> boxes -> filters -> rotated NMS (counterpart of
-airv2x_tpu/data/postprocess.py:decode_detections).
+"""Decode of the model outputs (counterpart of airv2x_tpu/data/postprocess.py:
+``decode_detections`` and ``decode_segmentation``).
+
+Detection: logits -> boxes -> filters -> rotated NMS.
 
 Top-k first: the P = min(2 * top_k, N) highest gated objectness scores are
 selected before any box is decoded, and every candidate keeps a liveness
@@ -79,3 +81,13 @@ def decode_detections(
     keep = keep & geo.mask_boxes_in_range_bev(corners, lidar_range)
     return Detections(boxes=boxes, corners=corners, scores=scores,
                       labels=labels, mask=keep, nms_passes=passes)
+
+
+def decode_segmentation(dynamic_logits: torch.Tensor,
+                        static_logits: torch.Tensor):
+    """Per-pixel class maps: argmax over the last axis of the f32 sigmoid of
+    each (..., classes) logit map -> int32. Ties, as where the sigmoid
+    saturates to 1, go to the lower index, as ``jnp.argmax`` does (and
+    ``torch.argmax`` promises)."""
+    return tuple(torch.sigmoid(t.float()).argmax(-1).to(torch.int32)
+                 for t in (dynamic_logits, static_logits))

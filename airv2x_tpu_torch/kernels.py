@@ -7,8 +7,9 @@ compiles in seconds with
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``airv2x_tpu_torch/build/`` (git-ignored) at first use, and is loaded
-with ``ctypes``. The file name carries a hash of the source, so an edited
-source is rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
+with ``ctypes``. The file name carries a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source or header is rebuilt.
+``build_all`` starts one ``nvcc`` per source at once.
 
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. ``LAUNCHES`` counts wrapper calls that launched a kernel:
@@ -40,9 +41,22 @@ _SIGNATURES = {
         # rows (N, 8), cols (M, 8), out (N, M), N, M, triangular, stream
         "quad_iou": [_P, _P, _P, _I, _I, _I, _P],
     },
+    "pillar_reduce": {
+        # ids, vals, out, m, n, rows, stream
+        "pillar_reduce": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "conv3x3": {
+        # x, w, scale, bias, out, B, H, W, Cin, Cout, relu, allmaps, bf16,
+        # stream
+        "conv3x3": [_P] * 5 + [_I] * 8 + [_P],
+    },
 }
 
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+# one count per kernel; conv3x3.cu serves two: K4a (a grid over maps) and
+# K4b (every map in one block's loop), counted apart
+LAUNCHES = {name: 0 for name in
+            ("pillar_encode", "quad_iou", "pillar_reduce", "conv3x3",
+             "conv3x3_allmaps")}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -60,9 +74,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and of every
+    shared header in ``csrc/`` (``*.cuh``) it may include."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):

@@ -43,6 +43,46 @@ def gaussian_smooth(conf: torch.Tensor, k_size: int, sigma: float):
     return out.reshape(conf.shape)
 
 
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of a half-pixel bilinear resize along one
+    axis, computed as ``jax.image.resize`` computes them: the triangle
+    kernel, widened by the shrink factor when the axis shrinks (the
+    antialias), each column normalised to sum 1. The sample positions
+    ``(i + 0.5) * inv - 0.5`` round once, as the fused multiply-add that
+    XLA compiles there (the f64 product of two f32 values is exact)."""
+    inv = 1.0 / (n_out / n_in)
+    centre = torch.arange(n_out, dtype=torch.float32, device=device) + 0.5
+    sample = (centre.double() * float(np.float32(inv)) - 0.5).float()
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    x = (sample[None, :] - src[:, None]).abs() / max(inv, 1.0)
+    w = torch.clamp_min(1 - x.abs(), 0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_comm_mask(mask: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize of (B, L, H, W) comm masks to ``size`` (h, w) with the
+    weights of ``jax.image.resize(..., "bilinear")``, applied as one
+    contraction per axis that changes. An axis that shrinks gets the
+    antialiased kernel, one that grows the plain triangle, so one call
+    serves the seg path's 160 x 160 -> 100 x 352. (``F.interpolate`` with
+    ``antialias=True`` computes the same function, but its f32 sample
+    positions round otherwise: up to 7e-6 apart on that pair.)"""
+    h, w = mask.shape[-2:]
+    oh, ow = (int(v) for v in size)
+    if oh != h:
+        wh = _resize_weights(h, oh, mask.device).to(mask.dtype)
+        mask = torch.einsum("blhw,hp->blpw", mask, wh)
+    if ow != w:
+        ww = _resize_weights(w, ow, mask.device).to(mask.dtype)
+        mask = torch.einsum("blhw,wq->blhq", mask, ww)
+    return mask
+
+
 class Communication(nn.Module):
     def __init__(self, threshold: float = 0.01, k_size: int = 5,
                  c_sigma: float = 1.0):
@@ -91,9 +131,7 @@ class Where2commFusion(nn.Module):
             if i == 0:
                 m = comm_mask
                 if m.shape[-2:] != cur.shape[-2:]:
-                    # antialias matches jax.image.resize when downsampling
-                    m = F.interpolate(m, size=cur.shape[-2:], mode="bilinear",
-                                      align_corners=False, antialias=True)
+                    m = resize_comm_mask(m, cur.shape[-2:])
                 cur = cur * m.reshape(b * l, 1, *cur.shape[-2:])
             grouped = cur.reshape(b, l, *cur.shape[1:])
             ups.append(backbone.deblock(i, ego_agent_attention(grouped,

@@ -9,12 +9,41 @@ maps to scopes ``<name>_0``, ``<name>_1``, ...
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
 from torch import nn
 
+from airv2x_tpu_torch.ops.conv3x3 import (
+    conv3x3_im2col,
+    conv3x3_same,
+    supports_conv3x3,
+)
+
 BN_EPS = 1e-3
+
+
+def _conv3x3_mode(shape, dtype, features: int) -> str:
+    """Eval backend of a 3x3 stride-1 ``ConvBNReLU`` on NHWC ``shape``.
+
+    ``AIRV2X_CONV_KERNEL``, read at every forward as the JAX package reads
+    it at trace time: ``auto`` (the default) and ``xla`` give ``"cudnn"``
+    (Conv2d -> BatchNorm2d -> ReLU, as ``auto`` means XLA there);
+    ``pallas`` gives ``"kernel"``, K4 with the BN folded in, and raises
+    where the support gate refuses the shape; ``im2col`` the unfold +
+    matmul form.
+    """
+    mode = os.environ.get("AIRV2X_CONV_KERNEL", "auto")
+    if mode == "im2col":
+        return "im2col"
+    if mode == "pallas":
+        if not supports_conv3x3(shape, dtype, features):
+            raise ValueError(
+                f"AIRV2X_CONV_KERNEL=pallas but {tuple(shape)} -> {features} "
+                "exceeds the kernel's support gate")
+        return "kernel"
+    return "cudnn"
 
 
 class MaskedBatchNorm(nn.Module):
@@ -40,7 +69,14 @@ class MaskedBatchNorm(nn.Module):
 
 
 class ConvBNReLU(nn.Module):
-    """3x3 Conv (padding 1) -> BatchNorm -> ReLU block of the BEV backbone."""
+    """3x3 Conv (padding 1) -> BatchNorm -> ReLU block of the BEV backbone.
+
+    In eval mode at stride 1, ``AIRV2X_CONV_KERNEL`` picks the backend
+    (``_conv3x3_mode``). The fused branches run on the NHWC view of x: for
+    a ``channels_last`` input, as the backbone's activations are, that view
+    is contiguous and no layout pass is made; the result is
+    ``channels_last`` again.
+    """
 
     FLAX_NAMES = {"conv": "Conv_0", "bn": "BatchNorm_0"}
 
@@ -49,9 +85,46 @@ class ConvBNReLU(nn.Module):
         self.conv = nn.Conv2d(in_ch, features, 3, stride=stride, padding=1,
                               bias=False)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+        self._fold_key, self._fold_val = None, None
+
+    def _fold(self, dtype):
+        """(HWIO weight in ``dtype``, f32 scale, f32 bias) of the conv and the
+        eval BN, as models/nn.py of the JAX package folds them; cached until
+        one of the five tensors changes (data pointer and version)."""
+        ts = (self.conv.weight, self.bn.weight, self.bn.bias,
+              self.bn.running_mean, self.bn.running_var)
+        key = None if any(t.is_inference() for t in ts) else (dtype,) + tuple(
+            (t.data_ptr(), t._version) for t in ts)
+        if key is None or key != self._fold_key:
+            bn = self.bn
+            scale = bn.weight.float() * torch.rsqrt(bn.running_var.float()
+                                                    + bn.eps)
+            bias = bn.bias.float() - bn.running_mean.float() * scale
+            w = self.conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
+            self._fold_key, self._fold_val = key, (w, scale, bias)
+        return self._fold_val
 
     def forward(self, x):
+        if not self.training and self.conv.stride == (1, 1):
+            b, c, h, w = x.shape
+            mode = _conv3x3_mode((b, h, w, c), x.dtype, self.conv.out_channels)
+            if mode != "cudnn":
+                fn = conv3x3_same if mode == "kernel" else conv3x3_im2col
+                out = fn(x.permute(0, 2, 3, 1), *self._fold(x.dtype), relu=True)
+                return out.permute(0, 3, 1, 2)
         return torch.relu(self.bn(self.conv(x)))
+
+
+class PallasConv3x3(nn.Conv2d):
+    """Bias-free 3x3 SAME conv through K4 (the flax ``PallasConv3x3``). It is
+    a ``Conv2d``, so the weight bridge loads its HWIO kernel unchanged."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__(in_ch, features, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        w = self.weight.permute(2, 3, 1, 0).to(x.dtype)
+        return conv3x3_same(x.permute(0, 2, 3, 1), w).permute(0, 3, 1, 2)
 
 
 class DeconvBNReLU(nn.Module):

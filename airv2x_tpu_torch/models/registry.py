@@ -1,5 +1,5 @@
-"""Model registry (counterpart of airv2x_tpu/models/registry.py): one entry
-for slice 1, the flagship Where2comm detector."""
+"""Model registry (counterpart of airv2x_tpu/models/registry.py): the
+Where2comm model, whose ``task`` (det or seg) the config names."""
 
 from __future__ import annotations
 

@@ -1,13 +1,16 @@
-"""Airv2x Where2comm detector, eval mode (counterpart of
-airv2x_tpu/models/where2comm_model.py, det task).
+"""Airv2x Where2comm model, eval mode (counterpart of
+airv2x_tpu/models/where2comm_model.py), for the det and seg tasks.
 
 hetero encode -> shared BEV backbone -> shrink -> single-agent confidence
-head -> Where2comm multi-scale fusion (rerunning the backbone stages) ->
-shrink -> detection heads. The backbone, ``shrink_conv`` and ``heads`` are
-applied twice with shared weights: the same module objects, registered once.
+(det: the cls head; seg: the seg head's cropped features) -> Where2comm
+multi-scale fusion (rerunning the backbone stages) -> shrink -> detection
+heads or the BEV segmentation head. The backbone, ``shrink_conv`` and the
+heads are applied twice with shared weights: the same module objects,
+registered once.
 
-Public outputs keep the JAX package's NHWC layout: psm (B, H, W, A*C),
-rm (B, H, W, 7A), obj (B, H, W, A), and the scalar comm_rate.
+Public outputs keep the JAX package's NHWC layout: det psm (B, H, W, A*C),
+rm (B, H, W, 7A), obj (B, H, W, A); seg dynamic_seg (B, S, S, Cd),
+static_seg (B, S, S, Cs); and the scalar comm_rate.
 """
 
 from __future__ import annotations
@@ -17,15 +20,16 @@ from torch import nn
 from airv2x_tpu_torch.models.base import HeteroLidarEncoder, SlotLayout
 from airv2x_tpu_torch.models.bev_backbone import BaseBEVBackbone
 from airv2x_tpu_torch.models.fusion.where2comm import Where2commFusion
-from airv2x_tpu_torch.models.heads import DetectionHeads
+from airv2x_tpu_torch.models.heads import BevSegHead, DetectionHeads
 from airv2x_tpu_torch.models.nn import DownsampleConv
 
 
 class Airv2xWhere2comm(nn.Module):
     def __init__(self, args: dict):
         super().__init__()
-        if args["task"] != "det":
-            raise NotImplementedError("only the det task is ported")
+        self.task = args["task"]
+        if self.task not in ("det", "seg"):
+            raise ValueError(f"unknown task {self.task!r}")
         self.layout = SlotLayout.from_args(args)
         self.encoder = HeteroLidarEncoder(args, args["preprocess"], self.layout)
         mod = args.get("modality_fusion") or args
@@ -60,19 +64,30 @@ class Airv2xWhere2comm(nn.Module):
             raise NotImplementedError(
                 "only gaussian-smoothed, confidence-gated Where2comm without "
                 "multi-head attention is ported")
-        if not args.get("obj_head", True):
-            raise NotImplementedError("decode needs the objectness head")
         self.fusion_net = Where2commFusion(
             multi_scale=w2c["multi_scale"],
             threshold=comm.get("threshold", 0.01),
             k_size=gauss["k_size"],
             c_sigma=gauss["c_sigma"],
         )
-        self.heads = DetectionHeads(
-            head_in,
-            anchor_number=args["anchor_number"],
-            num_class=args["num_class"],
-        )
+        if self.task == "det":
+            if not args.get("obj_head", True):
+                raise NotImplementedError("decode needs the objectness head")
+            self.heads = DetectionHeads(
+                head_in,
+                anchor_number=args["anchor_number"],
+                num_class=args["num_class"],
+            )
+        else:
+            self.seg_head = BevSegHead(
+                head_in,
+                seg_branch=args["seg_branch"],
+                seg_hw=args["seg_hw"],
+                dynamic_class=args["dynamic_class"],
+                static_class=args["static_class"],
+                seg_res=args["seg_res"],
+                cav_range=args["cav_range"],
+            )
 
     def _shrink(self, x):
         return x if self.shrink_conv is None else self.shrink_conv(x)
@@ -82,20 +97,30 @@ class Airv2xWhere2comm(nn.Module):
         return self.encoder(batch)
 
     def single_psm(self, x):
-        """Stage 2: backbone + shrink + cls head per agent ->
-        (B*L, A*C, H', W') single-agent confidence logits."""
+        """Stage 2: backbone + shrink + single-agent confidence per agent:
+        det (B*L, A*C, H', W') cls logits; seg the seg head's cropped
+        features (B*L, C, S', S'), whose sigmoid max over channels is the
+        confidence, as in the reference. (The JAX package also computes the
+        seg logits there and discards them; XLA drops that work.)"""
         b, l, h, w, c = x.shape
         flat = x.reshape(b * l, h, w, c).permute(0, 3, 1, 2)
         feats_2d, _ = self.backbone(flat)
-        return self.heads.cls_head(self._shrink(feats_2d))
+        feats_2d = self._shrink(feats_2d)
+        if self.task == "det":
+            return self.heads.cls_head(feats_2d)
+        return self.seg_head.crop(feats_2d)
 
     def fuse(self, x, psm_single, agent_mask):
         """Stage 3: Where2comm fusion + shrink + heads -> NHWC outputs."""
         b, l = x.shape[:2]
         psm = psm_single.reshape(b, l, *psm_single.shape[1:])
         fused, rate = self.fusion_net(x, psm, agent_mask, self.backbone)
-        out = {k: v.permute(0, 2, 3, 1)
-               for k, v in self.heads(self._shrink(fused)).items()}
+        fused = self._shrink(fused)
+        if self.task == "det":
+            out = {k: v.permute(0, 2, 3, 1)
+                   for k, v in self.heads(fused).items()}
+        else:
+            out = self.seg_head(fused)
         out["comm_rate"] = rate
         return out
 

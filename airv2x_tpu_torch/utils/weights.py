@@ -127,6 +127,21 @@ def load_flax_variables(model: nn.Module, variables: dict) -> None:
     )
 
 
+def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the model's floating weights to the compute ``dtype`` in place,
+    except ``BatchNorm2d`` parameters and statistics, which stay f32: the
+    JAX package keeps f32 parameters under a bf16 compute dtype, and the
+    conv kernel's BN fold (``ConvBNReLU._fold``) reads them in f32."""
+    for mod in model.modules():
+        if isinstance(mod, nn.BatchNorm2d):
+            continue
+        for t in list(mod.parameters(recurse=False)) + list(
+                mod.buffers(recurse=False)):
+            if t.is_floating_point():
+                t.data = t.data.to(dtype)
+    return model
+
+
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights for a run without a checkpoint: He-normal conv
     and dense weights, small biases, BN affines and statistics around the

@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's flagship path on one NVIDIA card and hold each
-of its CUDA kernels against the kernel's plain PyTorch version.
+"""Drive the PyTorch port's paths on one NVIDIA card and hold each of its
+CUDA kernels against the kernel's plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -13,23 +13,46 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
   3. K2, the rotated-quad IoU, against its plain version at 512 x 512, full
      and triangular, on the corners of decoded boxes around the scene's
      objects plus random quads; times of both;
-  4. the tiny config on the card against the same weights on the CPU
-     (the plain versions, which the CPU tests hold against the JAX package);
-  5. the full flagship Where2comm path (vehicle 3 / rsu 2 / drone 1,
+  3a. K3, the pillar reduce, at the flagship vehicle call (m = 3,
+     n = 20,000, 140,800 cells): maxima exact, sums within 1e-4 relative;
+     times of kernel and plain, and the bytes bound;
+  3b. K4, the fused 3x3 conv (K4a grid over maps, K4b all maps), at each
+     flagship backbone stage (6 maps of 100x352x64, 50x176x128,
+     25x88x256), bf16 and f32 with TF32 off, against its plain version;
+     times of both forms, the plain version and the library call for the
+     same function (the ``auto``-mode ConvBNReLU: cuDNN conv, BN, ReLU),
+     and the bound per launch;
+  4. the tiny configs on the card against the same weights on the CPU (the
+     plain versions, which the CPU tests hold against the JAX package):
+     det under ``auto`` and under ``pallas``, and seg;
+  4a. one flagship scene at full width in f32 with TF32 off: the ``pallas``
+     conv backend against ``auto`` on the single-agent confidence of all
+     agents and on the outputs of the scene with only the ego agent;
+  5. the full flagship Where2comm det path (vehicle 3 / rsu 2 / drone 1,
      20,000 points per agent, bf16, seeded random weights, top_k 512) on
      8 scenes, timed 3 times after a warm-up: forward, decode and rotated
      NMS per scene; median ms/scene and scenes/s, median per-stage ms, peak
      memory, kept detections, NMS passes, and the kernels' launch counts
-     during the timed runs (K1 3x, K2 1x per scene);
+     during the timed runs (K1 3x, K2 1x per scene); then the same under
+     ``AIRV2X_CONV_KERNEL=pallas`` (K4a 32x per scene);
   6. a torch.profiler window over 3 more scenes: device time by kernel and
-     the device's idle share, with the SM clock and power draw after it.
+     the device's idle share, with the SM clock and power draw after it;
+  7. the LiDAR BEV-segmentation path (the seg config cut as in phase 5,
+     the same 8 scenes, bf16) in ``auto`` and in ``pallas`` mode: ms/scene,
+     stage times, peak memory, the decoded maps' class histograms, launch
+     counts, and a profile window of each.
 
+Launch counts are reset just before each timed path run (phases 5 and 7)
+and read just after; the ``kernels`` line sums them over those runs. Its
+K4 times are per scene: the 32 launches of one scene at their stages.
 It then prints the kernels' JSON line and, last, the device JSON line.
 Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import statistics
@@ -42,26 +65,37 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml")
+SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
 TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
 NUM_AGENTS = {"vehicle": 3, "rsu": 2, "drone": 1}
 POINTS_PER_AGENT = 20000
 N_SCENES = 8
 N_RUNS = 3  # timed runs over the scenes
 TOP_K = 512
-STAGES = ("encoder", "backbone+shrink+psm head", "fusion+heads", "decode+NMS")
+DET_STAGES = ("encoder", "backbone+shrink+psm head", "fusion+heads",
+              "decode+NMS")
+SEG_STAGES = ("encoder", "backbone+shrink+crop", "fusion+seg head",
+              "decode")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor-core f32.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
+# and non-tensor-core f32 operations/s.
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 # f32 operations per (i, j) pair in csrc/quad_iou.cu, counted from the
 # source on its cheapest (entering) branch, a division counted as one:
 # centring 16, two signed areas 32, signs / abs / tolerance 9, two clip sums
 # of 4 edges x (5 + 4 half-planes x 17 + 9) = 656, the IoU 9.
 K2_OPS_PER_PAIR = 722
+# the flagship backbone's stride-1 layer shapes (6 maps, NHWC)
+K4_STAGES = ((6, 100, 352, 64), (6, 50, 176, 128), (6, 25, 88, 256))
 
 K1_TOL = 1e-4  # f32: only the order of the atomic residual sums differs
 K1_TOL_BF16 = 1e-2  # bf16 output: one bf16 rounding of values up to ~10
 K2_TOL = 2e-5  # as tests/test_pallas_iou.py
+K3_TOL = 1e-4  # relative, the sums: only the order of the atomic adds
+K4_TOL = 1e-4  # x (1 + scale), f32: sums in another order, no TF32
+K4_TOL_BF16 = 2e-2  # abs + rel, as tests/test_pallas_conv.py
 TINY_TOL = 1e-4  # whole-model outputs through ~40 conv layers, f32
 
 
@@ -91,6 +125,20 @@ def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
+@contextlib.contextmanager
+def conv_mode(mode: str):
+    """Run the block under ``AIRV2X_CONV_KERNEL=mode``."""
+    old = os.environ.get("AIRV2X_CONV_KERNEL")
+    os.environ["AIRV2X_CONV_KERNEL"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["AIRV2X_CONV_KERNEL"]
+        else:
+            os.environ["AIRV2X_CONV_KERNEL"] = old
+
+
 def phase_build():
     from airv2x_tpu_torch import kernels
 
@@ -107,15 +155,22 @@ def phase_build():
                 print(f"  {name}: {line.strip()}")
 
 
-def flagship_setup():
+def cut_hypes(path: str) -> dict:
+    """A config with ``max_cav`` cut to the benchmarked scene."""
     from airv2x_tpu_torch.config import load_yaml
+
+    hypes = load_yaml(path)
+    hypes["model"]["args"]["max_cav"] = dict(NUM_AGENTS)
+    hypes["train_params"]["max_cav"] = dict(NUM_AGENTS)
+    return hypes
+
+
+def flagship_setup():
     from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_scene
     from airv2x_tpu_torch.models import build_model
     from airv2x_tpu_torch.utils.weights import init_random_
 
-    hypes = load_yaml(FLAGSHIP)
-    hypes["model"]["args"]["max_cav"] = dict(NUM_AGENTS)
-    hypes["train_params"]["max_cav"] = dict(NUM_AGENTS)
+    hypes = cut_hypes(FLAGSHIP)
     model = init_random_(build_model(hypes, device="cuda"), seed=0)
     rng = np.random.default_rng(0)
     scenes, gts = [], []
@@ -235,8 +290,158 @@ def phase_k2(hypes, gts):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def phase_k3():
+    """K3 at the flagship vehicle call, on random ids that include the dump
+    row and values with a share of maxima at -1e9 (as
+    tests/test_fast_pillars.py builds them)."""
+    from airv2x_tpu_torch.ops.pillar_reduce import (
+        FEAT, LANES, NEG, pillar_reduce, pillar_reduce_plain)
+
+    m, n, cells = 3, POINTS_PER_AGENT, 140800
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, cells + 1, (m, n)).astype(np.int32)
+    vals = rng.normal(size=(m, n, LANES)).astype(np.float32)
+    vals[..., :FEAT] = np.where(rng.uniform(size=(m, n, 1)) > 0.2,
+                                vals[..., :FEAT], NEG)
+    ids, vals = torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
+    got = pillar_reduce(ids, vals, cells)
+    ref = pillar_reduce_plain(ids, vals, cells)
+    torch.cuda.synchronize()
+    max_exact = bool(torch.equal(got[..., :FEAT], ref[..., :FEAT]))
+    sums = (got[..., FEAT:] - ref[..., FEAT:]).abs()
+    err = float(sums.max())
+    rel = float((sums / (1 + ref[..., FEAT:].abs())).max())
+    print(f"phase 3a K3: max lanes exact {max_exact}; sum lanes max|kernel - "
+          f"plain| {err:.3e}, relative {rel:.3e} (tol {K3_TOL}); "
+          f"{int((got[:, :cells, FEAT] > 0).sum())} occupied rows")
+    if not (max_exact and rel <= K3_TOL):
+        raise AssertionError(f"K3 disagrees with its plain version: {rel}")
+    ms = cuda_ms(lambda: pillar_reduce(ids, vals, cells), 50)
+    plain_ms = cuda_ms(lambda: pillar_reduce_plain(ids, vals, cells), 10)
+    in_bytes = ids.numel() * 4 + vals.numel() * 4
+    out_bytes = got.numel() * 4
+    bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 3a K3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes: {in_bytes} in + {out_bytes} out)")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def k4_bound(shape, cout, dtype):
+    """(bound ms, ops ms, bytes ms) of one launch: each input read once,
+    the output written once; 2 * 9 * Cin operations per output."""
+    b, h, w, c = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    ops = 2.0 * b * h * w * 9 * c * cout
+    nbytes = (b * h * w * (c + cout) + 9 * c * cout) * item + 8 * cout
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    ops_ms = ops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def phase_k4(launches_per_stage):
+    """K4a and K4b at each flagship backbone stage against the plain
+    version, with the library call for the same function: the auto-mode
+    ConvBNReLU (cuDNN conv, then BN and ReLU) holding the same weights."""
+    from airv2x_tpu_torch.models.nn import ConvBNReLU
+    from airv2x_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    torch.backends.cudnn.benchmark = True
+    rng = np.random.default_rng(4)
+    res = {}
+    for si, shape in enumerate(K4_STAGES):
+        b, h, w, c = shape
+        x32 = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        for dt in (torch.bfloat16, torch.float32):
+            set_tf32(False)
+            blk = init_random_(ConvBNReLU(c, c), seed=10 + si).cuda().eval()
+            blk.requires_grad_(False)
+            cast_weights_(blk, dt)
+            x = x32.to(dt)
+            wk, sc, bi = blk._fold(dt)
+            args = (x, wk, sc, bi)
+            ref = conv3x3_same_plain(*args, relu=True)
+            scale = float(ref.float().abs().max())
+            errs = {}
+            for allmaps in (False, True):
+                got = conv3x3_same(*args, relu=True, allmaps=allmaps)
+                torch.cuda.synchronize()
+                d = (got.float() - ref.float()).abs()
+                errs[allmaps] = float(d.max())
+                if dt == torch.float32:
+                    ok = errs[allmaps] <= K4_TOL * (1 + scale)
+                else:
+                    ok = bool((d <= K4_TOL_BF16 * (1 + ref.float().abs())).all())
+                if not ok:
+                    raise AssertionError(
+                        f"K4 (allmaps={allmaps}) {shape} {dt} disagrees with "
+                        f"its plain version: {errs[allmaps]}")
+            xl = x.permute(0, 3, 1, 2)  # NCHW, channels_last in memory
+            with torch.inference_mode(), conv_mode("auto"):
+                lib_err = float((blk(xl).permute(0, 2, 3, 1).float()
+                                 - ref.float()).abs().max())
+                lib_ms = cuda_ms(lambda: blk(xl), 20)
+            ms_a = cuda_ms(lambda: conv3x3_same(*args, relu=True), 20)
+            ms_b = cuda_ms(lambda: conv3x3_same(*args, relu=True,
+                                                allmaps=True), 20)
+            plain_ms = cuda_ms(lambda: conv3x3_same_plain(*args, relu=True), 10)
+            bound_ms, ops_ms, bytes_ms = k4_bound(shape, c, dt)
+            print(f"phase 3b K4 {shape} {dt}: max|kernel - plain| K4a "
+                  f"{errs[False]:.3e}, K4b {errs[True]:.3e} (scale {scale:.3f}; "
+                  f"library - plain {lib_err:.3e}); ms K4a {ms_a:.4f}, K4b "
+                  f"{ms_b:.4f}, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+                  f"bound {bound_ms:.4f} (operations {ops_ms:.4f}, bytes "
+                  f"{bytes_ms:.4f})")
+            res[(si, dt)] = dict(err_a=errs[False], err_b=errs[True],
+                                 ms_a=ms_a, ms_b=ms_b, plain_ms=plain_ms,
+                                 lib_ms=lib_ms, bound_ms=bound_ms,
+                                 ops_ms=ops_ms, bytes_ms=bytes_ms)
+            del blk, x, args, ref
+    # per scene of the bf16 main path: launches_per_stage launches each
+    per_scene = {}
+    for key in ("ms_a", "ms_b", "plain_ms", "lib_ms", "bound_ms", "ops_ms",
+                "bytes_ms"):
+        per_scene[key] = sum(n * res[(si, torch.bfloat16)][key]
+                             for si, n in enumerate(launches_per_stage))
+    print("phase 3b K4 per scene of the bf16 main path ("
+          f"{sum(launches_per_stage)} launches at "
+          f"{list(launches_per_stage)} per stage), ms: "
+          + json.dumps({k: round(v, 4) for k, v in per_scene.items()}))
+    per_scene["err_a"] = max(res[(si, torch.float32)]["err_a"] for si in range(3))
+    per_scene["err_b"] = max(res[(si, torch.float32)]["err_b"] for si in range(3))
+    return per_scene
+
+
+def staged(model, batch, psm=None):
+    """encode / single_psm / fuse of one batch; ``psm`` replaces this
+    model's single-agent confidence so that two backends fuse with the same
+    comm mask (a confidence within rounding of the 0.01 threshold would
+    otherwise decide the comparison)."""
+    with torch.inference_mode():
+        x = model.encode(batch)
+        own = model.single_psm(x)
+        use = own if psm is None else psm.to(own.device, own.dtype)
+        out = model.fuse(x, use, batch["agent_mask"])
+    return own, out
+
+
+def compare(label, got, want, keys, tol=TINY_TOL):
+    errs, scales = {}, {}
+    for k in keys:
+        g, w = got[k].detach().cpu().double(), want[k].detach().cpu().double()
+        errs[k] = float((g - w).abs().max())
+        scales[k] = float(w.abs().max())
+        lim = tol * (1 + scales[k])
+        if not (bool(torch.isfinite(g).all()) and errs[k] <= lim):
+            raise AssertionError(f"{label} {k}: {errs[k]} > {lim}")
+    print(f"{label}: max abs err {errs} (tol {tol} x (1 + scale); scale "
+          f"{scales})")
+
+
 def phase_tiny():
-    """The tiny config on the card against the same weights on the CPU."""
+    """The tiny configs on the card against the same weights on the CPU."""
+    from airv2x_tpu_torch import kernels
     from airv2x_tpu_torch.config import load_yaml
     from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_scene
     from airv2x_tpu_torch.models import build_model
@@ -244,37 +449,153 @@ def phase_tiny():
     from airv2x_tpu_torch.utils.weights import init_random_
 
     set_tf32(False)
-    hypes = load_yaml(TINY)
-    outs = {}
+    det = load_yaml(TINY)
+    seg = copy.deepcopy(det)
+    seg["task"] = seg["model"]["args"]["task"] = "seg"
     b, _ = make_scene(np.random.default_rng(2),
-                      SlotLayout.from_args(hypes["model"]["args"]),
+                      SlotLayout.from_args(det["model"]["args"]),
                       num_objects=6, points_per_agent=2048, pts_per_box=60,
-                      lidar_range=hypes["preprocess"]["cav_lidar_range"])
-    for dev in ("cpu", "cuda"):
-        model = init_random_(build_model(hypes, device=dev), seed=3)
-        with torch.inference_mode():
-            outs[dev] = model(batch_to_torch({k: v[None] for k, v in b.items()},
-                                             dev))
-    errs = {}
-    for k in ("psm", "rm", "obj", "comm_rate"):
-        got, want = outs["cuda"][k].cpu().double(), outs["cpu"][k].double()
-        errs[k] = float((got - want).abs().max())
-        lim = TINY_TOL * (1 + float(want.abs().max()))
-        if not (torch.isfinite(got).all() and errs[k] <= lim):
-            raise AssertionError(f"tiny {k}: card vs CPU {errs[k]} > {lim}")
-    print(f"phase 4 tiny model card vs CPU: max abs err {errs} "
-          f"(tol {TINY_TOL} x (1 + scale))")
+                      lidar_range=det["preprocess"]["cav_lidar_range"])
+    batch = {d: batch_to_torch({k: v[None] for k, v in b.items()}, d)
+             for d in ("cpu", "cuda")}
+    for name, hypes, mode, keys in (
+            ("det auto", det, "auto", ("psm", "rm", "obj", "comm_rate")),
+            ("det pallas", det, "pallas", ("psm", "rm", "obj", "comm_rate")),
+            ("seg auto", seg, "auto",
+             ("dynamic_seg", "static_seg", "comm_rate")),
+            ("seg pallas", seg, "pallas",
+             ("dynamic_seg", "static_seg", "comm_rate"))):
+        models = {d: init_random_(build_model(hypes, device=d), seed=3)
+                  for d in ("cpu", "cuda")}
+        kernels.reset_launch_counts()
+        with conv_mode(mode):
+            psm_cpu, want = staged(models["cpu"], batch["cpu"])
+            psm_card, got = staged(models["cuda"], batch["cuda"], psm_cpu)
+        torch.cuda.synchronize()
+        convs = kernels.LAUNCHES["conv3x3"]
+        if (convs > 0) != (mode == "pallas"):
+            raise AssertionError(f"tiny {name}: {convs} conv3x3 launches")
+        compare(f"phase 4 tiny {name} card vs CPU ({convs} conv3x3 launches)",
+                {"single": psm_card, **got}, {"single": psm_cpu, **want},
+                ("single",) + keys)
 
 
-def phase_flagship(hypes, model, scenes):
+def phase_f32_pallas(model, batch):
+    """One flagship scene, f32 with TF32 off: ``pallas`` against ``auto``.
+
+    cuDNN picks its f32 algorithms by its fixed heuristics here, not by
+    timing, so the reference rounds the same way in every run. Checked:
+    the single-agent confidence of all six agents (16 K4a launches on the
+    scene's data), and psm / rm / obj of the scene with only the ego agent
+    in ``agent_mask`` (32 launches), where the ego attention is the
+    identity. With every agent present the attention's softmax over large
+    random-weight scores amplifies any rounding difference: the fused
+    outputs of ``pallas``, of ``im2col`` (the same BN fold, no kernel) and
+    of ``auto`` with timing-picked algorithms are printed beside it, not
+    checked. Both fusions take auto's confidence, so the comm mask is the
+    same."""
     from airv2x_tpu_torch import kernels
+
+    set_tf32(False)
+    ego = dict(batch)
+    ego["agent_mask"] = batch["agent_mask"].clone()
+    ego["agent_mask"][:, 1:] = False
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        with conv_mode("auto"):
+            psm_auto, want = staged(model, batch)
+            _, want_ego = staged(model, ego)
+        fused = {}
+        for mode in ("pallas", "im2col"):
+            kernels.reset_launch_counts()
+            with conv_mode(mode):
+                psm_mode, fused[mode] = staged(model, batch, psm_auto)
+            if mode == "pallas":
+                psm_kernel = psm_mode
+                kernels.reset_launch_counts()
+                with conv_mode(mode):
+                    _, got_ego = staged(model, ego)
+                torch.cuda.synchronize()
+                n = kernels.LAUNCHES["conv3x3"]
+        cudnn.benchmark, cudnn.deterministic = True, False
+        with conv_mode("auto"):
+            _, fused["auto, timing-picked algorithms"] = staged(
+                model, batch, psm_auto)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    print("phase 4a flagship f32, all agents, fused outputs against auto, "
+          "max abs err (not checked): " + json.dumps(
+              {name: {k: float((out[k] - want[k]).abs().max())
+                      for k in ("psm", "rm", "obj")}
+               for name, out in fused.items()}))
+    compare("phase 4a flagship f32 pallas vs auto, all agents, single-agent "
+            "confidence", {"single_psm": psm_kernel},
+            {"single_psm": psm_auto}, ("single_psm",))
+    compare(f"phase 4a flagship f32 pallas vs auto, ego agent only ({n} "
+            "conv3x3 launches)", got_ego, want_ego, ("psm", "rm", "obj"))
+    return n
+
+
+def time_path(label, stages, step, scenes, want):
+    """Warm-up, then ``N_RUNS`` timed runs over ``scenes``. ``step(batch,
+    ev, host)`` runs one scene, recording device events and host clocks at
+    the stage boundaries. Launch counts are reset just before the timed
+    runs and must equal ``want`` (per scene) times the scenes run."""
+    from airv2x_tpu_torch import kernels
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True)
+                for _ in range(len(stages) + 1)]
+
+    for batch in scenes:  # warm-up: allocator, cuDNN algorithm choice
+        step(batch, events(), [])
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    evs = [events() for _ in range(N_RUNS * len(scenes))]
+    hosts = [[] for _ in evs]
+    run_ms = []
+    kernels.reset_launch_counts()
+    for r in range(N_RUNS):
+        mine = range(r * len(scenes), (r + 1) * len(scenes))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [step(scenes[i - mine.start], evs[i], hosts[i]) for i in mine]
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) / len(scenes) * 1e3)
+        if r == 0:
+            results = outs  # checked by the caller
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    stage_ms = {s: statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in evs)
+                for i, s in enumerate(stages)}
+    host_ms = {s: statistics.median(h[i + 1] - h[i] for h in hosts) * 1e3
+               for i, s in enumerate(stages)}
+    ms = statistics.median(run_ms)
+    print(f"{label}: {ms:.3f} ms/scene, {1e3 / ms:.3f} scenes/s "
+          f"(median of {N_RUNS} runs of {len(scenes)} scenes; ms/scene of each "
+          f"run {[round(r, 3) for r in run_ms]})")
+    print(f"{label} stage ms/scene, median of {len(evs)} scenes, device clock: "
+          + json.dumps({k: round(v, 4) for k, v in stage_ms.items()}))
+    print(f"{label} stage ms/scene, median, host clock (launch, no sync): "
+          + json.dumps({k: round(v, 4) for k, v in host_ms.items()}))
+    print(f"{label} peak memory {peak / 2**20:.1f} MiB")
+    print(f"{label} launches during the timed runs: {launches}")
+    n = N_RUNS * len(scenes)
+    expect = {k: want.get(k, 0) * n for k in launches}
+    if launches != expect:
+        raise AssertionError(f"{label}: launch counts {launches}, expected "
+                             f"{expect}")
+    return dict(ms=ms, launches=launches, results=results, events=events)
+
+
+def det_step(hypes, model):
     from airv2x_tpu_torch.data.postprocess import decode_detections
     from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
-    torch.backends.cudnn.benchmark = True  # fixed shapes: pick conv algos once
-    model = model.to(torch.bfloat16)
     anchors = torch.from_numpy(
         generate_anchor_grid(hypes["postprocess"]["anchor_args"])).cuda()
     lidar_range = torch.tensor(hypes["preprocess"]["cav_lidar_range"],
@@ -306,46 +627,11 @@ def phase_flagship(hypes, model, scenes):
             host.append(time.perf_counter())
         return out, det
 
-    def events():
-        return [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    return run, anchors.shape[:2]
 
-    for batch in scenes:  # warm-up: allocator, cuDNN algorithm choice
-        run(batch, events(), [])
-    torch.cuda.synchronize()
 
-    # the same scenes N_RUNS times: the host's noise shows as the spread
-    torch.cuda.reset_peak_memory_stats()
-    evs = [events() for _ in range(N_RUNS * len(scenes))]
-    hosts = [[] for _ in evs]
-    run_ms = []
-    kernels.reset_launch_counts()
-    for r in range(N_RUNS):
-        mine = range(r * len(scenes), (r + 1) * len(scenes))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = [run(scenes[i - mine.start], evs[i], hosts[i]) for i in mine]
-        torch.cuda.synchronize()
-        run_ms.append((time.perf_counter() - t0) / len(scenes) * 1e3)
-        if r == 0:
-            results = outs  # checked below
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-
-    stage_ms = {s: statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in evs)
-                for i, s in enumerate(STAGES)}
-    host_ms = {s: statistics.median(h[i + 1] - h[i] for h in hosts) * 1e3
-               for i, s in enumerate(STAGES)}
-    ms = statistics.median(run_ms)
-    print(f"phase 5 flagship: {ms:.3f} ms/scene, {1e3 / ms:.3f} scenes/s "
-          f"(median of {N_RUNS} runs of {len(scenes)} scenes; ms/scene of each "
-          f"run {[round(r, 3) for r in run_ms]})")
-    print(f"phase 5 stage ms/scene, median of {len(evs)} scenes, device clock: "
-          + json.dumps({k: round(v, 4) for k, v in stage_ms.items()}))
-    print("phase 5 stage ms/scene, median, host clock (launch, no sync): "
-          + json.dumps({k: round(v, 4) for k, v in host_ms.items()}))
-    print(f"phase 5 peak memory {peak / 2**20:.1f} MiB")
-
-    h, w = anchors.shape[:2]
+def check_det(label, results, hw):
+    h, w = hw
     kept, passes, rates = [], [], []
     for out, det in results:
         assert tuple(out["psm"].shape) == (1, h, w, 14), out["psm"].shape
@@ -362,21 +648,102 @@ def phase_flagship(hypes, model, scenes):
         kept.append(int(det.mask.sum()))
         passes.append(det.nms_passes)
         rates.append(round(rate, 4))
-    print(f"phase 5 kept detections per scene {kept}; NMS passes per scene "
+    print(f"{label} kept detections per scene {kept}; NMS passes per scene "
           f"{passes}; comm_rate per scene {rates}")
-    print(f"phase 5 launches during the timed runs: {launches}")
-    n = N_RUNS * len(scenes)
-    want = {"pillar_encode": 3 * n, "quad_iou": n}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
     if not any(kept):
         raise AssertionError("no detection survived decode")
-    return launches, run, events
 
 
-def phase_profile(run, events, scenes):
-    """Device time by kernel over a few scenes of the main path, and the
-    device's idle share of that window (torch.profiler / CUPTI)."""
+def phase_flagship(hypes, model, scenes, convs_per_scene):
+    """Phase 5: the det path under ``auto`` (as slice 1), then ``pallas``."""
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    torch.backends.cudnn.benchmark = True  # fixed shapes: pick conv algos once
+    run, hw = det_step(hypes, model)
+    res = {}
+    for mode in ("auto", "pallas"):
+        want = {"pillar_encode": 3, "quad_iou": 1}
+        if mode == "pallas":
+            want["conv3x3"] = convs_per_scene
+        label = "phase 5 flagship" + (" pallas" if mode == "pallas" else "")
+        with conv_mode(mode):
+            res[mode] = time_path(label, DET_STAGES, run, scenes, want)
+        check_det(label, res[mode]["results"], hw)
+    a, p = (res[m]["results"][0][0] for m in ("auto", "pallas"))
+    print("phase 5 scene 0, bf16, [max|pallas - auto|, max|auto|]: "
+          + json.dumps({k: [float((p[k].float() - a[k].float()).abs().max()),
+                            float(a[k].float().abs().max())]
+                        for k in ("psm", "rm", "obj")}))
+    return res, run
+
+
+def seg_step(model):
+    from airv2x_tpu_torch.data.postprocess import decode_segmentation
+
+    def run(batch, ev, host):
+        with torch.inference_mode():
+            host.append(time.perf_counter())
+            ev[0].record()
+            x = model.encode(batch)
+            ev[1].record()
+            host.append(time.perf_counter())
+            conf = model.single_psm(x)
+            ev[2].record()
+            host.append(time.perf_counter())
+            out = model.fuse(x, conf, batch["agent_mask"])
+            ev[3].record()
+            host.append(time.perf_counter())
+            maps = decode_segmentation(out["dynamic_seg"], out["static_seg"])
+            ev[4].record()
+            host.append(time.perf_counter())
+        return out, maps
+
+    return run
+
+
+def phase_seg(scenes, convs_per_scene):
+    """Phase 7: the LiDAR BEV-segmentation path in both conv modes."""
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    hypes = cut_hypes(SEG)
+    args = hypes["model"]["args"]
+    hw, ncls = args["seg_hw"], (args["dynamic_class"], args["static_class"])
+    model = init_random_(build_model(hypes, device="cuda"), seed=0)
+    cast_weights_(model, torch.bfloat16)
+    run = seg_step(model)
+    res = {}
+    for mode in ("auto", "pallas"):
+        want = {"pillar_encode": 3}
+        if mode == "pallas":
+            want["conv3x3"] = convs_per_scene
+        label = f"phase 7 seg {mode}"
+        with conv_mode(mode):
+            res[mode] = time_path(label, SEG_STAGES, run, scenes, want)
+            phase_profile(label, run, res[mode]["events"], scenes, top=10)
+        hists = []
+        for out, maps in res[mode]["results"]:
+            for key, m, c in zip(("dynamic_seg", "static_seg"), maps, ncls):
+                if tuple(out[key].shape) != (1, hw, hw, c) or not bool(
+                        torch.isfinite(out[key]).all()):
+                    raise AssertionError(f"{label} {key}: shape "
+                                         f"{tuple(out[key].shape)} or "
+                                         "non-finite")
+                if tuple(m.shape) != (1, hw, hw):
+                    raise AssertionError(f"{label} map {tuple(m.shape)}")
+            if not 0.0 <= float(out["comm_rate"]) <= 1.0:
+                raise AssertionError(f"comm_rate {float(out['comm_rate'])}")
+            hists.append([np.bincount(m.cpu().numpy().ravel(),
+                                      minlength=c).tolist()
+                          for m, c in zip(maps, ncls)])
+        print(f"{label} class histograms per scene [dynamic, static]: "
+              + json.dumps(hists))
+    return res
+
+
+def phase_profile(label, run, events, scenes, top=15):
+    """Device time by kernel over a few scenes of a path, and the device's
+    idle share of that window (torch.profiler / CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -400,27 +767,52 @@ def phase_profile(run, events, scenes):
             rows.append((us / 1e3 / n, e.count / n, e.key))
     busy = sum(r[0] for r in rows)
     if not busy:
-        print("phase 6 profile: no device time recorded (not measured)")
+        print(f"{label} profile: no device time recorded (not measured)")
         return
-    print(f"phase 6 profile over {n} scenes: device busy {busy:.3f} ms/scene "
+    print(f"{label} profile over {n} scenes: device busy {busy:.3f} ms/scene "
           f"of {wall_ms / n:.3f} ms/scene wall under the profiler, idle share "
           f"{1 - busy / (wall_ms / n):.3f}")
-    for ms, count, name in sorted(rows, reverse=True)[:15]:
+    for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.4f} ms/scene {count:6.1f}x/scene  {name[:100]}")
-    print(f"phase 6 clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
+    print(f"{label} clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from airv2x_tpu_torch.utils.weights import cast_weights_
+
     phase_build()
     hypes, model, scenes, gts = flagship_setup()
+    layer_nums = hypes["model"]["args"]["modality_fusion"][
+        "base_bev_backbone"]["layer_nums"]
+    # every stride-1 ConvBNReLU runs once in single_psm and once in the fusion
+    per_stage = tuple(2 * n for n in layer_nums)
+    convs = sum(per_stage)
+    assert convs == 32, layer_nums
     k1 = phase_k1(model, scenes[0])
     k2 = phase_k2(hypes, gts)
+    k3 = phase_k3()
+    k4 = phase_k4(per_stage)
     phase_tiny()
-    launches, run, events = phase_flagship(hypes, model, scenes)
-    phase_profile(run, events, scenes)
+    n_f32 = phase_f32_pallas(model, scenes[0])
+    if n_f32 != convs:
+        raise AssertionError(f"f32 pallas scene ran {n_f32} conv3x3 launches")
+    cast_weights_(model, torch.bfloat16)  # BatchNorm2d stays f32
+    det, run = phase_flagship(hypes, model, scenes, convs)
+    with conv_mode("auto"):
+        phase_profile("phase 6 flagship auto", run, det["auto"]["events"],
+                      scenes)
+    with conv_mode("pallas"):
+        phase_profile("phase 6 flagship pallas", run,
+                      det["pallas"]["events"], scenes, top=10)
+    seg = phase_seg(scenes, convs)
+    launches = {k: sum(r["launches"][k] for r in
+                       (det["auto"], det["pallas"], seg["auto"], seg["pallas"]))
+                for k in det["auto"]["launches"]}
+    print(f"launches over the timed main-path runs (phases 5 and 7): "
+          f"{launches}")
     k1_main = k1[torch.bfloat16]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",
@@ -437,6 +829,31 @@ def main() -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
+        {"name": "pillar_reduce", "route": "cuda",
+         "source": "airv2x_tpu_torch/csrc/pillar_reduce.cu",
+         "replaces": "airv2x_tpu/ops/pallas_pillars.py:69",
+         "launches": launches["pillar_reduce"], "max_abs_err": k3["err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "conv3x3", "route": "cuda",
+         "source": "airv2x_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "airv2x_tpu/ops/pallas_conv.py:99",
+         "launches": launches["conv3x3"], "max_abs_err": k4["err_a"],
+         "ms": k4["ms_a"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"],
+         "bound_by": ("operations" if k4["ops_ms"] >= k4["bytes_ms"]
+                      else "bytes"),
+         "library_ms": k4["lib_ms"]},
+        {"name": "conv3x3_allmaps", "route": "cuda",
+         "source": "airv2x_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "airv2x_tpu/ops/pallas_conv.py:113",
+         "launches": launches["conv3x3_allmaps"], "max_abs_err": k4["err_b"],
+         "ms": k4["ms_b"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"],
+         "bound_by": ("operations" if k4["ops_ms"] >= k4["bytes_ms"]
+                      else "bytes"),
+         "library_ms": k4["lib_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

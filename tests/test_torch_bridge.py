@@ -22,9 +22,9 @@ from airv2x_tpu_torch.models import build_model
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 from airv2x_tpu_torch.utils.weights import load_flax_variables
-from tests.torch_port_helpers import FLAGSHIP, REPO, TINY, random_variables
+from tests.torch_port_helpers import FLAGSHIP, REPO, SEG, TINY, random_variables
 
-CONFIGS = [TINY, FLAGSHIP]
+CONFIGS = [TINY, FLAGSHIP, SEG]
 
 
 def _assert_same_tree(a, b, path="hypes"):
@@ -43,12 +43,12 @@ def _assert_same_tree(a, b, path="hypes"):
         assert type(a) is type(b) and a == b, (path, a, b)
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship", "seg"])
 def test_load_yaml_matches_jax(cfg):
     _assert_same_tree(load_yaml(cfg), jax_load_yaml(cfg))
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship", "seg"])
 def test_make_scene_bit_identical(cfg):
     hypes = load_yaml(cfg)
     args = hypes["model"]["args"]
@@ -67,7 +67,7 @@ def test_make_scene_bit_identical(cfg):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship", "seg"])
 def test_anchor_grid_identical(cfg):
     aa = load_yaml(cfg)["postprocess"]["anchor_args"]
     got, want = generate_anchor_grid(aa), jax_anchor_grid(aa)
@@ -139,6 +139,10 @@ def test_port_imports_no_jax():
     files = glob.glob(os.path.join(REPO, "airv2x_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
+    names = {os.path.relpath(p, REPO) for p in files}
+    for module in ("ops/conv3x3.py", "ops/pillar_reduce.py", "ops/warp.py",
+                   "models/heads.py", "models/nn.py"):
+        assert os.path.join("airv2x_tpu_torch", module) in names, module
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]

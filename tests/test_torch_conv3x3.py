@@ -1,0 +1,186 @@
+"""K4's plain version, the im2col form, the support gates and the
+ConvBNReLU backends of the PyTorch port against the JAX package, whose
+Pallas conv runs in interpret mode here (as tests/test_pallas_conv.py runs
+it)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from airv2x_tpu.models.nn import ConvBNReLU as JaxConvBNReLU
+from airv2x_tpu.models.nn import PallasConv3x3 as JaxPallasConv3x3
+from airv2x_tpu.ops import pallas_conv as jconv
+from airv2x_tpu_torch.models.nn import ConvBNReLU, PallasConv3x3
+from airv2x_tpu_torch.ops.conv3x3 import (
+    conv3x3_im2col,
+    conv3x3_same,
+    conv3x3_same_plain,
+    supports_conv3x3,
+    supports_conv3x3_allmaps,
+)
+from airv2x_tpu_torch.utils.weights import load_flax_variables
+from tests.torch_port_helpers import (
+    assert_close, nchw_to_nhwc, nhwc_to_nchw, random_variables)
+
+TOL = 1e-4  # f32, as tests/test_pallas_conv.py
+TOL_BF16 = 2e-2  # bf16 output: both sides accumulate f32 over bf16 operands
+SHAPES = [
+    (2, 8, 16, 8, 16),   # aligned W
+    (1, 5, 11, 8, 8),    # W padded to the TPU's sublane tile
+    (3, 10, 24, 16, 8),  # Cout < Cin
+    (6, 13, 22, 8, 8),   # flagship-like: 6 maps, odd spatial
+]
+
+
+def _inputs(seed, b, h, w, c, co, affine=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, c, co)) * 0.1).astype(np.float32)
+    if not affine:
+        return x, k
+    s = (rng.standard_normal(co) * 0.5 + 1.0).astype(np.float32)
+    bias = rng.standard_normal(co).astype(np.float32)
+    return x, k, s, bias
+
+
+def _torch(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+@pytest.mark.parametrize("b,h,w,c,co", SHAPES)
+def test_plain_matches_pallas_f32(b, h, w, c, co, allmaps):
+    x, k = _inputs(0, b, h, w, c, co)
+    want = jconv.conv3x3_same(jnp.asarray(x), jnp.asarray(k), allmaps=allmaps,
+                              interpret=True)
+    got = conv3x3_same(*_torch(x, k), allmaps=allmaps)  # CPU: the plain version
+    assert got.shape == (b, h, w, co) and got.dtype == torch.float32
+    assert_close(got.numpy(), np.asarray(want), TOL, TOL, "conv3x3 f32")
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+def test_plain_matches_pallas_bf16(allmaps):
+    x, k = _inputs(1, 2, 6, 18, 16, 16)
+    want = jconv.conv3x3_same(jnp.asarray(x, jnp.bfloat16),
+                              jnp.asarray(k, jnp.bfloat16), allmaps=allmaps,
+                              interpret=True)
+    got = conv3x3_same_plain(*_torch(x, k, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float().numpy(), np.asarray(want, np.float32), TOL_BF16,
+                 TOL_BF16, "conv3x3 bf16")
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+def test_fused_affine_relu_epilogue(allmaps):
+    x, k, s, bias = _inputs(3, 2, 8, 16, 8, 16, affine=True)
+    want = jconv.conv3x3_same(*map(jnp.asarray, (x, k, s, bias)), relu=True,
+                              allmaps=allmaps, interpret=True)
+    got = conv3x3_same(*_torch(x, k, s, bias), relu=True, allmaps=allmaps)
+    assert_close(got.numpy(), np.asarray(want), TOL, TOL, "epilogue")
+    assert float(got.min()) == 0.0 and float(got.max()) > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_im2col_matches_jax(dtype):
+    x, k, s, bias = _inputs(4, 2, 7, 9, 8, 16, affine=True)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jconv.conv3x3_im2col(jnp.asarray(x, jdt), jnp.asarray(k, jdt),
+                                jnp.asarray(s), jnp.asarray(bias), relu=True)
+    xt, kt = _torch(x, k, dtype=dtype)
+    got = conv3x3_im2col(xt, kt, *_torch(s, bias), relu=True)
+    assert got.dtype == dtype and got.shape == (2, 7, 9, 16)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    assert_close(got.float().numpy(), np.asarray(want, np.float32), tol, tol,
+                 "im2col")
+
+
+GATE_CASES = [
+    ((6, 100, 352, 64), 64),
+    ((6, 25, 88, 256), 256),
+    ((6, 50, 176, 128), 128),
+    ((6, 100, 352, 256), 256),  # the 256-ch shrink at full BEV res
+    ((1, 16, 16, 12), 12),      # odd channel counts
+    ((2, 1, 16, 8), 8),         # too short
+    ((6, 200, 704, 64), 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,features", GATE_CASES)
+def test_support_gates_match_jax(shape, features, dtype):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    assert supports_conv3x3(shape, dtype, features) == \
+        jconv.supports_pallas_conv3x3(shape, jdt, features)
+    assert supports_conv3x3_allmaps(shape, dtype, features) == \
+        jconv.supports_pallas_conv3x3_allmaps(shape, jdt, features)
+
+
+@pytest.mark.parametrize("mode", ["xla", "auto", "pallas", "im2col"])
+def test_convbnrelu_modes_match_jax(monkeypatch, mode):
+    """Each port backend from the same flax variables against the JAX block
+    under the same ``AIRV2X_CONV_KERNEL`` (its Pallas branch in interpret
+    mode), and the torch cuDNN branch against the same flax block."""
+    x = np.random.default_rng(5).standard_normal((2, 8, 16, 8)).astype(
+        np.float32)
+    jblk = JaxConvBNReLU(8, dtype=jnp.float32)
+    var = random_variables(jblk, jnp.asarray(x), seed=6, train=False)
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", mode)
+    want = np.asarray(jblk.apply(var, jnp.asarray(x), False))
+    tblk = ConvBNReLU(8, 8).eval()
+    load_flax_variables(tblk, var)
+    with torch.no_grad():
+        got = tblk(nhwc_to_nchw(x))
+    assert_close(nchw_to_nhwc(got), want, 1e-5, 1e-5, mode)
+    assert np.abs(want).max() > 0
+
+
+def test_convbnrelu_pallas_refuses_outside_gate(monkeypatch):
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", "pallas")
+    blk = ConvBNReLU(12, 12).eval()
+    with torch.no_grad(), pytest.raises(ValueError, match="support gate"):
+        blk(torch.zeros(1, 12, 16, 16))
+    blk.train()  # training always takes the cuDNN branch
+    assert blk(torch.zeros(2, 12, 16, 16)).shape == (2, 12, 16, 16)
+
+
+def test_convbnrelu_fold_follows_weight_updates(monkeypatch):
+    """The folded (w, scale, bias) is cached; an in-place change of a BN
+    statistic or the conv weight must refresh it."""
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", "pallas")
+    blk = ConvBNReLU(8, 8).eval()
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, 8, 6, 7)).astype(np.float32))
+    with torch.no_grad():
+        first = blk(x)
+        blk.bn.running_var.mul_(4.0)
+        blk.conv.weight.add_(0.5)
+        second = blk(x)
+        monkeypatch.setenv("AIRV2X_CONV_KERNEL", "auto")
+        ref = blk(x)
+    assert not torch.equal(first, second)
+    torch.testing.assert_close(second, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_pallas_conv3x3_module_matches_jax():
+    x = np.random.default_rng(8).standard_normal((2, 7, 10, 8)).astype(
+        np.float32)
+    jmod = JaxPallasConv3x3(16, dtype=jnp.float32, interpret=True)
+    var = random_variables(jmod, jnp.asarray(x), seed=9)
+    want = np.asarray(jmod.apply(var, jnp.asarray(x)))
+    tmod = PallasConv3x3(8, 16)
+    load_flax_variables(tmod, var)
+    with torch.no_grad():
+        got = nchw_to_nhwc(tmod(nhwc_to_nchw(x)))
+    assert_close(got, want, TOL, TOL, "PallasConv3x3")
+
+
+def test_kernel_wrapper_checks_shapes():
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv3x3_same(x, torch.zeros(3, 3, 4, 8))
+    with pytest.raises(ValueError, match="scale"):
+        conv3x3_same(x, torch.zeros(3, 3, 8, 8), torch.ones(4))
+

@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from airv2x_tpu_torch import kernels
+from airv2x_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
 from airv2x_tpu_torch.ops.pillar_encode import pillar_encode, pillar_encode_plain
+from airv2x_tpu_torch.ops.pillar_reduce import (
+    FEAT, LANES, NEG, pillar_reduce, pillar_reduce_plain)
 from airv2x_tpu_torch.ops.quad_iou import quad_iou, quad_iou_plain
 
 pytestmark = pytest.mark.gpu
@@ -150,8 +153,68 @@ def test_tiny_model_on_card_matches_cpu(cuda):
         outs[d] = out
     torch.cuda.synchronize()
     # the card ran its kernels: one K1 per agent type, one K2
-    assert kernels.LAUNCHES == {"pillar_encode": 3, "quad_iou": 1}
+    assert kernels.LAUNCHES == {"pillar_encode": 3, "quad_iou": 1,
+                                "pillar_reduce": 0, "conv3x3": 0,
+                                "conv3x3_allmaps": 0}
     for k in ("psm", "rm", "obj", "comm_rate"):
         torch.testing.assert_close(outs["cuda"][k].cpu(), outs["cpu"][k],
                                    atol=1e-4, rtol=1e-4)
     assert int(dets["cuda"].mask.sum()) > 0
+
+
+@pytest.mark.parametrize("m,n,cells", [(3, 20000, 140800), (2, 137, 50)])
+def test_pillar_reduce_kernel_matches_plain(cuda, m, n, cells):
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, cells + 1, (m, n)).astype(np.int32)  # incl. dump
+    ids[:, :16] = cells // 3  # a hot cell
+    vals = rng.normal(size=(m, n, LANES)).astype(np.float32)
+    vals[..., :FEAT] = np.where(rng.uniform(size=(m, n, 1)) > 0.2,
+                                vals[..., :FEAT], NEG)
+    vals[0, :4, :FEAT] = -0.0
+    ids_t, vals_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(vals).to(cuda)
+    before = kernels.LAUNCHES["pillar_reduce"]
+    got = pillar_reduce(ids_t, vals_t, cells)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pillar_reduce"] == before + 1
+    ref = pillar_reduce_plain(ids_t, vals_t, cells)
+    assert got.shape == (m, cells + 8, LANES)
+    assert torch.equal(got[..., :FEAT], ref[..., :FEAT])  # maxima are exact
+    # the sums: atomic adds in run-dependent order
+    torch.testing.assert_close(got[..., FEAT:], ref[..., FEAT:], atol=1e-4,
+                               rtol=1e-4)
+
+
+# the flagship backbone's stage shapes (6 maps), ragged edges, Cout < 64
+CONV_SHAPES = [(6, 100, 352, 64, 64), (6, 50, 176, 128, 128),
+               (6, 25, 88, 256, 256), (3, 13, 22, 8, 8), (2, 9, 17, 16, 24)]
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c,co", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(cuda, b, h, w, c, co, dtype, allmaps):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32))
+    k = torch.from_numpy((rng.normal(size=(3, 3, c, co))
+                          * np.sqrt(2 / (9 * c))).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, co).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.2, co).astype(np.float32))
+    x, k = x.to(cuda, dtype), k.to(cuda, dtype)
+    s, bias = s.to(cuda), bias.to(cuda)
+    key = "conv3x3_allmaps" if allmaps else "conv3x3"
+    before = kernels.LAUNCHES[key]
+    got = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    ref = conv3x3_same_plain(x, k, s, bias, relu=True)
+    assert got.shape == (b, h, w, co) and got.dtype == dtype
+    if dtype == torch.float32:  # f32 sums in another order, no TF32
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(got, ref, atol=1e-4 * (1 + scale), rtol=0)
+    else:  # one bf16 rounding of the output, as tests/test_pallas_conv.py
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    nobias = conv3x3_same(x, k, allmaps=allmaps)
+    torch.testing.assert_close(nobias.float(), conv3x3_same_plain(x, k).float(),
+                               atol=2e-2, rtol=2e-2)

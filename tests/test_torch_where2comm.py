@@ -66,11 +66,11 @@ def slice_run():
         x = tmodel.encode(tbatch)
         psm_single = tmodel.single_psm(x)
         got = tmodel.fuse(x, psm_single, tbatch["agent_mask"])
-    return hypes, batch, want, got, psm_single
+    return hypes, batch, want, got, psm_single, (jmodel, var, tmodel)
 
 
 def test_single_agent_confidence_far_from_threshold(slice_run):
-    _, _, _, _, psm_single = slice_run
+    _, _, _, _, psm_single, _ = slice_run
     conf = gaussian_smooth(torch.sigmoid(psm_single.double()).amax(1), 5, 1.0)
     gap = float((conf - 0.01).abs().min())
     assert gap > 1e-4, f"a smoothed confidence lies {gap:.2e} from 0.01"
@@ -79,7 +79,7 @@ def test_single_agent_confidence_far_from_threshold(slice_run):
 
 
 def test_outputs_match_jax(slice_run):
-    _, _, want, got, _ = slice_run
+    _, _, want, got, _, _ = slice_run
     for k in ("psm", "rm", "obj"):
         assert tuple(got[k].shape) == want[k].shape
         assert want[k].shape[:3] == (2, 48, 48)
@@ -93,7 +93,7 @@ def test_outputs_match_jax(slice_run):
 
 
 def test_decode_keep_masks_identical(slice_run):
-    hypes, _, want, got, _ = slice_run
+    hypes, _, want, got, _, _ = slice_run
     anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
     lr = np.asarray(hypes["preprocess"]["cav_lidar_range"], np.float32)
     kw = dict(num_class=hypes["num_class"],
@@ -123,3 +123,18 @@ def test_decode_keep_masks_identical(slice_run):
         assert gap > 1e-4, f"an IoU lies {gap:.2e} from the NMS threshold"
         np.testing.assert_array_equal(keep["torch"], keep["jax"])
         assert 0 < keep["jax"].sum() < TOP_K
+
+
+def test_outputs_match_jax_pallas_conv(slice_run, monkeypatch):
+    """Both packages under ``AIRV2X_CONV_KERNEL=pallas``: the JAX Pallas conv
+    in interpret mode, the port's K4 plain version on the CPU."""
+    _, batch, _, _, _, (jmodel, var, tmodel) = slice_run
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", "pallas")  # read at trace time
+    want = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
+        var, jnp_tree(batch))
+    with torch.no_grad():
+        got = tmodel(batch_to_torch(batch, "cpu"))
+    for k in ("psm", "rm", "obj"):
+        assert_close(got[k].numpy(), np.asarray(want[k]), TOL, TOL, k)
+    assert float(got["comm_rate"]) == pytest.approx(float(want["comm_rate"]),
+                                                    abs=1e-6)

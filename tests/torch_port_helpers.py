@@ -18,6 +18,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
 FLAGSHIP = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml")
+SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -68,3 +69,11 @@ def assert_close(got, want, atol, rtol, what=""):
 
 def jnp_tree(batch: dict) -> dict:
     return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def tiny_seg(hypes: dict) -> dict:
+    """The tiny config (TINY, loaded by either package) turned into the
+    BEV-segmentation task: ``task: seg`` at the top and in the model args."""
+    hypes["task"] = "seg"
+    hypes["model"]["args"]["task"] = "seg"
+    return hypes
