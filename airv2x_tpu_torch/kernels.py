@@ -11,6 +11,8 @@ with ``ctypes``. The file name carries a hash of the source and of the shared
 headers (``csrc/*.cuh``), so an edited source or header is rebuilt.
 ``build_all`` starts one ``nvcc`` per source at once.
 
+``conv3x3.cu`` also links ``-lcuda`` (``_EXTRA_FLAGS``).
+
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. ``LAUNCHES`` counts wrapper calls that launched a kernel:
 the wrappers add one there and nowhere else.
@@ -47,10 +49,14 @@ _SIGNATURES = {
     },
     "conv3x3": {
         # x, w, scale, bias, out, B, H, W, Cin, Cout, relu, allmaps, bf16,
-        # stream
-        "conv3x3": [_P] * 5 + [_I] * 8 + [_P],
+        # tile_h, tile_w, maps, wgs, mr, block_n, a_stages, b_stages, stream
+        "conv3x3": [_P] * 5 + [_I] * 16 + [_P],
     },
 }
+
+# extra nvcc arguments per source: conv3x3.cu encodes TMA tensor maps with
+# cuTensorMapEncodeTiled from libcuda (nvcc links its stub)
+_EXTRA_FLAGS = {"conv3x3": ["-lcuda"]}
 
 # one count per kernel; conv3x3.cu serves two: K4a (a grid over maps) and
 # K4b (every map in one block's loop), counted apart
@@ -96,7 +102,7 @@ def _start_build(name: str):
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
         "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
-    ]
+    ] + _EXTRA_FLAGS.get(name, [])
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, target, tmp
@@ -149,6 +155,8 @@ def check(name: str, err: int) -> None:
 
 
 def current_stream() -> int:
+    """The raw handle of the current device's current stream (without
+    building a ``torch.cuda.Stream``: this runs once per launch)."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

@@ -6,7 +6,9 @@ CUDA kernels against the kernel's plain PyTorch version.
 Phases; a failure in any of them ends the run with a non-zero exit code:
 
   1. the card's name and power limit; build the kernels (one nvcc per
-     source, all started together) and print the build seconds;
+     source, all started together) and print the build seconds, each
+     kernel's registers, and K4's bf16 tile plans at the backbone stages
+     with their dynamic shared memory;
   2. K1, the pillar encode, against its plain version at the flagship
      vehicle call (3 maps x 20,000 points of ``make_scene``, 704 x 200 grid,
      C = 64), f32 with TF32 off; CUDA-event times of both;
@@ -21,7 +23,9 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      25x88x256), bf16 and f32 with TF32 off, against its plain version;
      times of both forms, the plain version and the library call for the
      same function (the ``auto``-mode ConvBNReLU: cuDNN conv, BN, ReLU),
-     and the bound per launch;
+     and the bound per launch; per stage in bf16, each form's share of the
+     bound and ratio to the library time, and the host microseconds of one
+     ``conv3x3_same`` call beside one cuDNN ``ConvBNReLU`` call;
   4. the tiny configs on the card against the same weights on the CPU (the
      plain versions, which the CPU tests hold against the JAX package):
      det under ``auto`` and under ``pallas``, and seg;
@@ -100,11 +104,19 @@ TINY_TOL = 1e-4  # whole-model outputs through ~40 conv layers, f32
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. A spin
+    kernel holds the card while the host enqueues the calls, so the events
+    time the device's work and not the host's launch cost (which can exceed
+    a short kernel's run time)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (1.5 * iters * host_s + 1e-3)))  # ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -139,8 +151,21 @@ def conv_mode(mode: str):
             os.environ["AIRV2X_CONV_KERNEL"] = old
 
 
+def host_us(fn, iters: int = 50) -> float:
+    """Host microseconds per call of ``fn`` (launch cost: no sync inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def phase_build():
     from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.ops.conv3x3 import conv3x3_plan
 
     print(smi("name,power.limit"))
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
@@ -150,9 +175,26 @@ def phase_build():
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s for "
           f"{sorted(logs)}")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+                # conv3x3_wgmma_kernel<WG, MR, BN>: ..ILi2ELi1ELi64EE..
+                if "wgmma_kernel" in entry:
+                    args = entry.split("wgmma_kernelI", 1)[1].split("EE")[0]
+                    entry = "conv3x3_wgmma_kernel<%s>" % ", ".join(
+                        a for a in args.replace("Li", "").split("E") if a)
             if "Used" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name}: {entry[:60]}: {line.strip()}")
+    for shape in K4_STAGES:
+        b, h, w, c = shape
+        for allmaps in (False, True):
+            p = conv3x3_plan(b, h, w, c, c, torch.bfloat16, allmaps)
+            print(f"  K4{'b' if allmaps else 'a'} bf16 plan {shape}: "
+                  f"{p.maps} map(s) x {p.tile_h}x{p.tile_w} pixels x "
+                  f"{p.block_n} outputs, kernel <{p.wgs}, {p.mr}, "
+                  f"{p.block_n}>, rings A {p.a_stages} / B {p.b_stages}, "
+                  f"{p.n_blocks} blocks, {p.smem_bytes} B dynamic smem")
 
 
 def cut_hypes(path: str) -> dict:
@@ -393,6 +435,15 @@ def phase_k4(launches_per_stage):
                   f"{ms_b:.4f}, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
                   f"bound {bound_ms:.4f} (operations {ops_ms:.4f}, bytes "
                   f"{bytes_ms:.4f})")
+            if dt == torch.bfloat16:
+                us = host_us(lambda: conv3x3_same(*args, relu=True))
+                with torch.inference_mode(), conv_mode("auto"):
+                    lib_us = host_us(lambda: blk(xl))
+                print(f"phase 3b K4 {shape} bf16: share of bound K4a "
+                      f"{bound_ms / ms_a:.3f}, K4b {bound_ms / ms_b:.3f}; "
+                      f"time / library K4a {ms_a / lib_ms:.3f}, K4b "
+                      f"{ms_b / lib_ms:.3f}; host us per call: conv3x3_same "
+                      f"{us:.1f}, cuDNN ConvBNReLU {lib_us:.1f}")
             res[(si, dt)] = dict(err_a=errs[False], err_b=errs[True],
                                  ms_a=ms_a, ms_b=ms_b, plain_ms=plain_ms,
                                  lib_ms=lib_ms, bound_ms=bound_ms,
@@ -408,6 +459,11 @@ def phase_k4(launches_per_stage):
           f"{sum(launches_per_stage)} launches at "
           f"{list(launches_per_stage)} per stage), ms: "
           + json.dumps({k: round(v, 4) for k, v in per_scene.items()}))
+    print(f"phase 3b K4 per scene, bf16: share of bound K4a "
+          f"{per_scene['bound_ms'] / per_scene['ms_a']:.3f}, K4b "
+          f"{per_scene['bound_ms'] / per_scene['ms_b']:.3f}; time / library "
+          f"K4a {per_scene['ms_a'] / per_scene['lib_ms']:.3f}, K4b "
+          f"{per_scene['ms_b'] / per_scene['lib_ms']:.3f}")
     per_scene["err_a"] = max(res[(si, torch.float32)]["err_a"] for si in range(3))
     per_scene["err_b"] = max(res[(si, torch.float32)]["err_b"] for si in range(3))
     return per_scene

@@ -13,13 +13,18 @@ from airv2x_tpu.models.nn import PallasConv3x3 as JaxPallasConv3x3
 from airv2x_tpu.ops import pallas_conv as jconv
 from airv2x_tpu_torch.models.nn import ConvBNReLU, PallasConv3x3
 from airv2x_tpu_torch.ops.conv3x3 import (
+    KERNELS,
+    SMEM_LIMIT,
+    bf16_plan,
     conv3x3_im2col,
+    conv3x3_plan,
     conv3x3_same,
     conv3x3_same_plain,
     supports_conv3x3,
     supports_conv3x3_allmaps,
 )
 from airv2x_tpu_torch.utils.weights import load_flax_variables
+from tests.test_torch_kernels_gpu import CONV_SHAPES
 from tests.torch_port_helpers import (
     assert_close, nchw_to_nhwc, nhwc_to_nchw, random_variables)
 
@@ -184,3 +189,66 @@ def test_kernel_wrapper_checks_shapes():
     with pytest.raises(ValueError, match="scale"):
         conv3x3_same(x, torch.zeros(3, 3, 8, 8), torch.ones(4))
 
+
+
+# the flagship backbone's three stages and every shape the card tests take
+PLAN_SHAPES = sorted(set(CONV_SHAPES) | {(6, 100, 352, 64, 64),
+                                         (6, 50, 176, 128, 128),
+                                         (6, 25, 88, 256, 256)})
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c,co", PLAN_SHAPES)
+def test_tile_plan_covers_every_output_once(b, h, w, c, co, dtype, allmaps):
+    """The blocks of the plan (the mapping conv3x3.cu computes from
+    blockIdx) cover every (map, pixel, output channel) exactly once, and
+    the bf16 plan fits one block's shared memory and an instantiation."""
+    plan = conv3x3_plan(b, h, w, c, co, dtype, allmaps)
+    hits = np.zeros((b, h, w, co), np.int8)
+    for maps, rows, cols, chans in plan.blocks(b):
+        hits[maps.start:maps.stop, rows.start:rows.stop,
+             cols.start:cols.stop, chans.start:chans.stop] += 1
+    assert hits.min() == 1 and hits.max() == 1
+    assert plan.smem_bytes <= SMEM_LIMIT
+    if allmaps:  # K4b: one launch row, each block walks every map
+        assert plan.grid[1] == 1 and plan.groups * plan.maps >= b
+    else:  # K4a: the maps are on the grid
+        assert plan.groups == 1 and plan.grid[1] * plan.maps >= b
+    if dtype == torch.bfloat16:
+        assert (plan.wgs, plan.mr, plan.block_n) in KERNELS
+        assert plan.maps * plan.tile_h * plan.tile_w == plan.wgs * plan.mr * 64
+        assert plan.tile_w % 8 == 0 and plan.tile_h * plan.tile_w % 64 == 0
+        assert plan.tile_w <= 256 and plan.tile_h + 2 <= 256
+        assert plan.maps <= 256 and plan.a_stages >= 2 and plan.b_stages >= 2
+
+
+def test_tile_plan_instantiations_match_the_source():
+    """``KERNELS`` lists exactly the instantiations conv3x3.cu compiles."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "airv2x_tpu_torch", "csrc", "conv3x3.cu")
+    with open(src) as f:
+        text = f.read()
+    block = text.split("#define CONV3X3_PLANS(X)")[1].split("\n\n")[0]
+    found = {tuple(int(v) for v in m)
+             for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", block)}
+    assert found == set(KERNELS)
+
+
+def test_tile_plan_reaches_every_instantiation():
+    """The card tests' shapes run every instantiation of the bf16 kernel."""
+    picked = {(p.wgs, p.mr, p.block_n) for p in (
+        conv3x3_plan(*shape, torch.bfloat16, allmaps)
+        for shape in PLAN_SHAPES for allmaps in (False, True))}
+    assert picked == set(KERNELS)
+
+
+def test_bf16_plan_refuses_partial_m64_blocks():
+    with pytest.raises(ValueError, match="m64"):
+        bf16_plan(2, 8, 8, 64, False, 2, 12, 64, maps=1, wgs=1, mr=1)
+    with pytest.raises(ValueError, match="m64"):  # 32 pixels per map
+        bf16_plan(2, 8, 8, 64, True, 2, 16, 64, maps=2, wgs=1, mr=1)

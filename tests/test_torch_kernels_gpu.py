@@ -184,9 +184,28 @@ def test_pillar_reduce_kernel_matches_plain(cuda, m, n, cells):
                                rtol=1e-4)
 
 
-# the flagship backbone's stage shapes (6 maps), ragged edges, Cout < 64
+# the flagship backbone's stage shapes (6 maps), ragged edges, Cout < 64,
+# and the edges of the bf16 tiling: Cin = 8 and 24 (one 64-channel box,
+# zero past Cin), Cin = 72 (a second, mostly empty box), Cout = 8 and 24
+# (below the 64-wide N tile), Cout = 264 (a second N tile), H = 2 and W = 2
+# (the gate's minimum), W one past a tile width (65, 129), B = 1, and B = 5,
+# whose last group of maps in a K4b block is partial; with the flagship
+# stages they reach every instantiation of the bf16 kernel
 CONV_SHAPES = [(6, 100, 352, 64, 64), (6, 50, 176, 128, 128),
-               (6, 25, 88, 256, 256), (3, 13, 22, 8, 8), (2, 9, 17, 16, 24)]
+               (6, 25, 88, 256, 256), (3, 13, 22, 8, 8), (2, 9, 17, 16, 24),
+               (1, 2, 2, 8, 8), (2, 2, 65, 24, 24), (1, 7, 129, 8, 16),
+               (3, 33, 2, 24, 8), (1, 5, 65, 72, 264), (2, 10, 129, 64, 128),
+               (2, 33, 129, 24, 136), (5, 9, 40, 64, 64)]
+
+
+def _conv_inputs(rng, b, h, w, c, co, dtype, device):
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32))
+    k = torch.from_numpy((rng.normal(size=(3, 3, c, co))
+                          * np.sqrt(2 / (9 * c))).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, co).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.2, co).astype(np.float32))
+    return (x.to(device, dtype), k.to(device, dtype), s.to(device),
+            bias.to(device))
 
 
 @pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
@@ -194,14 +213,8 @@ CONV_SHAPES = [(6, 100, 352, 64, 64), (6, 50, 176, 128, 128),
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,w,c,co", CONV_SHAPES)
 def test_conv3x3_kernel_matches_plain(cuda, b, h, w, c, co, dtype, allmaps):
-    rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32))
-    k = torch.from_numpy((rng.normal(size=(3, 3, c, co))
-                          * np.sqrt(2 / (9 * c))).astype(np.float32))
-    s = torch.from_numpy(rng.uniform(0.5, 1.5, co).astype(np.float32))
-    bias = torch.from_numpy(rng.normal(0, 0.2, co).astype(np.float32))
-    x, k = x.to(cuda, dtype), k.to(cuda, dtype)
-    s, bias = s.to(cuda), bias.to(cuda)
+    x, k, s, bias = _conv_inputs(np.random.default_rng(5), b, h, w, c, co,
+                                 dtype, cuda)
     key = "conv3x3_allmaps" if allmaps else "conv3x3"
     before = kernels.LAUNCHES[key]
     got = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
@@ -218,3 +231,33 @@ def test_conv3x3_kernel_matches_plain(cuda, b, h, w, c, co, dtype, allmaps):
     nobias = conv3x3_same(x, k, allmaps=allmaps)
     torch.testing.assert_close(nobias.float(), conv3x3_same_plain(x, k).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+def test_conv3x3_kernel_fresh_inputs_back_to_back(cuda, allmaps):
+    """Two inputs of one shape, one call each, then both checked: a result
+    that follows the first call's tensor (a stale tensor map, a reused
+    buffer) fails the second check."""
+    rng = np.random.default_rng(6)
+    shape = (2, 25, 88, 64, 128)
+    x1, k, s, bias = _conv_inputs(rng, *shape, torch.bfloat16, cuda)
+    x2 = _conv_inputs(rng, *shape, torch.bfloat16, cuda)[0]
+    got1 = conv3x3_same(x1, k, s, bias, relu=True, allmaps=allmaps)
+    got2 = conv3x3_same(x2, k, s, bias, relu=True, allmaps=allmaps)
+    torch.cuda.synchronize()
+    for x, got in ((x1, got1), (x2, got2)):
+        ref = conv3x3_same_plain(x, k, s, bias, relu=True)
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert not torch.equal(got1, got2)
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+def test_conv3x3_kernel_is_deterministic(cuda, allmaps):
+    """The bf16 kernel has no atomics: the same inputs give the same bits."""
+    x, k, s, bias = _conv_inputs(np.random.default_rng(7), 6, 25, 88, 256,
+                                 256, torch.bfloat16, cuda)
+    first = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
+    second = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
