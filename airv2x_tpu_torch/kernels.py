@@ -35,8 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are void*.
 _SIGNATURES = {
     "pillar_encode": {
-        # ids, feat, aux, params, maxbuf, sumbuf, out, m, n, cells, C, nx,
-        # inv_nx, vsx, vsy, cx0, cy0, cz, out_bf16, stream
+        # ids, feat, aux, params, table, rows (the workspace), out, m, n,
+        # cells, C, nx, inv_nx, vsx, vsy, cx0, cy0, cz, out_bf16, stream
         "pillar_encode": [_P] * 7 + [_I] * 5 + [_F] * 6 + [_I, _P],
     },
     "quad_iou": {

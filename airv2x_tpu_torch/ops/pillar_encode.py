@@ -63,15 +63,21 @@ def pillar_encode(ids, feat, aux, params, *, cells: int, nx: int,
         raise ValueError(f"pillar_encode: out_dtype {out_dtype} unsupported")
     m, n = ids.shape
     c = feat.shape[-1]
+    if cells * c >= 2**31 or m > 65535:  # 32-bit cell offsets, grid.y = m
+        raise ValueError(f"pillar_encode: {m} maps of {cells} cells x {c} "
+                         "channels is past the kernel's limits")
     dev = ids.device
-    maxbuf = torch.empty((m, cells, c), dtype=torch.float32, device=dev)
-    sumbuf = torch.empty((m, cells, 4), dtype=torch.float32, device=dev)
+    # workspace: the (m, cells) cell -> leader table, then the (m, n, C + 4)
+    # compact rows, which start 16-byte aligned
+    table_words = -(-m * cells // 4) * 4
+    ws = torch.empty(table_words + m * n * (c + 4), dtype=torch.int32,
+                     device=dev)
     out = torch.empty((m, cells, c), dtype=out_dtype, device=dev)
     vsx, vsy, cx0, cy0, cz = (float(v) for v in grid_consts)
     with torch.cuda.device(dev):
         err = kernels.lib("pillar_encode").pillar_encode(
             ids.data_ptr(), feat.data_ptr(), aux.data_ptr(), params.data_ptr(),
-            maxbuf.data_ptr(), sumbuf.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), ws.data_ptr() + 4 * table_words, out.data_ptr(),
             m, n, cells, c, nx, 1.0 / nx, vsx, vsy, cx0, cy0, cz,
             int(out_dtype == torch.bfloat16), kernels.current_stream(),
         )

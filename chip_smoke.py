@@ -9,9 +9,14 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      source, all started together) and print the build seconds, each
      kernel's registers, and K4's bf16 tile plans at the backbone stages
      with their dynamic shared memory;
-  2. K1, the pillar encode, against its plain version at the flagship
-     vehicle call (3 maps x 20,000 points of ``make_scene``, 704 x 200 grid,
-     C = 64), f32 with TF32 off; CUDA-event times of both;
+  2. K1, the pillar encode, against its plain version at three inputs of
+     the flagship vehicle call's shapes (3 maps x 20,000 points, 704 x 200
+     grid, C = 64): the ``make_scene`` call itself, a dense uniform cloud
+     and a hot cell; f32 and bf16 output, TF32 off, every empty cell +0.0
+     bits; per input its valid points and occupied cells, device times of
+     kernel and plain, the bytes bound and the share of it, the device time
+     of each of K1's launches, and the time of zero_() on a tensor of the
+     output's size, the write alone;
   3. K2, the rotated-quad IoU, against its plain version at 512 x 512, full
      and triangular, on the corners of decoded boxes around the scene's
      objects plus random quads; times of both;
@@ -39,8 +44,9 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      memory, kept detections, NMS passes, and the kernels' launch counts
      during the timed runs (K1 3x, K2 1x per scene); then the same under
      ``AIRV2X_CONV_KERNEL=pallas`` (K4a 32x per scene);
-  6. a torch.profiler window over 3 more scenes: device time by kernel and
-     the device's idle share, with the SM clock and power draw after it;
+  6. a torch.profiler window over 3 more scenes: device time by kernel,
+     K1's kernels summed, and the device's idle share, with the SM clock
+     and power draw after it;
   7. the LiDAR BEV-segmentation path (the seg config cut as in phase 5,
      the same 8 scenes, bf16) in ``auto`` and in ``pallas`` mode: ms/scene,
      stage times, peak memory, the decoded maps' class histograms, launch
@@ -95,7 +101,9 @@ K2_OPS_PER_PAIR = 722
 K4_STAGES = ((6, 100, 352, 64), (6, 50, 176, 128), (6, 25, 88, 256))
 
 K1_TOL = 1e-4  # f32: only the order of the atomic residual sums differs
-K1_TOL_BF16 = 1e-2  # bf16 output: one bf16 rounding of values up to ~10
+# bf16 output, absolute plus relative: one bf16 rounding (2^-8 relative)
+# of values that agree in f32 to K1_TOL
+K1_TOL_BF16 = 1e-2
 K2_TOL = 2e-5  # as tests/test_pallas_iou.py
 K3_TOL = 1e-4  # relative, the sums: only the order of the atomic adds
 K4_TOL = 1e-4  # x (1 + scale), f32: sums in another order, no TF32
@@ -227,7 +235,68 @@ def flagship_setup():
     return hypes, model, scenes, gts
 
 
+def k1_cases(ids, feat, aux, cells):
+    """K1's three inputs at the vehicle call's shapes: the ``make_scene``
+    call itself, a dense uniform cloud (every slot valid, ids uniform over
+    the cells) and a hot cell (every point of a map in one cell). The two
+    made-up clouds reuse the scene's valid point rows (features, weight and
+    residuals), drawn with replacement."""
+    rng = np.random.default_rng(5)
+    m, n = ids.shape
+    keep = (aux[..., 0] > 0).reshape(-1)
+    src_feat = feat.reshape(m * n, -1)[keep]
+    src_aux = aux.reshape(m * n, 4)[keep]
+    pick = torch.from_numpy(rng.integers(0, len(src_feat), (m, n))).cuda()
+    dense_feat = src_feat[pick].contiguous()
+    dense_aux = src_aux[pick].contiguous()
+    uniform = torch.from_numpy(
+        rng.integers(0, cells, (m, n)).astype(np.int32)).cuda()
+    hot = torch.from_numpy(np.repeat(
+        rng.integers(0, cells, (m, 1)).astype(np.int32), n, axis=1)).cuda()
+    return {"make_scene": (ids, feat, aux), "dense": (uniform, dense_feat,
+                                                      dense_aux),
+            "hot cell": (hot, dense_feat, dense_aux)}
+
+
+def k1_bytes(ids, feat, aux, params, out_dtype, cells):
+    """(bytes this input needs, bytes of every input tensor), each with the
+    output written once. The first reads the feature and aux rows of the
+    valid points only: a skipped point's id is all that must be read."""
+    m, n = ids.shape
+    c = feat.shape[-1]
+    out = m * cells * c * torch.empty((), dtype=out_dtype).element_size()
+    valid = int(((ids >= 0) & (ids < cells)).sum())
+    fixed = ids.numel() * 4 + params.numel() * 4 + out
+    return fixed + valid * (c + 4) * 4, fixed + m * n * (c + 4) * 4
+
+
+def device_us_by_kernel(fn, iters: int = 20) -> dict:
+    """Device microseconds per call of each kernel (and memset) that ``fn``
+    launches, from a torch.profiler window over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            out[name.split("(")[0].strip()] = round(us / iters, 2)
+    return out
+
+
 def phase_k1(model, scene):
+    """K1 against its plain version at three inputs of the vehicle call's
+    shapes, f32 and bf16 output: the values within tolerance, every empty
+    cell +0.0 bits; device times of both, the bound and the share of it."""
     from airv2x_tpu_torch.ops.pillar_encode import (
         pillar_encode, pillar_encode_plain)
 
@@ -241,30 +310,55 @@ def phase_k1(model, scene):
     c, cells = feat.shape[-1], kw["cells"]
     assert (m, n, c, cells) == (3, POINTS_PER_AGENT, 64, 140800), (m, n, c, cells)
     res = {}
-    for dt in (torch.float32, torch.bfloat16):
-        kw["out_dtype"] = dt
-        got = pillar_encode(ids, feat, aux, params, **kw)
-        ref = pillar_encode_plain(ids, feat, aux, params, **kw)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        tol = K1_TOL if dt == torch.float32 else K1_TOL_BF16
-        occupied = int((aux[..., 0] > 0).sum())
-        print(f"phase 2 K1 out {dt}: max|kernel - plain| = {err:.3e} "
-              f"(tol {tol}); {occupied} valid points, "
-              f"{int((got.float().abs().sum(-1) > 0).sum())} non-zero cells")
-        if not err <= tol:
-            raise AssertionError(f"K1 disagrees with its plain version: {err}")
-        ms = cuda_ms(lambda: pillar_encode(ids, feat, aux, params, **kw), 50)
-        plain_ms = cuda_ms(
-            lambda: pillar_encode_plain(ids, feat, aux, params, **kw), 10)
-        out_bytes = m * cells * c * torch.empty((), dtype=dt).element_size()
-        in_bytes = sum(t.numel() * t.element_size()
-                       for t in (ids, feat, aux, params))
-        bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        print(f"phase 2 K1 out {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms:.4f} ms (bytes: {in_bytes} in + "
-              f"{out_bytes} out)")
-        res[dt] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    for case, (cid, cfeat, caux) in k1_cases(ids, feat, aux, cells).items():
+        valid = (cid >= 0) & (cid < cells)
+        flat = (cid.long() + torch.arange(m, device="cuda")[:, None] * cells)
+        occupied = torch.zeros(m * cells, dtype=torch.bool, device="cuda")
+        occupied[flat[valid]] = True
+        occupied = occupied.view(m, cells)
+        for dt in (torch.float32, torch.bfloat16):
+            kw["out_dtype"] = dt
+            args = (cid, cfeat, caux, params)
+            got = pillar_encode(*args, **kw)
+            ref = pillar_encode_plain(*args, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            if dt == torch.float32:
+                ok = err <= K1_TOL
+            else:
+                ok = bool((diff <= K1_TOL_BF16 * (1 + ref.float().abs())).all())
+            bits = got.view(torch.int32 if dt == torch.float32 else torch.int16)
+            nonzero_empty = int((bits[~occupied] != 0).sum())
+            tol = (f"{K1_TOL}" if dt == torch.float32
+                   else f"{K1_TOL_BF16} x (1 + |plain|)")
+            print(f"phase 2 K1 {case} out {dt}: max|kernel - plain| = "
+                  f"{err:.3e} (tol {tol}); {int(valid.sum())} valid points, "
+                  f"{int(occupied.sum())} occupied cells of {m * cells}; "
+                  f"{nonzero_empty} empty-cell outputs not +0.0")
+            if not ok or nonzero_empty:
+                raise AssertionError(f"K1 {case} {dt} disagrees with its "
+                                     f"plain version: {err}, "
+                                     f"{nonzero_empty} empty-cell outputs")
+            ms = cuda_ms(lambda: pillar_encode(*args, **kw), 50)
+            plain_ms = cuda_ms(lambda: pillar_encode_plain(*args, **kw), 10)
+            need, whole = k1_bytes(cid, cfeat, caux, params, dt, cells)
+            bound_ms = need / HBM_BYTES_PER_S * 1e3
+            whole_ms = whole / HBM_BYTES_PER_S * 1e3
+            print(f"phase 2 K1 {case} out {dt}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({need} bytes: "
+                  f"ids, params, the valid points' rows, the output), share "
+                  f"{bound_ms / ms:.3f}; bound of every input tensor read "
+                  f"whole {whole_ms:.4f} ms, share {whole_ms / ms:.3f}")
+            print(f"phase 2 K1 {case} out {dt}: device us per call by kernel "
+                  "(torch.profiler, 20 calls): " + json.dumps(
+                      device_us_by_kernel(lambda: pillar_encode(*args, **kw))))
+            if case == "make_scene":  # the output's bytes written alone
+                fill_ms = cuda_ms(lambda: got.zero_(), 50)
+                print(f"phase 2 K1 out {dt}: zero_() of an output-sized tensor "
+                      f"{fill_ms:.4f} ms")
+            res[(case, dt)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms)
     return res
 
 
@@ -828,6 +922,10 @@ def phase_profile(label, run, events, scenes, top=15):
     print(f"{label} profile over {n} scenes: device busy {busy:.3f} ms/scene "
           f"of {wall_ms / n:.3f} ms/scene wall under the profiler, idle share "
           f"{1 - busy / (wall_ms / n):.3f}")
+    k1 = [r for r in rows if "k1_" in r[2]]  # csrc/pillar_encode.cu's kernels
+    print(f"{label} K1 kernels: {sum(r[0] for r in k1):.4f} ms/scene over "
+          f"{sum(r[1] for r in k1):.1f} launches/scene (its table memset "
+          "is counted with the other memsets)")
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.4f} ms/scene {count:6.1f}x/scene  {name[:100]}")
     print(f"{label} clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
@@ -869,13 +967,14 @@ def main() -> int:
                 for k in det["auto"]["launches"]}
     print(f"launches over the timed main-path runs (phases 5 and 7): "
           f"{launches}")
-    k1_main = k1[torch.bfloat16]  # the main path writes bf16
+    k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",
          "source": "airv2x_tpu_torch/csrc/pillar_encode.cu",
          "replaces": "airv2x_tpu/ops/pallas_pillars.py:203",
          "launches": launches["pillar_encode"],
-         "max_abs_err": k1[torch.float32]["err"], "ms": k1_main["ms"],
+         "max_abs_err": k1[("make_scene", torch.float32)]["err"],
+         "ms": k1_main["ms"],
          "plain_ms": k1_main["plain_ms"], "bound_ms": k1_main["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "quad_iou", "route": "cuda",

@@ -54,8 +54,8 @@ def test_pillar_encode_kernel_matches_plain(cuda, c, out_dtype):
     rng = np.random.default_rng(0)
     nx, ny, m, n = 704, 37, 3, 20000
     cells = nx * ny
-    args = [torch.from_numpy(a).to(cuda)
-            for a in _encode_inputs(rng, m, n, c, cells)]
+    inputs = _encode_inputs(rng, m, n, c, cells)
+    args = [torch.from_numpy(a).to(cuda) for a in inputs]
     kw = dict(cells=cells, nx=nx, out_dtype=out_dtype,
               grid_consts=(0.4, 0.4, -140.6, -7.2, -1.0))
     before = kernels.LAUNCHES["pillar_encode"]
@@ -65,8 +65,7 @@ def test_pillar_encode_kernel_matches_plain(cuda, c, out_dtype):
     ref = pillar_encode_plain(*args, **kw)
     assert got.shape == (m, cells, c) and got.dtype == out_dtype
     # residual sums are atomic adds in run-dependent order: a few f32 ulps
-    tol = 1e-4 if out_dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    _check_k1(got, ref, _occupied(inputs[0], cells), out_dtype)
 
 
 def test_pillar_encode_kernel_empty_cloud(cuda):
@@ -78,6 +77,125 @@ def test_pillar_encode_kernel_empty_cloud(cuda):
                         grid_consts=(1.0, 1.0, 0.5, 0.5, 0.0))
     assert out.shape == (2, 10, 8)
     assert float(out.abs().max()) == 0.0
+
+
+FLAGSHIP_GRID = dict(nx=704, ny=200, consts=(0.4, 0.4, -140.6, -39.8, -1.0))
+
+
+def _k1_case(kind, rng, c=64):
+    """K1 inputs at the flagship vehicle call (3 maps x 20,000 slots, a
+    704 x 200 grid) unless the case says otherwise:
+      sparse      ~30% valid slots as in make_scene: a quarter of the slots
+                  uniform ground points, ~1,000 points on 12 boxes, the rest
+                  skipped;
+      dense       every slot valid, ids uniform over the cells;
+      hot         every point of a map in one cell;
+      skipped     every id outside [0, cells);
+      n_gt_cells  5,000 points on a 40 x 25 grid (5 per cell on average)."""
+    nx, ny, m, n = FLAGSHIP_GRID["nx"], FLAGSHIP_GRID["ny"], 3, 20000
+    if kind == "n_gt_cells":
+        nx, ny, m, n = 40, 25, 2, 5000
+    cells = nx * ny
+    ids = np.full((m, n), cells, np.int32)
+    if kind == "sparse":
+        n_ground, n_box = n // 4, 12 * 90
+        ids[:, :n_ground] = rng.integers(0, cells, (m, n_ground))
+        centres = rng.integers(0, cells - 8 * nx - 8, (m, 12))
+        offs = rng.integers(0, 8, (m, n_box)) * nx + rng.integers(0, 8, (m, n_box))
+        ids[:, n_ground:n_ground + n_box] = (
+            np.repeat(centres, 90, axis=1) + offs)
+    elif kind in ("dense", "n_gt_cells"):
+        ids[:] = rng.integers(0, cells, (m, n))
+    elif kind == "hot":
+        ids[:] = rng.integers(0, cells, (m, 1))
+    else:  # skipped: below, at and past the cell range
+        ids[:] = rng.choice(np.array([-5, -1, cells, cells + 7], np.int32),
+                            (m, n))
+    feat = rng.normal(0, 3, (m, n, c)).astype(np.float32)
+    feat[0, :4] = -0.0
+    valid = ((ids >= 0) & (ids < cells)).astype(np.float32)[..., None]
+    aux = np.concatenate([valid, rng.uniform(-0.2, 0.2, (m, n, 3)) * valid], -1)
+    params = rng.normal(0, 1, (7, c)).astype(np.float32)
+    params[5] = np.where(rng.uniform(size=c) > 0.3, 1.0, -1.0)
+    return (ids, feat, aux.astype(np.float32), params), dict(
+        cells=cells, nx=nx, grid_consts=FLAGSHIP_GRID["consts"])
+
+
+def _occupied(ids, cells):
+    """(m, cells) bool: the cells that hold at least one point."""
+    occ = np.zeros((ids.shape[0], cells), bool)
+    for g, row in enumerate(ids):
+        occ[g, row[(row >= 0) & (row < cells)]] = True
+    return occ
+
+
+def _check_k1(got, ref, occupied, out_dtype):
+    """Within the f32 / bf16 tolerance of the plain version, and every
+    empty cell holds +0.0 bits."""
+    tol = 1e-4 if out_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    bits = got.view(torch.int32 if out_dtype == torch.float32 else torch.int16)
+    empty = torch.from_numpy(~occupied).to(got.device)
+    assert int((bits[empty] != 0).sum()) == 0  # +0.0: value 0, sign bit clear
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["sparse", "dense", "hot", "skipped",
+                                  "n_gt_cells"])
+def test_pillar_encode_kernel_occupancy_cases(cuda, kind, out_dtype):
+    inputs, kw = _k1_case(kind, np.random.default_rng(8))
+    args = [torch.from_numpy(a).to(cuda) for a in inputs]
+    kw["out_dtype"] = out_dtype
+    before = kernels.LAUNCHES["pillar_encode"]
+    got = pillar_encode(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pillar_encode"] == before + 1
+    ref = pillar_encode_plain(*args, **kw)
+    occupied = _occupied(inputs[0], kw["cells"])
+    assert got.shape == ref.shape and got.dtype == out_dtype
+    _check_k1(got, ref, occupied, out_dtype)
+    if kind == "skipped":
+        assert not occupied.any()
+    else:
+        assert float(got.float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_pillar_encode_kernel_fresh_inputs_back_to_back(cuda, out_dtype):
+    """A dense call, then a sparse one of the same shapes with fresh
+    tensors, both checked after the second: the workspace of the second
+    call reuses the first's memory, so a cell -> leader table or a row left
+    stale puts the first call's values into the second's empty cells."""
+    rng = np.random.default_rng(9)
+    cases = [_k1_case(kind, rng) for kind in ("dense", "sparse")]
+    outs = []
+    for inputs, kw in cases:
+        args = [torch.from_numpy(a).to(cuda) for a in inputs]
+        kw["out_dtype"] = out_dtype
+        outs.append((pillar_encode(*args, **kw), args, kw))
+    torch.cuda.synchronize()
+    for (got, args, kw), (inputs, _) in zip(outs, cases):
+        _check_k1(got, pillar_encode_plain(*args, **kw),
+                  _occupied(inputs[0], kw["cells"]), out_dtype)
+
+
+@pytest.mark.parametrize("kind", ["dense", "hot", "n_gt_cells"])
+def test_pillar_encode_kernel_maxima_deterministic(cuda, kind):
+    """With W_cl = 0 the output depends on the maxima and the counts alone
+    (the means enter only through W_cl . mean), and both are exact in any
+    order of the atomics: repeated calls give the same bits."""
+    inputs, kw = _k1_case(kind, np.random.default_rng(10))
+    inputs[3][0:3] = 0.0
+    args = [torch.from_numpy(a).to(cuda) for a in inputs]
+    first = pillar_encode(*args, **kw)
+    again = [pillar_encode(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in again:
+        assert torch.equal(first.view(torch.int32), other.view(torch.int32))
+    _check_k1(first, pillar_encode_plain(*args, **kw),
+              _occupied(inputs[0], kw["cells"]), torch.float32)
 
 
 def _quads(rng, n):

@@ -113,6 +113,58 @@ def test_k1_plain_matches_pallas_interpret(kind):
         assert float(got.abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["flip_negative", "negative_floor",
+                                  "scale_1e20", "zero_weight_cells"])
+def test_k1_plain_unoccupied_cells_are_positive_zero(case, out_dtype):
+    """The property K1's CUDA epilogue relies on to store +0.0 in a cell
+    without reading its accumulator: the plain version gives exactly +0.0
+    (value 0, sign bit clear) in every cell that holds no point, and in
+    every cell whose points all have weight 0."""
+    rng = np.random.default_rng(5)
+    m, n, nx, ny, c = 2, 300, 12, 10, 16
+    cells = nx * ny
+    ids = rng.integers(-1, cells + 1, (m, n)).astype(np.int32)
+    ids[:, :150] = rng.integers(0, 20, (m, 150))  # crowd the first cells
+    feat = rng.normal(0, 2, (m, n, c)).astype(np.float32)
+    w = ((ids >= 0) & (ids < cells)).astype(np.float32)[..., None]
+    params = rng.normal(0, 1, (7, c)).astype(np.float32)
+    params[5] = np.where(rng.uniform(size=c) > 0.5, 1.0, -1.0)
+    params[6] = np.abs(params[6])
+    zero_cells = np.zeros((m, cells), bool)
+    if case == "flip_negative":
+        params[5] = -1.0
+    elif case == "negative_floor":
+        params[6] = -np.abs(params[6]) - 0.5
+    elif case == "scale_1e20":
+        params[3] = rng.choice([-1e20, -3e7, 3e7, 1e20], c)
+        params[4] = rng.normal(0, 1e3, c)
+    else:  # every point of cells 30..59 carries weight 0
+        weightless = (ids >= 30) & (ids < 60)
+        w[weightless] = 0.0
+        for g in range(m):
+            zero_cells[g, ids[g][weightless[g]]] = True
+    aux = np.concatenate([w, rng.uniform(-0.2, 0.2, (m, n, 3)) * w], -1)
+    occupied = np.zeros((m, cells), bool)
+    for g in range(m):
+        row = ids[g]
+        occupied[g, row[(row >= 0) & (row < cells)]] = True
+    empty = ~occupied | zero_cells
+    got = pillar_encode(*(torch.from_numpy(a.astype(b)) for a, b in
+                          ((ids, np.int32), (feat, np.float32),
+                           (aux, np.float32), (params, np.float32))),
+                        cells=cells, nx=nx, out_dtype=out_dtype,
+                        grid_consts=(0.4, 0.4, -140.6, -0.4, -1.0))
+    assert (~occupied).any() and occupied.any()
+    assert zero_cells.any() == (case == "zero_weight_cells")
+    at_empty = got[torch.from_numpy(empty)]
+    assert bool((at_empty == 0).all())
+    assert not bool(torch.signbit(at_empty).any())
+    assert bool(torch.isfinite(got).all())
+    assert float(got[torch.from_numpy(~empty)].abs().max()) > 0.0
+
+
 def _jax_fast(agent, num_filters=16):
     cfg = TINY_ARGS[agent]["lidar"]
     return dict(num_filters=[num_filters], voxel_size=GRID_VS, lidar_range=GRID_LR,
