@@ -48,8 +48,9 @@ _SIGNATURES = {
         "pillar_reduce": [_P, _P, _P, _I, _I, _I, _P],
     },
     "conv3x3": {
-        # x, w, scale, bias, out, B, H, W, Cin, Cout, relu, allmaps, bf16,
-        # tile_h, tile_w, maps, wgs, mr, block_n, a_stages, b_stages, stream
+        # x, w (bf16: HWIO; f32: the packed tf32 split), scale, bias, out,
+        # B, H, W, Cin, Cout, relu, allmaps, bf16, tile_h, tile_w, maps, wgs,
+        # mr, block_n, a_stages, b_stages, stream
         "conv3x3": [_P] * 5 + [_I] * 16 + [_P],
     },
 }

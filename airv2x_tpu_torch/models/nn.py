@@ -18,6 +18,7 @@ from torch import nn
 from airv2x_tpu_torch.ops.conv3x3 import (
     conv3x3_im2col,
     conv3x3_same,
+    pack_f32_weights,
     supports_conv3x3,
 )
 
@@ -88,9 +89,11 @@ class ConvBNReLU(nn.Module):
         self._fold_key, self._fold_val = None, None
 
     def _fold(self, dtype):
-        """(HWIO weight in ``dtype``, f32 scale, f32 bias) of the conv and the
-        eval BN, as models/nn.py of the JAX package folds them; cached until
-        one of the five tensors changes (data pointer and version)."""
+        """(HWIO weight in ``dtype``, f32 scale, f32 bias, packed) of the conv
+        and the eval BN, as models/nn.py of the JAX package folds them;
+        ``packed`` is the f32 kernel's repacked tf32 split of the weight
+        (``pack_f32_weights``; None in bf16). Cached until one of the five
+        tensors changes (data pointer and version)."""
         ts = (self.conv.weight, self.bn.weight, self.bn.bias,
               self.bn.running_mean, self.bn.running_var)
         key = None if any(t.is_inference() for t in ts) else (dtype,) + tuple(
@@ -101,7 +104,8 @@ class ConvBNReLU(nn.Module):
                                                     + bn.eps)
             bias = bn.bias.float() - bn.running_mean.float() * scale
             w = self.conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
-            self._fold_key, self._fold_val = key, (w, scale, bias)
+            packed = pack_f32_weights(w) if dtype == torch.float32 else None
+            self._fold_key, self._fold_val = key, (w, scale, bias, packed)
         return self._fold_val
 
     def forward(self, x):
@@ -109,9 +113,17 @@ class ConvBNReLU(nn.Module):
             b, c, h, w = x.shape
             mode = _conv3x3_mode((b, h, w, c), x.dtype, self.conv.out_channels)
             if mode != "cudnn":
-                fn = conv3x3_same if mode == "kernel" else conv3x3_im2col
-                out = fn(x.permute(0, 2, 3, 1), *self._fold(x.dtype), relu=True)
+                w, scale, bias, packed = self._fold(x.dtype)
+                xh = x.permute(0, 2, 3, 1)
+                if mode == "kernel":
+                    out = conv3x3_same(xh, w, scale, bias, relu=True,
+                                       packed=packed)
+                else:
+                    out = conv3x3_im2col(xh, w, scale, bias, relu=True)
                 return out.permute(0, 3, 1, 2)
+        # cuDNN reads the module's own tensors: a fold cached by an earlier
+        # forward (in f32 three copies of the weight) would only hold memory
+        self._fold_key, self._fold_val = None, None
         return torch.relu(self.bn(self.conv(x)))
 
 

@@ -6,7 +6,8 @@ Layouts follow the JAX package: x NHWC, w HWIO, output NHWC in x's dtype.
 The CUDA kernel is ``csrc/conv3x3.cu``; its note says what bounds it and
 how it is laid out. ``allmaps=True`` (K4b) computes the same function with
 every map in one block's loop instead of a grid over maps (K4a).
-``conv3x3_plan`` picks the kernel's tiles and grid for a shape.
+``conv3x3_plan`` picks the kernel's tiles and grid for a shape; in f32 the
+kernel reads the weights repacked as ``pack_f32_weights`` makes them.
 """
 
 from __future__ import annotations
@@ -76,23 +77,25 @@ def supports_conv3x3_allmaps(shape, dtype, features: int) -> bool:
 # one block may use there.
 SMS = 132
 SMEM_LIMIT = 232448
-# bf16: the kernel's A ring holds per slot one box of maps x (tile_h + 2)
-# x tile_w pixels of 64 channels (128 bytes each), its B ring per slot
-# block_n / 64 weight boxes of 64 rows x 128 bytes; it aligns the rings to
-# 1024 bytes and keeps two 8-byte mbarriers per slot after them.
+# The kernel's A ring holds per slot one box of maps x (tile_h + 2) x tile_w
+# pixels of one 128-byte row of channels (64 bf16, 32 f32) each, its B ring
+# per slot block_n / 64 weight boxes of 64 rows x 128 bytes; an f32 slot
+# holds two of each (tf32 big and small). It aligns the rings to 1024 bytes
+# and keeps two 8-byte mbarriers per slot after them.
 _ROW_BYTES = 128
 _RINGS = ((2, 4), (2, 3), (2, 2))  # (A, B) depths: the deepest that fits
 # conv3x3.cu's instantiations: (warpgroups, m64 blocks per warpgroup,
 # block_n), at most 128 f32 accumulators per thread; the ones the plan picks
 # at some shape (no 256-wide N: it never wins under the plan's model, and
-# the sweep measured it slower than two 128-wide N tiles at stage 2)
+# the sweep measured it slower than two 128-wide N tiles at stage 2).
+# bf16 (CONV3X3_PLANS) and f32 (CONV3X3_F32_PLANS) apart: an f32 slot pair
+# is twice the bytes, so three warpgroups of two m64 blocks never fit, and
+# f32 holds a second set of accumulators (each tap's partial), so at most
+# 64 of each per thread.
 KERNELS = ((1, 1, 64), (1, 2, 64), (2, 2, 64), (2, 2, 128), (3, 1, 64),
            (3, 1, 128), (3, 2, 64))
+F32_KERNELS = ((1, 1, 64), (1, 2, 64), (2, 1, 128), (2, 2, 64))
 _TILE_WIDTHS = (8, 16, 32, 64, 128, 256)  # a multiple of 8 pixels
-# f32: conv3x3.cu's fixed FMA tiling (kTH x kTW pixels, kTN outputs, an
-# (8 + 2) x (16 + 2) x 8 halo and 9 x 8 x 64 weights of f32 in static smem)
-_F32_TILE = (8, 16, 64)
-_F32_SMEM = (10 * 18 + 9 * 64) * 8 * 4
 
 
 @dataclass(frozen=True)
@@ -107,8 +110,7 @@ class ConvPlan:
     ``gx // n_tiles`` (row major over ``tiles_x`` columns of tiles), output
     channels from ``(gx % n_tiles) * block_n`` and maps from
     ``gy * groups * maps``. K4a has ``groups = 1``, so the maps are on the
-    grid; K4b has one row of blocks, each walking every map. The f32 kernel
-    has its fixed tiling (``maps = 1``, its 3-D grid given by block count)."""
+    grid; K4b has one row of blocks, each walking every map."""
 
     tile_h: int
     tile_w: int
@@ -145,16 +147,17 @@ class ConvPlan:
                                  (nt + 1) * self.block_n))
 
 
-def bf16_plan(b, h, w, cout, allmaps, tile_h, tile_w, block_n, *, maps,
-              wgs, mr) -> ConvPlan:
-    """The bf16 plan of the given tiles (``conv3x3_plan`` picks them), with
-    the deepest rings of ``_RINGS`` that fit."""
+def make_plan(b, h, w, cout, allmaps, tile_h, tile_w, block_n, *, maps,
+              wgs, mr, dtype=torch.bfloat16) -> ConvPlan:
+    """The plan of the given tiles (``conv3x3_plan`` picks them), with the
+    deepest rings of ``_RINGS`` that fit."""
     m = maps * tile_h * tile_w
     if wgs * mr * 64 != m or tile_w % 8 or tile_h * tile_w % 64:
         raise ValueError(f"{maps} x {tile_h} x {tile_w} pixels is not "
                          f"{wgs} x {mr} m64 blocks of whole maps")
-    slot_a = maps * (tile_h + 2) * tile_w * _ROW_BYTES
-    slot_b = block_n * _ROW_BYTES
+    parts = 1 if dtype == torch.bfloat16 else 2  # f32: tf32 big and small
+    slot_a = parts * maps * (tile_h + 2) * tile_w * _ROW_BYTES
+    slot_b = parts * block_n * _ROW_BYTES
 
     def smem(ring):
         return ring[0] * slot_a + ring[1] * slot_b + 16 * sum(ring) + 1024
@@ -172,29 +175,56 @@ def bf16_plan(b, h, w, cout, allmaps, tile_h, tile_w, block_n, *, maps,
 
 
 # The plan's time model: a block pulls its A and B boxes from L2, writes
-# them to shared memory, and its wgmma reads A (64 x 16) and B (16 x
-# block_n) from shared memory for every m64nNk16 product; the three add up.
-# Rates of one H100: the bf16 tensor-core peak, shared memory at 128 bytes
-# per clock on each of 132 SMs at ~1.75 GHz, and an L2 rate fitted to the
-# tile sweep (tools/conv3x3_sweep.py; PERF.md), like the mild penalty
-# for a grid that leaves SMs idle.
+# them to shared memory, and its wgmma reads A (64 rows x 32 bytes) and B
+# (32 bytes x block_n) from shared memory for every product of 32 bytes of
+# K (m64nNk16 bf16, m64nNk8 tf32, three of them per step in f32); in f32
+# the consumers also read each A slot once and write it twice (the split);
+# the three add up. Rates of one H100: the bf16 and TF32 tensor-core peaks,
+# shared memory at 128 bytes per clock on each of 132 SMs at ~1.75 GHz,
+# and an L2 rate fitted to the tile sweep (tools/conv3x3_sweep.py;
+# PERF.md), like the mild penalty for a grid that leaves SMs idle (bf16).
+# f32, fitted to the f32 sweep (PERF.md): the largest of the three
+# (they overlap), at L2 and shared-memory rates of their own, plus a drain
+# of the wgmma pipeline per tap of each block (the tap's partial is added
+# into the sum, conv3x3.cu), over whole waves of blocks (the slot pairs
+# leave room for one block per SM). It reads 1.6-1.9x the measured times
+# and ranks the swept plans to within 5% of the fastest.
 L2_BYTES_PER_S = 5.5e12
 SMEM_BYTES_PER_S = 30e12
+F32_L2_BYTES_PER_S = 3e12
+F32_SMEM_BYTES_PER_S = 15e12
+TAP_DRAIN_S = 0.4e-6
+SM_SMEM = 233472  # shared memory of one SM (228 KiB)
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 
-def plan_cost(plan: ConvPlan, b: int, c: int) -> float:
+def plan_cost(plan: ConvPlan, b: int, c: int, dtype=torch.bfloat16) -> float:
     """Modelled seconds of one launch of ``plan`` on (b, ..., c) input."""
-    chunks = -(-c // 64)
+    bf16 = dtype == torch.bfloat16
+    parts, products = (1, 1) if bf16 else (2, 3)
+    chunk = _ROW_BYTES // (2 if bf16 else 4)  # channels per 128-byte row
+    chunks = -(-c // chunk)
     m = plan.maps * plan.tile_h * plan.tile_w
-    # per 64-channel chunk: three A boxes (the tile's rows and the halo
-    # rows, one per column shift) and nine taps' weight boxes
-    l2 = plan.n_blocks * plan.groups * chunks * _ROW_BYTES * (
-        3 * plan.maps * (plan.tile_h + 2) * plan.tile_w + 9 * plan.block_n)
-    ops = plan.n_blocks * plan.groups * m * plan.block_n * 9 * chunks * 64 * 2
-    smem = l2 + ops * (2048 + 32 * plan.block_n) / (2048 * plan.block_n)
-    return ((l2 / L2_BYTES_PER_S + smem / SMEM_BYTES_PER_S
-             + ops / BF16_OPS_PER_S) * max(1.0, SMS / plan.n_blocks) ** 0.25)
+    steps = plan.n_blocks * plan.groups * chunks
+    box_a = plan.maps * (plan.tile_h + 2) * plan.tile_w * _ROW_BYTES
+    # per chunk: three A boxes (the tile's rows and the halo rows, one per
+    # column shift) and nine taps' weight boxes (f32: big and small)
+    l2 = steps * (3 * box_a + 9 * parts * plan.block_n * _ROW_BYTES)
+    # per chunk and tap: 4 K steps of `products` wgmmas on each m64 block
+    wgmmas = steps * 9 * 4 * products * (m // 64)
+    ops = wgmmas * 64 * plan.block_n * chunk // 4 * 2
+    smem = l2 + wgmmas * (2048 + 32 * plan.block_n)
+    if bf16:
+        return ((l2 / L2_BYTES_PER_S + smem / SMEM_BYTES_PER_S
+                 + ops / BF16_OPS_PER_S)
+                * max(1.0, SMS / plan.n_blocks) ** 0.25)
+    smem += steps * 3 * box_a * 3  # the split: one read, two writes
+    t = (max(l2 / F32_L2_BYTES_PER_S, smem / F32_SMEM_BYTES_PER_S,
+             ops / TF32_OPS_PER_S)
+         + steps * 9 * TAP_DRAIN_S / min(plan.n_blocks, SMS))
+    slots = SMS * max(1, SM_SMEM // plan.smem_bytes)
+    return t * -(-plan.n_blocks // slots) * slots / plan.n_blocks
 
 
 @functools.lru_cache(maxsize=256)
@@ -202,19 +232,14 @@ def conv3x3_plan(b: int, h: int, w: int, c: int, cout: int, dtype,
                  allmaps: bool = False) -> ConvPlan:
     """The kernel's tiling of NHWC (b, h, w, c) -> cout in ``dtype``.
 
-    bf16: among the instantiations (``KERNELS``) and the tile shapes whose
-    pixels fill M with whole m64 blocks of one map each (K4a: one map per
-    block; K4b: up to every map in one block), the plan ``plan_cost``
-    finds fastest, the less padded and then the wider on a tie.
+    Among the instantiations (``KERNELS`` in bf16, ``F32_KERNELS`` in f32)
+    and the tile shapes whose pixels fill M with whole m64 blocks of one
+    map each (K4a: one map per block; K4b: up to every map in one block),
+    the plan ``plan_cost`` finds fastest, the less padded and then the
+    wider on a tie.
     """
-    if dtype != torch.bfloat16:
-        th, tw, tn = _F32_TILE
-        tx, ty, nt = -(-w // tw), -(-h // th), -(-cout // tn)
-        groups = b if allmaps else 1
-        return ConvPlan(th, tw, 1, 2, 1, tn, 1, 1, tx, ty, nt, groups,
-                        (tx * ty * nt, 1 if allmaps else b), _F32_SMEM)
     best = None
-    for wgs, mr, bn in KERNELS:
+    for wgs, mr, bn in KERNELS if dtype == torch.bfloat16 else F32_KERNELS:
         if bn > 64 and bn >= cout + 64:  # a whole N box of zeros
             continue
         m = wgs * mr * 64
@@ -226,16 +251,41 @@ def conv3x3_plan(b: int, h: int, w: int, c: int, cout: int, dtype,
                 th = pix // tw
                 if th < 1 or th > 254 or th * tw != pix:
                     continue
-                plan = bf16_plan(b, h, w, cout, allmaps, th, tw, bn,
-                                 maps=maps, wgs=wgs, mr=mr)
+                plan = make_plan(b, h, w, cout, allmaps, th, tw, bn,
+                                 maps=maps, wgs=wgs, mr=mr, dtype=dtype)
                 if plan.smem_bytes > SMEM_LIMIT:
                     continue
                 padded = (plan.tiles_y * th * plan.tiles_x * tw
                           * -(-b // maps) * maps)
-                key = (plan_cost(plan, b, c), padded, -tw)
+                key = (plan_cost(plan, b, c, dtype), padded, -tw)
                 if best is None or key < best[0]:
                     best = (key, plan)
     return best[1]
+
+
+def _tf32_rna(v):
+    """f32 ``v`` rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does; the low 13 bits of the
+    result are zero. Not finite values pass unchanged."""
+    bits = (v.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(v), bits.view(torch.float32), v)
+
+
+def tf32_split(v):
+    """(big, small) with big = tf32(v) and small = tf32(v - big): the 3xTF32
+    split of f32 ``v`` (big + small keeps v to about 2^-21 relative)."""
+    v = v.to(torch.float32).contiguous()
+    big = _tf32_rna(v)
+    return big, _tf32_rna(v - big)
+
+
+def pack_f32_weights(w):
+    """HWIO (3, 3, Cin, Cout) f32 weights as the f32 kernel reads them:
+    (2, Cout, 9, Cin), the tf32 big part, then the small, Cin innermost
+    (tf32 wgmma takes B only K-major)."""
+    kh, kw, cin, cout = w.shape
+    k_major = w.to(torch.float32).permute(3, 0, 1, 2).reshape(cout, 9, cin)
+    return torch.stack(tf32_split(k_major))
 
 
 def _epilogue(acc, scale, bias, relu: bool, dtype):
@@ -297,7 +347,7 @@ def _aligned(t):
 
 
 def conv3x3_same(x, w, scale=None, bias=None, *, relu: bool = False,
-                 allmaps: bool = False):
+                 allmaps: bool = False, packed=None):
     """3x3 stride-1 SAME conv, NHWC x HWIO -> NHWC, with an optional fused
     per-channel f32 affine and ReLU (a folded eval BatchNorm).
 
@@ -307,16 +357,19 @@ def conv3x3_same(x, w, scale=None, bias=None, *, relu: bool = False,
     A CPU tensor runs the plain version (as the JAX package's interpret
     mode does off the TPU); a CUDA tensor launches the kernel, K4b when
     ``allmaps``, else K4a. The kernel needs C and Cout multiples of 8.
+    In f32 it reads the weights as ``pack_f32_weights(w)``: ``packed``
+    passes that repacked split (a caller caches it per weight version),
+    else it is made on every call.
     """
     _check(x, w, scale, bias)
     if x.device.type == "cpu":
         return conv3x3_same_plain(x, w, scale, bias, relu=relu)
-    return _launch(x, w, scale, bias, relu, allmaps, None)
+    return _launch(x, w, scale, bias, relu, allmaps, None, packed)
 
 
-def _launch(x, w, scale, bias, relu, allmaps, plan):
+def _launch(x, w, scale, bias, relu, allmaps, plan, packed=None):
     """Launch the kernel on CUDA tensors with ``plan`` (None: the tile plan
-    of the shape)."""
+    of the shape); ``packed`` as ``conv3x3_same`` takes it."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_same: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -327,7 +380,19 @@ def _launch(x, w, scale, bias, relu, allmaps, plan):
         raise ValueError(f"conv3x3_same: the kernel needs channels that are "
                          f"multiples of 8, got {c} -> {cout}")
     x = _aligned(x)
-    wc = _aligned(w.to(x.dtype))
+    if x.dtype == torch.bfloat16:
+        wc = _aligned(w.to(x.dtype))
+    else:
+        if packed is None:
+            packed = pack_f32_weights(w)
+        if (tuple(packed.shape) != (2, cout, 9, c)
+                or packed.dtype != torch.float32
+                or packed.device != x.device):
+            raise ValueError(f"conv3x3_same: packed weights "
+                             f"{tuple(packed.shape)} {packed.dtype} on "
+                             f"{packed.device} are not (2, {cout}, 9, {c}) "
+                             f"float32 on {x.device}")
+        wc = _aligned(packed)
     f32 = dict(dtype=torch.float32, device=x.device)
     scale = (torch.ones(cout, **f32) if scale is None
              else _aligned(scale.to(torch.float32).reshape(cout)))

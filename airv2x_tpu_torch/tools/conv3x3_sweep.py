@@ -1,23 +1,27 @@
-"""Time the bf16 K4 kernel (``csrc/conv3x3.cu``) under many tile plans at
-the flagship backbone's stage shapes, on one NVIDIA card.
+"""Time the K4 kernel (``csrc/conv3x3.cu``) under many tile plans at the
+flagship backbone's stage shapes, on one NVIDIA card.
 
-    python -m airv2x_tpu_torch.tools.conv3x3_sweep [--out FILE]
+    python -m airv2x_tpu_torch.tools.conv3x3_sweep [--dtype bf16|f32|both]
+        [--out FILE]
 
-For each stage (6 maps of 100x352x64, 50x176x128, 25x88x256, Cout = Cin)
-and each form (K4a, a grid over maps; K4b, every map in one block's walk)
-it launches the kernel under every plan of ``candidates`` (every
-instantiation and maps per block, the two least padded tile shapes of its
-M, the ring depths of ``RINGS``) and the plan
-``conv3x3_plan`` picks, checks each result against the plain version (2e-2
-abs + rel) and times it with CUDA events (the median of ``ROUNDS`` rounds
-that take the plans in turn). It prints the fastest plans of each (stage, form) beside the plan ``conv3x3_plan`` picks
-and the cuDNN conv + BN + ReLU of the ``auto`` ConvBNReLU, and writes every
-row as one JSON line to ``--out``.
+For each type (bf16; f32, the 3xTF32 path), each stage (6 maps of
+100x352x64, 50x176x128, 25x88x256, Cout = Cin) and each form (K4a, a grid
+over maps; K4b, every map in one block's walk) it launches the kernel under
+every plan of ``candidates`` (every instantiation of the type and maps per
+block, the two least padded tile shapes of its M, the ring depths of
+``RINGS`` that fit) and the plan ``conv3x3_plan`` picks, checks each result
+against the plain version (bf16 2e-2 abs + rel; f32 1e-4 x (1 + scale),
+TF32 off) and times it with CUDA events (the median of ``ROUNDS`` rounds
+that take the plans in turn). It prints the fastest plans of each (type,
+stage, form) beside the plan ``conv3x3_plan`` picks and the cuDNN conv + BN
++ ReLU of the ``auto`` ConvBNReLU, and writes every row as one JSON line to
+``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -30,12 +34,12 @@ import torch
 from airv2x_tpu_torch import kernels
 from airv2x_tpu_torch.ops import conv3x3
 from airv2x_tpu_torch.ops.conv3x3 import (
-    KERNELS, SMEM_LIMIT, _launch, bf16_plan, conv3x3_plan,
-    conv3x3_same_plain)
+    F32_KERNELS, KERNELS, SMEM_LIMIT, _launch, conv3x3_plan,
+    conv3x3_same_plain, make_plan)
 
 STAGES = ((6, 100, 352, 64), (6, 50, 176, 128), (6, 25, 88, 256))
 WIDTHS = (8, 16, 32, 64, 128, 256)
-RINGS = ((2, 4), (3, 4), (2, 6), (3, 6))  # (A, B) ring depths tried
+RINGS = ((2, 2), (2, 3), (2, 4), (3, 4), (2, 6), (3, 6))  # (A, B) depths tried
 ROUNDS = 5  # timing rounds over all plans, in turn; the median counts
 
 
@@ -64,13 +68,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 DEFAULT_RINGS = conv3x3._RINGS
 
 
-def candidates(shape, allmaps):
-    """Every instantiation x maps per block (K4b) x the two least padded
-    tile shapes of its M x the ring depths of ``RINGS`` that fit in shared
-    memory."""
+def candidates(shape, allmaps, dtype):
+    """Every instantiation of ``dtype`` x maps per block (K4b) x the two
+    least padded tile shapes of its M x the ring depths of ``RINGS`` that
+    fit in shared memory."""
     b, h, w, c = shape
     out = []
-    for wgs, mr, bn in KERNELS:
+    for wgs, mr, bn in KERNELS if dtype == torch.bfloat16 else F32_KERNELS:
         if bn > 64 and bn >= c + 64:
             continue
         m = wgs * mr * 64
@@ -86,8 +90,8 @@ def candidates(shape, allmaps):
             for _, _, th, tw in shapes[:2]:
                 for rings in RINGS:
                     conv3x3._RINGS = (rings,)
-                    p = bf16_plan(b, h, w, c, allmaps, th, tw, bn, maps=maps,
-                                  wgs=wgs, mr=mr)
+                    p = make_plan(b, h, w, c, allmaps, th, tw, bn, maps=maps,
+                                  wgs=wgs, mr=mr, dtype=dtype)
                     if p.smem_bytes <= SMEM_LIMIT:
                         out.append(p)
     conv3x3._RINGS = DEFAULT_RINGS
@@ -96,6 +100,7 @@ def candidates(shape, allmaps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dtype", choices=("bf16", "f32", "both"), default="both")
     ap.add_argument("--out", default="airv2x_tpu_torch/build/conv3x3_sweep.jsonl")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -110,43 +115,52 @@ def main() -> int:
     print(card)
     kernels.lib("conv3x3")
     torch.backends.cudnn.benchmark = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    dtypes = {"bf16": (torch.bfloat16,), "f32": (torch.float32,),
+              "both": (torch.bfloat16, torch.float32)}[args.dtype]
     rng = np.random.default_rng(4)
     with open(args.out, "w") as f:
-        for si, shape in enumerate(STAGES):
+        for dt, (si, shape) in itertools.product(dtypes, enumerate(STAGES)):
             b, h, w, c = shape
+            name = "bf16" if dt == torch.bfloat16 else "f32"
             blk = init_random_(ConvBNReLU(c, c), seed=10 + si).cuda().eval()
             blk.requires_grad_(False)
-            cast_weights_(blk, torch.bfloat16)
+            cast_weights_(blk, dt)
             x = torch.from_numpy(rng.normal(size=shape).astype(
-                np.float32)).cuda().to(torch.bfloat16)
-            wk, sc, bi = blk._fold(torch.bfloat16)
+                np.float32)).cuda().to(dt)
+            wk, sc, bi, packed = blk._fold(dt)
             ref = conv3x3_same_plain(x, wk, sc, bi, relu=True).float()
-            lim = 2e-2 * (1 + ref.abs())
+            if dt == torch.bfloat16:
+                lim = 2e-2 * (1 + ref.abs())
+            else:
+                lim = 1e-4 * (1 + float(ref.abs().max()))
             xl = x.permute(0, 3, 1, 2)
             os.environ["AIRV2X_CONV_KERNEL"] = "auto"
             with torch.inference_mode():
                 lib_ms = cuda_ms(lambda: blk(xl))
             for allmaps in (False, True):
-                chosen = conv3x3_plan(b, h, w, c, c, torch.bfloat16, allmaps)
-                plans = candidates(shape, allmaps)
+                chosen = conv3x3_plan(b, h, w, c, c, dt, allmaps)
+                plans = candidates(shape, allmaps, dt)
                 if chosen not in plans:
                     plans.append(chosen)
                 oks = []
                 for p in plans:
-                    got = _launch(x, wk, sc, bi, True, allmaps, p)
+                    got = _launch(x, wk, sc, bi, True, allmaps, p, packed)
                     oks.append(bool(((got.float() - ref).abs() <= lim).all()))
                 times = [[] for _ in plans]
                 for _ in range(ROUNDS):
                     for i, p in enumerate(plans):
                         times[i].append(cuda_ms(lambda: _launch(
-                            x, wk, sc, bi, True, allmaps, p), iters=10))
+                            x, wk, sc, bi, True, allmaps, p, packed),
+                            iters=10))
                 rows = []
                 for p, ok, ts in zip(plans, oks, times):
                     ms = statistics.median(ts)
-                    row = dict(stage=si, allmaps=allmaps, maps=p.maps,
-                               tile_h=p.tile_h, tile_w=p.tile_w, wgs=p.wgs,
-                               mr=p.mr, block_n=p.block_n,
+                    row = dict(dtype=name, stage=si, allmaps=allmaps,
+                               maps=p.maps, tile_h=p.tile_h, tile_w=p.tile_w,
+                               wgs=p.wgs, mr=p.mr, block_n=p.block_n,
                                rings=[p.a_stages, p.b_stages],
                                blocks=p.n_blocks,
                                smem=p.smem_bytes, ok=ok, ms=ms,
@@ -156,15 +170,16 @@ def main() -> int:
                 rows.sort(key=lambda r: r["ms"])
                 form = "K4b" if allmaps else "K4a"
                 pick = [r for r in rows if r["chosen"]]
-                print(f"stage {si} {shape} {form}: library {lib_ms:.4f} ms; "
-                      f"chosen {pick[0] if pick else None}")
+                print(f"{name} stage {si} {shape} {form}: library "
+                      f"{lib_ms:.4f} ms; chosen {pick[0] if pick else None}")
                 for r in rows[:10]:
                     print(f"  {r['ms']:.4f} ms  {r['maps']}x{r['tile_h']}x"
                           f"{r['tile_w']} wg{r['wgs']} mr{r['mr']} "
                           f"n{r['block_n']} rings {r['rings']} blocks "
                           f"{r['blocks']} smem {r['smem']} ok {r['ok']}")
                 if not all(r["ok"] for r in rows):
-                    raise AssertionError(f"a plan disagrees at stage {si}")
+                    raise AssertionError(f"a {name} plan disagrees at stage "
+                                         f"{si}")
     return 0
 
 

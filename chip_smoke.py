@@ -7,8 +7,8 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
 
   1. the card's name and power limit; build the kernels (one nvcc per
      source, all started together) and print the build seconds, each
-     kernel's registers, and K4's bf16 tile plans at the backbone stages
-     with their dynamic shared memory;
+     kernel's registers, and K4's bf16 and f32 tile plans at the backbone
+     stages with their dynamic shared memory;
   2. K1, the pillar encode, against its plain version at three inputs of
      the flagship vehicle call's shapes (3 maps x 20,000 points, 704 x 200
      grid, C = 64): the ``make_scene`` call itself, a dense uniform cloud
@@ -19,7 +19,8 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      output's size, the write alone;
   3. K2, the rotated-quad IoU, against its plain version at 512 x 512, full
      and triangular, on the corners of decoded boxes around the scene's
-     objects plus random quads; times of both;
+     objects plus random quads; times of both, the prefilter's survivor
+     share, the all-pairs bound and the bound of the work the input needs;
   3a. K3, the pillar reduce, at the flagship vehicle call (m = 3,
      n = 20,000, 140,800 cells): maxima exact, sums within 1e-4 relative;
      times of kernel and plain, and the bytes bound;
@@ -28,9 +29,11 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      25x88x256), bf16 and f32 with TF32 off, against its plain version;
      times of both forms, the plain version and the library call for the
      same function (the ``auto``-mode ConvBNReLU: cuDNN conv, BN, ReLU),
-     and the bound per launch; per stage in bf16, each form's share of the
+     and the bound per launch (f32: the smaller of the FMA and the 3xTF32
+     tensor-core bounds); per stage and type, each form's share of the
      bound and ratio to the library time, and the host microseconds of one
-     ``conv3x3_same`` call beside one cuDNN ``ConvBNReLU`` call;
+     ``conv3x3_same`` call beside one cuDNN ``ConvBNReLU`` call; per scene
+     of 32 launches in both types;
   4. the tiny configs on the card against the same weights on the CPU (the
      plain versions, which the CPU tests hold against the JAX package):
      det under ``auto`` and under ``pallas``, and seg;
@@ -43,7 +46,10 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      NMS per scene; median ms/scene and scenes/s, median per-stage ms, peak
      memory, kept detections, NMS passes, and the kernels' launch counts
      during the timed runs (K1 3x, K2 1x per scene); then the same under
-     ``AIRV2X_CONV_KERNEL=pallas`` (K4a 32x per scene);
+     ``AIRV2X_CONV_KERNEL=pallas`` (K4a 32x per scene); then K2 checked
+     and timed as in phase 3 on scene 0's own NMS input (the top-512
+     corners ``decode_detections`` passes to ``rotated_nms``, caught in one
+     more run outside the counted ones);
   6. a torch.profiler window over 3 more scenes: device time by kernel,
      K1's kernels summed, and the device's idle share, with the SM clock
      and power draw after it;
@@ -54,7 +60,9 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
 
 Launch counts are reset just before each timed path run (phases 5 and 7)
 and read just after; the ``kernels`` line sums them over those runs. Its
-K4 times are per scene: the 32 launches of one scene at their stages.
+K4 times are per scene: the 32 launches of one scene at their stages, in
+bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
+row adds the prefilter's survivor share and the scene input's numbers.
 It then prints the kernels' JSON line and, last, the device JSON line.
 Nothing here imports JAX or the JAX package.
 """
@@ -63,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
 import statistics
@@ -87,16 +96,20 @@ DET_STAGES = ("encoder", "backbone+shrink+psm head", "fusion+heads",
 SEG_STAGES = ("encoder", "backbone+shrink+crop", "fusion+seg head",
               "decode")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
-# and non-tensor-core f32 operations/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
+# tensor-core and non-tensor-core f32 operations/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 F32_OPS_PER_S = 67e12
 # f32 operations per (i, j) pair in csrc/quad_iou.cu, counted from the
 # source on its cheapest (entering) branch, a division counted as one:
 # centring 16, two signed areas 32, signs / abs / tolerance 9, two clip sums
 # of 4 edges x (5 + 4 half-planes x 17 + 9) = 656, the IoU 9.
 K2_OPS_PER_PAIR = 722
+# f32 operations of K2's prefilter per pair (csrc/quad_iou.cu:separated):
+# the gap 7, tol2 4, the margin 9, the test 3
+K2_PREFILTER_OPS = 23
 # the flagship backbone's stride-1 layer shapes (6 maps, NHWC)
 K4_STAGES = ((6, 100, 352, 64), (6, 50, 176, 128), (6, 25, 88, 256))
 
@@ -187,22 +200,24 @@ def phase_build():
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-                # conv3x3_wgmma_kernel<WG, MR, BN>: ..ILi2ELi1ELi64EE..
+                # conv3x3_wgmma_kernel<F32, WG, MR, BN>: ..ILb1ELi2ELi1ELi64EE..
                 if "wgmma_kernel" in entry:
                     args = entry.split("wgmma_kernelI", 1)[1].split("EE")[0]
+                    args = args.replace("Lb0", "bf16E").replace("Lb1", "f32E")
                     entry = "conv3x3_wgmma_kernel<%s>" % ", ".join(
                         a for a in args.replace("Li", "").split("E") if a)
             if "Used" in line:
                 print(f"  {name}: {entry[:60]}: {line.strip()}")
-    for shape in K4_STAGES:
+    for shape, dt, allmaps in itertools.product(
+            K4_STAGES, (torch.bfloat16, torch.float32), (False, True)):
         b, h, w, c = shape
-        for allmaps in (False, True):
-            p = conv3x3_plan(b, h, w, c, c, torch.bfloat16, allmaps)
-            print(f"  K4{'b' if allmaps else 'a'} bf16 plan {shape}: "
-                  f"{p.maps} map(s) x {p.tile_h}x{p.tile_w} pixels x "
-                  f"{p.block_n} outputs, kernel <{p.wgs}, {p.mr}, "
-                  f"{p.block_n}>, rings A {p.a_stages} / B {p.b_stages}, "
-                  f"{p.n_blocks} blocks, {p.smem_bytes} B dynamic smem")
+        p = conv3x3_plan(b, h, w, c, c, dt, allmaps)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        print(f"  K4{'b' if allmaps else 'a'} {name} plan {shape}: "
+              f"{p.maps} map(s) x {p.tile_h}x{p.tile_w} pixels x "
+              f"{p.block_n} outputs, kernel <{p.wgs}, {p.mr}, "
+              f"{p.block_n}>, rings A {p.a_stages} / B {p.b_stages}, "
+              f"{p.n_blocks} blocks, {p.smem_bytes} B dynamic smem")
 
 
 def cut_hypes(path: str) -> dict:
@@ -394,36 +409,78 @@ def k2_quads(hypes, gts):
     return quads[torch.from_numpy(rng.permutation(TOP_K))].contiguous().cuda()
 
 
-def phase_k2(hypes, gts):
-    from airv2x_tpu_torch.ops.quad_iou import quad_iou, quad_iou_plain
+def k2_check(label, q):
+    """K2 on the (K, 4, 2) quads ``q`` against its plain version, full and
+    triangular, then the times of both modes and of the plain version, the
+    prefilter's survivor share and the bounds."""
+    from airv2x_tpu_torch.ops.quad_iou import (
+        _separated, quad_iou, quad_iou_plain)
 
-    q = k2_quads(hypes, gts)
+    k = q.shape[0]
     ref = quad_iou_plain(q, q)
     full = quad_iou(q, q)
     tri = quad_iou(q, q, triangular=True)
     torch.cuda.synchronize()
-    iu = torch.triu_indices(TOP_K, TOP_K, offset=1, device=q.device)
+    iu = torch.triu_indices(k, k, offset=1, device=q.device)
     err_full = float((full - ref).abs().max())
     err_tri = float((tri - ref)[iu[0], iu[1]].abs().max())
     overl = int((ref[iu[0], iu[1]] > 0).sum())
-    print(f"phase 3 K2: max|kernel - plain| full {err_full:.3e}, triangular "
+    pairs = iu.shape[1]  # the upper triangle NMS reads
+    survivors = int((~_separated(q, q))[iu[0], iu[1]].sum())
+    print(f"{label}: max|kernel - plain| full {err_full:.3e}, triangular "
           f"(i < j) {err_tri:.3e} (tol {K2_TOL}); {overl} overlapping pairs "
-          f"of {iu.shape[1]}")
+          f"of {pairs}; prefilter survivors {survivors} of {pairs} (share "
+          f"{survivors / pairs:.4f})")
     err = max(err_full, err_tri)
     if not err <= K2_TOL:
-        raise AssertionError(f"K2 disagrees with its plain version: {err}")
+        raise AssertionError(f"{label}: K2 disagrees with its plain version: "
+                             f"{err}")
     ms = cuda_ms(lambda: quad_iou(q, q, triangular=True), 200)
     ms_full = cuda_ms(lambda: quad_iou(q, q), 200)
     plain_ms = cuda_ms(lambda: quad_iou_plain(q, q), 20)
-    pairs = TOP_K * (TOP_K - 1) // 2  # the upper triangle NMS reads
     ops_ms = pairs * K2_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
-    bytes_ms = (2 * q.numel() * 4 + TOP_K * TOP_K * 4) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = (2 * q.numel() * 4 + k * k * 4) / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    print(f"phase 3 K2: kernel triangular {ms:.4f} ms, full {ms_full:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (operations "
-          f"{ops_ms:.5f} ms, bytes {bytes_ms:.5f} ms)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    need_ms = max((pairs * K2_PREFILTER_OPS + survivors * K2_OPS_PER_PAIR)
+                  / F32_OPS_PER_S * 1e3, bytes_ms)
+    print(f"{label}: kernel triangular {ms:.4f} ms, full {ms_full:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (every pair "
+          f"clipped: operations {ops_ms:.5f} ms, bytes {bytes_ms:.5f} ms), "
+          f"share {bound_ms / ms:.3f}; bound of the work this input needs "
+          f"(the prefilter on every pair, the clip on the survivors, at "
+          f"least the bytes) {need_ms:.5f} ms, share {need_ms / ms:.3f}")
+    return dict(err=err, ms=ms, ms_full=ms_full, plain_ms=plain_ms,
+                bound_ms=bound_ms, need_ms=need_ms,
+                survivor_share=survivors / pairs,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_k2(hypes, gts):
+    return k2_check("phase 3 K2", k2_quads(hypes, gts))
+
+
+def phase_k2_scene(run, scene):
+    """K2 on the quads NMS hands it in one det scene: the top-512 corners
+    ``decode_detections`` passes to ``rotated_nms``, caught on their way
+    to ``quad_iou`` in one more run of ``scene``."""
+    from airv2x_tpu_torch.ops import nms
+
+    caught = []
+
+    def catch(c1, c2, **kw):
+        caught.append(c1.clone())
+        return real(c1, c2, **kw)
+
+    real = nms.quad_iou
+    nms.quad_iou = catch
+    try:
+        run(scene, [torch.cuda.Event(enable_timing=True)
+                    for _ in range(len(DET_STAGES) + 1)], [])
+    finally:
+        nms.quad_iou = real
+    torch.cuda.synchronize()
+    (q,) = caught
+    return k2_check("phase 5 K2 on scene 0's NMS input", q)
 
 
 def phase_k3():
@@ -464,13 +521,18 @@ def phase_k3():
 
 def k4_bound(shape, cout, dtype):
     """(bound ms, ops ms, bytes ms) of one launch: each input read once,
-    the output written once; 2 * 9 * Cin operations per output."""
+    the output written once; 2 * 9 * Cin operations per output. In f32 the
+    operations bound is the smaller of the FMA bound (67 TFLOP/s) and the
+    3xTF32 tensor-core bound (3 products at 495 TFLOP/s), which the kernel
+    runs."""
     b, h, w, c = shape
     item = torch.empty((), dtype=dtype).element_size()
     ops = 2.0 * b * h * w * 9 * c * cout
     nbytes = (b * h * w * (c + cout) + 9 * c * cout) * item + 8 * cout
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    ops_ms = ops / peak * 1e3
+    if dtype == torch.bfloat16:
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+    else:
+        ops_ms = min(ops / F32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms
 
@@ -495,13 +557,14 @@ def phase_k4(launches_per_stage):
             blk.requires_grad_(False)
             cast_weights_(blk, dt)
             x = x32.to(dt)
-            wk, sc, bi = blk._fold(dt)
+            wk, sc, bi, packed = blk._fold(dt)
             args = (x, wk, sc, bi)
+            kw = dict(relu=True, packed=packed)  # as ConvBNReLU calls it
             ref = conv3x3_same_plain(*args, relu=True)
             scale = float(ref.float().abs().max())
             errs = {}
             for allmaps in (False, True):
-                got = conv3x3_same(*args, relu=True, allmaps=allmaps)
+                got = conv3x3_same(*args, allmaps=allmaps, **kw)
                 torch.cuda.synchronize()
                 d = (got.float() - ref.float()).abs()
                 errs[allmaps] = float(d.max())
@@ -518,49 +581,56 @@ def phase_k4(launches_per_stage):
                 lib_err = float((blk(xl).permute(0, 2, 3, 1).float()
                                  - ref.float()).abs().max())
                 lib_ms = cuda_ms(lambda: blk(xl), 20)
-            ms_a = cuda_ms(lambda: conv3x3_same(*args, relu=True), 20)
-            ms_b = cuda_ms(lambda: conv3x3_same(*args, relu=True,
-                                                allmaps=True), 20)
+            ms_a = cuda_ms(lambda: conv3x3_same(*args, **kw), 20)
+            ms_b = cuda_ms(lambda: conv3x3_same(*args, allmaps=True, **kw), 20)
             plain_ms = cuda_ms(lambda: conv3x3_same_plain(*args, relu=True), 10)
             bound_ms, ops_ms, bytes_ms = k4_bound(shape, c, dt)
+            name = "bf16" if dt == torch.bfloat16 else "f32"
             print(f"phase 3b K4 {shape} {dt}: max|kernel - plain| K4a "
                   f"{errs[False]:.3e}, K4b {errs[True]:.3e} (scale {scale:.3f}; "
                   f"library - plain {lib_err:.3e}); ms K4a {ms_a:.4f}, K4b "
                   f"{ms_b:.4f}, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
                   f"bound {bound_ms:.4f} (operations {ops_ms:.4f}, bytes "
                   f"{bytes_ms:.4f})")
-            if dt == torch.bfloat16:
-                us = host_us(lambda: conv3x3_same(*args, relu=True))
-                with torch.inference_mode(), conv_mode("auto"):
-                    lib_us = host_us(lambda: blk(xl))
-                print(f"phase 3b K4 {shape} bf16: share of bound K4a "
-                      f"{bound_ms / ms_a:.3f}, K4b {bound_ms / ms_b:.3f}; "
-                      f"time / library K4a {ms_a / lib_ms:.3f}, K4b "
-                      f"{ms_b / lib_ms:.3f}; host us per call: conv3x3_same "
-                      f"{us:.1f}, cuDNN ConvBNReLU {lib_us:.1f}")
+            if dt == torch.float32:
+                fma_ms = 2.0 * b * h * w * 9 * c * c / F32_OPS_PER_S * 1e3
+                print(f"phase 3b K4 {shape} f32: bound without tensor cores "
+                      f"(FMA) {fma_ms:.4f} ms, share K4a {fma_ms / ms_a:.3f}, "
+                      f"K4b {fma_ms / ms_b:.3f}")
+            us = host_us(lambda: conv3x3_same(*args, **kw))
+            with torch.inference_mode(), conv_mode("auto"):
+                lib_us = host_us(lambda: blk(xl))
+            print(f"phase 3b K4 {shape} {name}: share of bound K4a "
+                  f"{bound_ms / ms_a:.3f}, K4b {bound_ms / ms_b:.3f}; "
+                  f"time / library K4a {ms_a / lib_ms:.3f}, K4b "
+                  f"{ms_b / lib_ms:.3f}; host us per call: conv3x3_same "
+                  f"{us:.1f}, cuDNN ConvBNReLU {lib_us:.1f}")
             res[(si, dt)] = dict(err_a=errs[False], err_b=errs[True],
                                  ms_a=ms_a, ms_b=ms_b, plain_ms=plain_ms,
                                  lib_ms=lib_ms, bound_ms=bound_ms,
                                  ops_ms=ops_ms, bytes_ms=bytes_ms)
             del blk, x, args, ref
-    # per scene of the bf16 main path: launches_per_stage launches each
-    per_scene = {}
-    for key in ("ms_a", "ms_b", "plain_ms", "lib_ms", "bound_ms", "ops_ms",
-                "bytes_ms"):
-        per_scene[key] = sum(n * res[(si, torch.bfloat16)][key]
-                             for si, n in enumerate(launches_per_stage))
-    print("phase 3b K4 per scene of the bf16 main path ("
-          f"{sum(launches_per_stage)} launches at "
-          f"{list(launches_per_stage)} per stage), ms: "
-          + json.dumps({k: round(v, 4) for k, v in per_scene.items()}))
-    print(f"phase 3b K4 per scene, bf16: share of bound K4a "
-          f"{per_scene['bound_ms'] / per_scene['ms_a']:.3f}, K4b "
-          f"{per_scene['bound_ms'] / per_scene['ms_b']:.3f}; time / library "
-          f"K4a {per_scene['ms_a'] / per_scene['lib_ms']:.3f}, K4b "
-          f"{per_scene['ms_b'] / per_scene['lib_ms']:.3f}")
-    per_scene["err_a"] = max(res[(si, torch.float32)]["err_a"] for si in range(3))
-    per_scene["err_b"] = max(res[(si, torch.float32)]["err_b"] for si in range(3))
-    return per_scene
+    # per scene of 32 launches at launches_per_stage launches per stage: the
+    # bf16 main path in pallas mode, and the f32 parity path of phase 4a
+    out = {}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        per_scene = {}
+        for key in ("ms_a", "ms_b", "plain_ms", "lib_ms", "bound_ms",
+                    "ops_ms", "bytes_ms"):
+            per_scene[key] = sum(n * res[(si, dt)][key]
+                                 for si, n in enumerate(launches_per_stage))
+        print(f"phase 3b K4 per scene of {sum(launches_per_stage)} launches "
+              f"at {list(launches_per_stage)} per stage, {name}, ms: "
+              + json.dumps({k: round(v, 4) for k, v in per_scene.items()}))
+        print(f"phase 3b K4 per scene, {name}: share of bound K4a "
+              f"{per_scene['bound_ms'] / per_scene['ms_a']:.3f}, K4b "
+              f"{per_scene['bound_ms'] / per_scene['ms_b']:.3f}; time / "
+              f"library K4a {per_scene['ms_a'] / per_scene['lib_ms']:.3f}, "
+              f"K4b {per_scene['ms_b'] / per_scene['lib_ms']:.3f}")
+        per_scene["err_a"] = max(res[(si, dt)]["err_a"] for si in range(3))
+        per_scene["err_b"] = max(res[(si, dt)]["err_b"] for si in range(3))
+        out[name] = per_scene
+    return out
 
 
 def staged(model, batch, psm=None):
@@ -931,6 +1001,27 @@ def phase_profile(label, run, events, scenes, top=15):
     print(f"{label} clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
 
 
+def k4_row(name, launches, k4, form):
+    """The kernels-line row of K4a (``form`` "a") or K4b ("b"): per scene
+    of 32 launches, bf16 as the main path runs it, and f32 beside it."""
+    def numbers(r):
+        return {"max_abs_err": r[f"err_{form}"], "ms": r[f"ms_{form}"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                             else "bytes"),
+                "library_ms": r["lib_ms"]}
+
+    row = {"name": name, "route": "cuda",
+           "source": "airv2x_tpu_torch/csrc/conv3x3.cu",
+           "replaces": ("airv2x_tpu/ops/pallas_conv.py:99" if form == "a"
+                        else "airv2x_tpu/ops/pallas_conv.py:113"),
+           "launches": launches}
+    row.update(numbers(k4["bf16"]))
+    row["max_abs_err"] = k4["f32"][f"err_{form}"]  # f32: no bf16 rounding
+    row["f32"] = numbers(k4["f32"])
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -956,6 +1047,8 @@ def main() -> int:
     cast_weights_(model, torch.bfloat16)  # BatchNorm2d stays f32
     det, run = phase_flagship(hypes, model, scenes, convs)
     with conv_mode("auto"):
+        k2_scene = phase_k2_scene(run, scenes[0])
+    with conv_mode("auto"):
         phase_profile("phase 6 flagship auto", run, det["auto"]["events"],
                       scenes)
     with conv_mode("pallas"):
@@ -980,10 +1073,15 @@ def main() -> int:
         {"name": "quad_iou", "route": "cuda",
          "source": "airv2x_tpu_torch/csrc/quad_iou.cu",
          "replaces": "airv2x_tpu/ops/pallas_iou.py:60",
-         "launches": launches["quad_iou"], "max_abs_err": k2["err"],
+         "launches": launches["quad_iou"],
+         "max_abs_err": max(k2["err"], k2_scene["err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "need_bound_ms": k2["need_ms"],
+         "survivor_share": k2["survivor_share"],
+         "scene_nms_input": {key: k2_scene[key] for key in (
+             "err", "ms", "ms_full", "plain_ms", "bound_ms", "need_ms",
+             "survivor_share")}},
         {"name": "pillar_reduce", "route": "cuda",
          "source": "airv2x_tpu_torch/csrc/pillar_reduce.cu",
          "replaces": "airv2x_tpu/ops/pallas_pillars.py:69",
@@ -991,25 +1089,8 @@ def main() -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
-        {"name": "conv3x3", "route": "cuda",
-         "source": "airv2x_tpu_torch/csrc/conv3x3.cu",
-         "replaces": "airv2x_tpu/ops/pallas_conv.py:99",
-         "launches": launches["conv3x3"], "max_abs_err": k4["err_a"],
-         "ms": k4["ms_a"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bound_ms"],
-         "bound_by": ("operations" if k4["ops_ms"] >= k4["bytes_ms"]
-                      else "bytes"),
-         "library_ms": k4["lib_ms"]},
-        {"name": "conv3x3_allmaps", "route": "cuda",
-         "source": "airv2x_tpu_torch/csrc/conv3x3.cu",
-         "replaces": "airv2x_tpu/ops/pallas_conv.py:113",
-         "launches": launches["conv3x3_allmaps"], "max_abs_err": k4["err_b"],
-         "ms": k4["ms_b"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bound_ms"],
-         "bound_by": ("operations" if k4["ops_ms"] >= k4["bytes_ms"]
-                      else "bytes"),
-         "library_ms": k4["lib_ms"]},
-    ]}))
+    ] + [k4_row(name, launches[name], k4, form) for name, form in (
+        ("conv3x3", "a"), ("conv3x3_allmaps", "b"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from airv2x_tpu.data.postprocess import decode_detections as jax_decode
 from airv2x_tpu.ops import geometry as jgeo
@@ -17,7 +19,9 @@ from airv2x_tpu_torch.ops import geometry as geo
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 from airv2x_tpu_torch.ops.boxes import decode_boxes
 from airv2x_tpu_torch.ops.nms import rotated_nms
-from airv2x_tpu_torch.ops.quad_iou import quad_iou, quad_iou_plain
+from airv2x_tpu_torch.ops.quad_iou import (
+    TILE, _margin, _quad_terms, _separated, iou_blocks, quad_iou,
+    quad_iou_plain)
 from tests.torch_port_helpers import assert_close
 
 IOU_TOL = 2e-5  # as tests/test_pallas_iou.py
@@ -174,3 +178,111 @@ def test_decode_detections_matches_jax():
                         2 * top_k)
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     assert 0 < int(got.mask.sum()) < top_k
+
+
+def _rand_quads(rng, n, spread=(140.0, 40.0)):
+    """n box quads (3.5-4.5 x 1.5-1.9 m, any yaw, either winding) with
+    centres uniform over +-spread: the BEV range of the flagship."""
+    ctr = rng.uniform(-1, 1, (n, 2)) * np.asarray(spread)
+    lw = np.stack([rng.uniform(3.5, 4.5, n), rng.uniform(1.5, 1.9, n)], -1)
+    tmpl = np.array([[1, -1], [1, 1], [-1, 1], [-1, -1]]) * 0.5
+    local = tmpl[None] * lw[:, None]
+    yaw = rng.uniform(-np.pi, np.pi, n)
+    c, s = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
+    q = np.stack([c * local[..., 0] - s * local[..., 1] + ctr[:, None, 0],
+                  s * local[..., 0] + c * local[..., 1] + ctr[:, None, 1]], -1)
+    flip = rng.uniform(size=n) < 0.5
+    q[flip] = q[flip, ::-1]  # clockwise winding
+    return q.astype(np.float32)
+
+
+def _place_right_of(a, b, gap):
+    """b moved along x so that its box starts ``gap`` right of a's."""
+    shift = a[:, :, 0].max(1) - b[:, :, 0].min(1) + gap
+    out = b.copy()
+    out[:, :, 0] += shift[:, None].astype(np.float32)
+    return out
+
+
+@settings(max_examples=30, deadline=None)
+@given(seed=st.integers(0, 2 ** 32 - 1),
+       mode=st.sampled_from(["spread", "past_margin", "near_parallel",
+                             "shared_edge"]))
+def test_k2_separated_pairs_have_zero_iou(seed, mode):
+    """Every pair the prefilter rejects has plain IoU exactly 0.0: random
+    quads over the 140 m BEV range, pairs placed just past the margin,
+    near-parallel edges a hair apart; quads sharing an edge are never
+    rejected."""
+    rng = np.random.default_rng(seed)
+    a = _rand_quads(rng, 48)
+    if mode == "spread":
+        c = torch.from_numpy(a)
+        sep = _separated(c, c)
+        assert bool((quad_iou_plain(c, c)[sep] == 0).all())
+        return
+    if mode == "past_margin":
+        b0 = _rand_quads(rng, 48)
+        margin = _margin(_quad_terms(torch.from_numpy(a)),
+                         _quad_terms(torch.from_numpy(b0))).numpy()
+        b = _place_right_of(a, b0, margin * rng.uniform(1.0, 1.5, 48))
+    elif mode == "near_parallel":  # a copy turned 1e-5 rad, a hair away
+        ang = rng.uniform(-1e-5, 1e-5, 48)[:, None]
+        ctr = a.mean(1, keepdims=True)
+        d = (a - ctr).astype(np.float64)
+        rot = np.stack([np.cos(ang) * d[..., 0] - np.sin(ang) * d[..., 1],
+                        np.sin(ang) * d[..., 0] + np.cos(ang) * d[..., 1]], -1)
+        edge = a[:, 1] - a[:, 0]  # shift across edge 0 by its length + 0-1 cm
+        b = (rot + ctr + edge[:, None] * (1.0 + rng.uniform(0, 2.5e-3, (48, 1, 1)))
+             ).astype(np.float32)
+    else:  # shared_edge: b is a moved by one of its edges
+        b = (a + (a[:, 1] - a[:, 0])[:, None]).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    sep = torch.diagonal(_separated(ta, tb))
+    iou = torch.diagonal(quad_iou_plain(ta, tb))
+    assert bool((iou[sep] == 0).all()), iou[sep]
+    if mode == "past_margin":
+        assert float(sep.float().mean()) > 0.9
+    if mode == "shared_edge":
+        assert not bool(sep.any())
+        # the translated corners round at 140 m: a sliver of ~1e-6 may stay
+        assert float(iou.abs().max()) <= IOU_TOL
+
+
+def test_k2_separated_never_rejects_nan_or_degenerate_rows():
+    rng = np.random.default_rng(16)
+    q = _rand_quads(rng, 32)
+    q[3, 2, 0] = np.nan
+    q[4] = np.nan
+    q[5, 1, 1] = np.inf
+    q[6] = q[6, :1]  # all four corners at one point: no area
+    q[7, 2] = q[7, 1]  # a repeated corner
+    sep = _separated(torch.from_numpy(q), torch.from_numpy(q))
+    for r in (3, 4, 5, 6, 7):
+        assert not bool(sep[r].any()) and not bool(sep[:, r].any())
+    assert bool(sep.any())  # the rest are spread over the range
+
+
+@pytest.mark.parametrize("n,m", [(512, 512), (300, 200), (200, 300), (1, 1),
+                                 (33, 65), (64, 64), (31, 1)])
+@pytest.mark.parametrize("triangular", [False, True], ids=["full", "tri"])
+def test_k2_block_map_covers_every_pair_once(n, m, triangular):
+    """The kernel's block -> tile map (a Python mirror): every (i, j) of the
+    output is written by exactly one block, and every i < j lies in a tile
+    that is computed, not zero-filled."""
+    hits = np.zeros((n, m), np.int32)
+    computed = np.zeros((n, m), bool)
+    t = TILE
+    for comp, zero in iou_blocks(n, m, triangular, t):
+        for tile, is_comp in ((comp, True), (zero, False)):
+            if tile is None:
+                continue
+            sl = (slice(tile[0] * t, tile[0] * t + t),
+                  slice(tile[1] * t, tile[1] * t + t))
+            hits[sl] += 1
+            computed[sl] |= is_comp
+    assert hits.min() == 1 and hits.max() == 1
+    iu = np.triu_indices(n, 1, m)
+    assert computed[iu].all()
+    if not triangular:
+        assert computed.all()
+

@@ -379,3 +379,106 @@ def test_conv3x3_kernel_is_deterministic(cuda, allmaps):
     second = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+def test_conv3x3_f32_kernel_fresh_inputs_back_to_back(cuda, allmaps):
+    """The 3xTF32 path: two inputs of one shape, one call each, then both
+    checked at the f32 tolerance; the second call takes the repacked split
+    weights as ``ConvBNReLU`` caches them, the first repacks them itself."""
+    from airv2x_tpu_torch.ops.conv3x3 import pack_f32_weights
+
+    rng = np.random.default_rng(11)
+    shape = (2, 25, 88, 64, 128)
+    x1, k, s, bias = _conv_inputs(rng, *shape, torch.float32, cuda)
+    x2 = _conv_inputs(rng, *shape, torch.float32, cuda)[0]
+    got1 = conv3x3_same(x1, k, s, bias, relu=True, allmaps=allmaps)
+    got2 = conv3x3_same(x2, k, s, bias, relu=True, allmaps=allmaps,
+                        packed=pack_f32_weights(k))
+    torch.cuda.synchronize()
+    for x, got in ((x1, got1), (x2, got2)):
+        ref = conv3x3_same_plain(x, k, s, bias, relu=True)
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(got, ref, atol=1e-4 * (1 + scale), rtol=0)
+    assert not torch.equal(got1, got2)
+
+
+@pytest.mark.parametrize("allmaps", [False, True], ids=["grid", "allmaps"])
+def test_conv3x3_f32_kernel_is_deterministic(cuda, allmaps):
+    """The 3xTF32 path has no atomics either: the same bits twice."""
+    x, k, s, bias = _conv_inputs(np.random.default_rng(12), 6, 25, 88, 256,
+                                 256, torch.float32, cuda)
+    first = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
+    second = conv3x3_same(x, k, s, bias, relu=True, allmaps=allmaps)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def _k2_case(kind, rng, n, m):
+    """(n, 4, 2) and (m, 4, 2) quads for K2's prefilter:
+      overlap    every quad around one point: every pair needs the clip;
+      separated  quads on a 10 m grid: the prefilter rejects every pair
+                 but the diagonal;
+      clustered  an NMS pool: jittered copies around a few objects;
+      nan        random quads with NaN rows and an infinite corner."""
+    if kind == "overlap":
+        q = _quads(rng, max(n, m))
+        q -= q.mean(1, keepdims=True)
+        q += rng.normal(0, 0.3, (len(q), 1, 2)).astype(np.float32)
+    elif kind == "separated":
+        q = _quads(rng, max(n, m))
+        q -= q.mean(1, keepdims=True)
+        side = int(np.ceil(np.sqrt(len(q))))
+        cell = np.arange(len(q))
+        q[..., 0] += 10.0 * (cell % side)[:, None] - 70.0
+        q[..., 1] += 10.0 * (cell // side)[:, None] - 30.0
+    elif kind == "clustered":
+        q = _quads(rng, max(n, m))
+        centres = q[rng.integers(0, 6, len(q))].mean(1, keepdims=True)
+        q += centres - q.mean(1, keepdims=True) + rng.normal(
+            0, 0.5, (len(q), 1, 2)).astype(np.float32)
+    else:
+        q = _quads(rng, max(n, m, 8))
+        q[3::17, 1, 0] = np.nan
+        q[5] = np.nan
+        q[7, 2, 1] = np.inf
+    q = q.astype(np.float32)
+    return q[:n], q[rng.permutation(len(q))[:m]]
+
+
+@pytest.mark.parametrize("triangular", [False, True], ids=["full", "tri"])
+@pytest.mark.parametrize("kind,n,m", [
+    ("overlap", 96, 96), ("separated", 512, 512), ("clustered", 512, 512),
+    ("clustered", 77, 141), ("nan", 200, 200), ("nan", 1, 1),
+    ("overlap", 1, 1), ("clustered", 33, 65)])
+def test_quad_iou_kernel_prefilter_cases(cuda, kind, n, m, triangular):
+    """Against the plain version, bit for bit on every pair the kernel must
+    give (every pair in full mode, i < j in triangular mode), NaN where the
+    plain version has NaN."""
+    rng = np.random.default_rng(13)
+    q1, q2 = _k2_case(kind, rng, n, m)
+    if triangular:
+        q2 = q1[:m] if m <= n else np.concatenate([q1, q2[n:]])
+    a, b = torch.from_numpy(q1).to(cuda), torch.from_numpy(q2).to(cuda)
+    before = kernels.LAUNCHES["quad_iou"]
+    got = quad_iou(a, b, triangular=triangular)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quad_iou"] == before + 1
+    ref = quad_iou_plain(a, b)
+    if triangular:
+        iu = torch.triu_indices(n, m, offset=1, device=cuda)
+        got, ref = got[iu[0], iu[1]], ref[iu[0], iu[1]]
+    torch.testing.assert_close(got, ref, atol=0, rtol=0, equal_nan=True)
+    if kind == "overlap" and n > 1:
+        assert float((ref > 0).float().mean()) > 0.9
+    if kind == "nan":
+        assert bool(ref.isnan().any()) or n == 1
+
+
+@pytest.mark.parametrize("triangular", [False, True], ids=["full", "tri"])
+def test_quad_iou_kernel_no_rows(cuda, triangular):
+    q = torch.from_numpy(_quads(np.random.default_rng(14), 4)).to(cuda)
+    empty = q[:0].contiguous()
+    assert quad_iou(empty, q, triangular=triangular).shape == (0, 4)
+    assert quad_iou(q, empty, triangular=triangular).shape == (4, 0)
+    torch.cuda.synchronize()
