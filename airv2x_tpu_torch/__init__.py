@@ -1,9 +1,11 @@
 """airv2x_tpu_torch — the PyTorch/CUDA port of ``airv2x_tpu`` for NVIDIA Hopper.
 
-It covers the flagship Where2comm LiDAR model in eval mode, for detection
-(points -> hetero pillar encoder -> BEV backbone -> confidence-gated
-multi-scale fusion -> heads -> top-k decode -> rotated NMS) and for BEV
-segmentation (the same trunk -> seg head -> class maps).
+It covers the flagship Where2comm LiDAR model, for detection (points ->
+hetero pillar encoder -> BEV backbone -> confidence-gated multi-scale fusion
+-> heads -> top-k decode -> rotated NMS) and for BEV segmentation (the same
+trunk -> seg head -> class maps), in eval mode and in training (synthetic
+anchor-labelled batches, the two losses, AdamW, checkpoints, the train CLI
+``python -m airv2x_tpu_torch.tools.train``).
 
 Every TPU kernel of the JAX package has a hand-written CUDA C++ counterpart
 for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use

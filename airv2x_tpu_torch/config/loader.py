@@ -1,8 +1,8 @@
 """YAML experiment-config loader (trimmed copy of airv2x_tpu/config/loader.py).
 
-Keeps ``load_yaml`` and the ``load_airv2x_params`` deriver that the AirV2X
-LiDAR configs name; the other parsers of the JAX package wait for the
-workloads that use them.
+Keeps ``load_yaml``, ``save_yaml`` and the ``load_airv2x_params`` deriver
+that the AirV2X LiDAR configs name; the other parsers of the JAX package
+wait for the workloads that use them.
 """
 
 from __future__ import annotations
@@ -88,3 +88,21 @@ def load_yaml(file_path: str) -> dict:
             )
         params = parser(params)
     return params
+
+
+def save_yaml(data: dict, path: str) -> None:
+    """Write a config (numpy arrays and scalars as plain lists and numbers)."""
+    with open(path, "w") as f:
+        yaml.safe_dump(_plain(data), f, default_flow_style=False)
+
+
+def _plain(obj):
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj

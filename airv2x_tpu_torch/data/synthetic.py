@@ -1,9 +1,13 @@
-"""Synthetic multi-agent LiDAR scene generator (copy of
-airv2x_tpu/data/synthetic.py ``make_scene``).
+"""Synthetic multi-agent LiDAR scenes and labelled training batches (copy of
+airv2x_tpu/data/synthetic.py ``make_scene``, ``rasterize_seg_labels`` and
+``make_batch``).
 
-numpy only, seeded by the caller's ``np.random.Generator``: the same seed
-gives bit-identical arrays to the JAX package's generator, so both packages
-can be fed one scene. ``batch_to_torch`` moves a batch onto the device.
+numpy, seeded by the caller's ``np.random.Generator``: the same seed gives
+bit-identical scene arrays to the JAX package's generator, so both packages
+can be fed one batch. ``make_batch`` attaches anchor targets
+(``ops/anchors.py:assign_targets``, run on ``device``) and rasterized seg
+labels; ``batch_to_torch`` moves a batch, nested ``labels`` included, onto
+the device.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from airv2x_tpu_torch.models.base import AGENT_TYPES, SlotLayout
+from airv2x_tpu_torch.ops.anchors import assign_targets
 from airv2x_tpu_torch.utils.device import resolve_device
 
 
@@ -132,8 +137,95 @@ def make_scene(
     return batch, gt
 
 
+def rasterize_seg_labels(boxes, mask, classes, seg_hw: int, seg_res: float):
+    """Rasterize gt boxes into a (seg_hw, seg_hw) dynamic class-id map (a BEV
+    square centred on the ego, seg_res m/px): the synthetic stand-in for the
+    dataset's segmentation labels."""
+    half = seg_hw * seg_res / 2
+    xs = (np.arange(seg_hw) + 0.5) * seg_res - half
+    gx, gy = np.meshgrid(xs, xs, indexing="xy")  # (hw, hw) ego frame
+    out = np.zeros((seg_hw, seg_hw), np.int32)
+    for b, m, c in zip(boxes, mask, classes):
+        if not m:
+            continue
+        cxy, yaw = b[:2], b[6]
+        w_, l_ = b[4], b[5]
+        ca, sa = np.cos(yaw), np.sin(yaw)
+        rx = (gx - cxy[0]) * ca + (gy - cxy[1]) * sa
+        ry = -(gx - cxy[0]) * sa + (gy - cxy[1]) * ca
+        inside = (np.abs(rx) <= l_ / 2) & (np.abs(ry) <= w_ / 2)
+        out[inside] = int(c)
+    return out
+
+
+def make_batch(
+    rng: np.random.Generator,
+    layout: SlotLayout,
+    batch_size: int,
+    anchors: np.ndarray | None = None,
+    anchor_standup: np.ndarray | None = None,
+    target_args: dict | None = None,
+    seg_hw: int = 0,
+    seg_res: float = 0.25,
+    *,
+    device="cuda",
+    **scene_kw,
+):
+    """Stack ``batch_size`` scenes; with ``anchors``, attach anchor targets
+    computed on ``device``; with ``seg_hw``, rasterized seg labels. Returns
+    (batch, gt), all numpy, ``batch["labels"]`` a nested dict."""
+    batches, gts = [], []
+    for _ in range(batch_size):
+        b, g = make_scene(rng, layout, **scene_kw)
+        batches.append(b)
+        gts.append(g)
+    batch = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    gt = {k: np.stack([g[k] for g in gts]) for k in gts[0]}
+
+    if anchors is not None:
+        dev = resolve_device(device)
+        anc = torch.from_numpy(anchors).to(dev)
+        standup = torch.from_numpy(anchor_standup).to(dev)
+        tgts = [
+            assign_targets(
+                torch.from_numpy(g["boxes"]).to(dev),
+                torch.from_numpy(g["mask"]).to(dev),
+                torch.from_numpy(g["classes"]).to(dev),
+                anc, standup,
+                pos_threshold=target_args["pos_threshold"],
+                neg_threshold=target_args["neg_threshold"],
+            )
+            for g in gts
+        ]
+        def stack(field):
+            return np.stack([getattr(t, field).cpu().numpy() for t in tgts])
+
+        batch["labels"] = {
+            "pos_equal_one": stack("pos_equal_one"),
+            "neg_equal_one": stack("neg_equal_one"),
+            "targets": stack("targets"),
+            "class_ids": stack("cls_labels"),
+        }
+    if seg_hw:
+        dyn = np.stack([
+            rasterize_seg_labels(g["boxes"], g["mask"], g["classes"],
+                                 seg_hw, seg_res)
+            for g in gts
+        ])
+        batch.setdefault("labels", {})
+        batch["labels"]["dynamic_seg_label"] = dyn
+        batch["labels"]["static_seg_label"] = np.zeros_like(dyn)
+    return batch, gt
+
+
 def batch_to_torch(batch: dict, device="cuda") -> dict:
-    """numpy batch arrays -> tensors on ``device`` (bool stays bool)."""
+    """numpy batch arrays -> tensors on ``device`` (bool stays bool); nested
+    dicts (the ``labels``) are moved leaf by leaf."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in batch.items()}
+
+    def move(v):
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+
+    return move(batch)

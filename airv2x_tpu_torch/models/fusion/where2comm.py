@@ -1,11 +1,13 @@
-"""Where2comm fusion, eval mode (counterpart of
-airv2x_tpu/models/fusion/where2comm.py).
+"""Where2comm fusion (counterpart of airv2x_tpu/models/fusion/where2comm.py).
 
-Communication: sigmoid confidence -> max over anchor/class channels -> fixed
-5x5 *unnormalised* gaussian (SAME padding) -> ``conf > threshold``; the rate
-is measured before the ego row is forced on. Multi-scale fusion reruns the
-shared backbone stages on the raw BEV features, gates stage 0 with the mask
-and fuses agents with ego-query attention at every scale.
+Communication: sigmoid confidence (no gradient) -> max over anchor/class
+channels -> fixed 5x5 *unnormalised* gaussian (SAME padding) -> in eval
+``conf > threshold``; in training the reference's random top-K proxy: per
+sample a keep fraction u, and each agent keeps its floor(u * H * W) most
+confident pixels. The rate is measured before the ego row is forced on.
+Multi-scale fusion reruns the shared backbone stages on the raw BEV
+features, gates stage 0 with the mask and fuses agents with ego-query
+attention at every scale.
 """
 
 from __future__ import annotations
@@ -91,15 +93,34 @@ class Communication(nn.Module):
         self.k_size = k_size
         self.c_sigma = c_sigma
 
-    def forward(self, psm, agent_mask):
+    def forward(self, psm, agent_mask, comm_u=None, generator=None):
         """psm (B, L, AC, H, W) confidence logits -> (mask (B, L, H, W),
-        comm_rate scalar tensor)."""
-        if self.training:
-            raise NotImplementedError("training-mode communication waits")
-        h, w = psm.shape[-2:]
-        conf = torch.sigmoid(psm).amax(dim=2)  # (B, L, H, W)
+        comm_rate scalar tensor).
+
+        Train mode keeps, per sample, the fraction ``comm_u`` (B,) of each
+        agent's pixels; without it u is drawn from ``generator`` (a CPU
+        ``torch.Generator``, so the card and the CPU draw the same u)."""
+        b, l, _, h, w = psm.shape
+        conf = torch.sigmoid(psm.detach()).amax(dim=2)  # (B, L, H, W)
         conf = gaussian_smooth(conf, self.k_size, self.c_sigma)
-        comm_mask = (conf > self.threshold).to(conf.dtype)
+        if self.training:
+            if comm_u is None:
+                if generator is None:
+                    raise ValueError("train-mode communication needs comm_u "
+                                     "or a torch.Generator")
+                comm_u = torch.rand(b, generator=generator)
+            u = comm_u.to(device=conf.device, dtype=torch.float32)
+            k = torch.floor(u * (h * w)).to(torch.int64)
+            # a pixel is kept iff its rank among its agent's confidences is
+            # below k; ranks by a stable double argsort (descending), so tied
+            # confidences rank in index order, as jnp.argsort ranks them
+            order = torch.argsort(-conf.reshape(b, l, h * w), dim=-1,
+                                  stable=True)
+            ranks = torch.argsort(order, dim=-1, stable=True)
+            comm_mask = (ranks < k[:, None, None]).to(conf.dtype)
+            comm_mask = comm_mask.reshape(b, l, h, w)
+        else:
+            comm_mask = (conf > self.threshold).to(conf.dtype)
         am = agent_mask[:, :, None, None].to(conf.dtype)
         rate = (comm_mask * am).sum() / (am.sum() * (h * w)).clamp_min(1.0)
         comm_mask[:, 0] = 1.0  # ego always communicates with itself
@@ -117,12 +138,15 @@ class Where2commFusion(nn.Module):
             raise NotImplementedError("single-scale Where2comm is not ported")
         self.communication = Communication(threshold, k_size, c_sigma)
 
-    def forward(self, x, psm, agent_mask, backbone):
-        """x (B, L, H, W, C) raw BEV features; psm (B, L, AC, H', W').
+    def forward(self, x, psm, agent_mask, backbone, comm_u=None,
+                generator=None):
+        """x (B, L, H, W, C) raw BEV features; psm (B, L, AC, H', W');
+        ``comm_u`` / ``generator`` as ``Communication`` takes them.
 
         Returns (fused (B, Cf, Hf, Wf), comm_rate)."""
         b, l, h, w, c = x.shape
-        comm_mask, rate = self.communication(psm, agent_mask)
+        comm_mask, rate = self.communication(psm, agent_mask, comm_u,
+                                             generator)
 
         ups = []
         cur = x.reshape(b * l, h, w, c).permute(0, 3, 1, 2)

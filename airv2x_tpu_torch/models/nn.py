@@ -1,7 +1,8 @@
-"""Shared neural building blocks, eval mode (counterpart of
-airv2x_tpu/models/nn.py).
+"""Shared neural building blocks (counterpart of airv2x_tpu/models/nn.py).
 
-Modules compute in NCHW; BatchNorm uses the reference's eps = 1e-3.
+Modules compute in NCHW; BatchNorm uses the reference's eps = 1e-3 and, in
+train mode, flax's statistics: f32 batch statistics, the biased batch
+variance in the running average, flax momentum 0.99 (torch's 0.01).
 ``FLAX_NAMES`` maps each child attribute to its flax scope name, which the
 weight bridge (``utils/weights.py``) follows; a ``ModuleList`` child ``x``
 maps to scopes ``<name>_0``, ``<name>_1``, ...
@@ -23,6 +24,13 @@ from airv2x_tpu_torch.ops.conv3x3 import (
 )
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99  # flax: ema = m * ema + (1 - m) * batch
+
+
+def _ema_(running: torch.Tensor, batch: torch.Tensor) -> None:
+    """Flax's running-average update, in place (bumps the tensor's version,
+    which ``ConvBNReLU._fold`` keys its cache on)."""
+    running.copy_(BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch)
 
 
 def _conv3x3_mode(shape, dtype, features: int) -> str:
@@ -48,8 +56,10 @@ def _conv3x3_mode(shape, dtype, features: int) -> str:
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis of a point set (flax
-    ``MaskedBatchNorm``; its mask only matters for training statistics)."""
+    """BatchNorm over the last axis of a padded point set (flax
+    ``MaskedBatchNorm``). In train mode the statistics are taken over the
+    rows where ``mask`` is True only, in f32: the masked mean, then the
+    masked mean of squared deviations (two passes, as the JAX package)."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__()
@@ -64,9 +74,50 @@ class MaskedBatchNorm(nn.Module):
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
         return a, self.bias - self.running_mean * a
 
+    def forward(self, x, mask=None):
+        """x (..., C); mask (...) bool, needed in train mode only."""
+        if self.training:
+            m = mask[..., None].to(torch.float32)
+            dims = tuple(range(x.dim() - 1))
+            cnt = m.sum().clamp_min(1.0)
+            xf = x.float()
+            mean = (xf * m).sum(dims) / cnt
+            var = ((xf - mean) ** 2 * m).sum(dims) / cnt
+            with torch.no_grad():
+                _ema_(self.running_mean, mean)
+                _ema_(self.running_var, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps).to(x.dtype)
+        y = (x - mean.to(x.dtype)) * inv
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode ``BatchNorm`` (a subclass, so
+    the weight bridge's ``isinstance`` still matches). Train mode takes the
+    batch statistics in f32 as flax does: the mean and the biased variance
+    E[x^2] - E[x]^2 clamped at 0 (flax's ``use_fast_variance``, which rounds
+    apart from torch's own variance by up to ~1e-4 relative where the mean
+    dwarfs the spread), normalises with them in that type with the gradient
+    flowing through both, casts to x's dtype, and updates the running
+    averages with flax's momentum. Eval mode is the parent's."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__(num_features, eps=eps, momentum=1 - BN_MOMENTUM)
+
     def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            _ema_(self.running_mean, mean)
+            _ema_(self.running_var, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class ConvBNReLU(nn.Module):
@@ -85,7 +136,7 @@ class ConvBNReLU(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, 3, stride=stride, padding=1,
                               bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn = BatchNorm2d(features)
         self._fold_key, self._fold_val = None, None
 
     def _fold(self, dtype):
@@ -93,7 +144,8 @@ class ConvBNReLU(nn.Module):
         and the eval BN, as models/nn.py of the JAX package folds them;
         ``packed`` is the f32 kernel's repacked tf32 split of the weight
         (``pack_f32_weights``; None in bf16). Cached until one of the five
-        tensors changes (data pointer and version)."""
+        tensors changes (data pointer and version) or ``train()`` /
+        ``eval()`` is called."""
         ts = (self.conv.weight, self.bn.weight, self.bn.bias,
               self.bn.running_mean, self.bn.running_var)
         key = None if any(t.is_inference() for t in ts) else (dtype,) + tuple(
@@ -107,6 +159,14 @@ class ConvBNReLU(nn.Module):
             packed = pack_f32_weights(w) if dtype == torch.float32 else None
             self._fold_key, self._fold_val = key, (w, scale, bias, packed)
         return self._fold_val
+
+    def train(self, mode: bool = True):
+        # a fused optimizer step (torch.optim.AdamW(fused=True)) writes the
+        # weights without bumping their version, so the fold cache cannot
+        # see it: drop the cache whenever the mode is set (model.train(),
+        # model.eval())
+        self._fold_key, self._fold_val = None, None
+        return super().train(mode)
 
     def forward(self, x):
         if not self.training and self.conv.stride == (1, 1):
@@ -150,7 +210,7 @@ class DeconvBNReLU(nn.Module):
             raise NotImplementedError("downsampling deblocks are not ported")
         self.deconv = nn.ConvTranspose2d(in_ch, features, stride,
                                          stride=stride, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn = BatchNorm2d(features)
 
     def forward(self, x):
         return torch.relu(self.bn(self.deconv(x)))

@@ -3,15 +3,27 @@ Where2comm model, whose ``task`` (det or seg) the config names."""
 
 from __future__ import annotations
 
+import torch
+
 from airv2x_tpu_torch.models.where2comm_model import Airv2xWhere2comm
 from airv2x_tpu_torch.utils.device import resolve_device
 
 MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm}
+DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
+          "bfloat16": torch.bfloat16}
 
 
-def build_model(hypes: dict, *, device="cuda"):
-    """Build the eval-mode float32 model named by
-    ``hypes['model']['core_method']`` on ``device``.
+def compute_dtype(hypes: dict) -> torch.dtype:
+    """The compute dtype ``hypes['model']['args']['dtype']`` names (default
+    float32), as the JAX package's ``build_model`` reads it."""
+    return DTYPES[str(hypes["model"]["args"].get("dtype", "float32"))]
+
+
+def build_model(hypes: dict, *, device="cuda", train: bool = False):
+    """Build the float32 model named by ``hypes['model']['core_method']`` on
+    ``device``: frozen in eval mode, or with ``train`` trainable in train
+    mode (its parameters stay f32, the optimizer's master weights; the train
+    step computes in ``compute_dtype(hypes)``).
 
     The model args also carry the preprocess / postprocess sections. Raises
     when ``device`` is CUDA and no card is present.
@@ -23,5 +35,7 @@ def build_model(hypes: dict, *, device="cuda"):
     args = dict(hypes["model"]["args"])
     args.setdefault("preprocess", hypes.get("preprocess"))
     args.setdefault("postprocess", hypes.get("postprocess"))
-    model = MODEL_REGISTRY[name](args)
-    return model.to(dev).eval().requires_grad_(False)
+    model = MODEL_REGISTRY[name](args).to(dev)
+    if train:
+        return model.train().requires_grad_(True)
+    return model.eval().requires_grad_(False)

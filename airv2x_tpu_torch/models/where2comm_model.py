@@ -1,5 +1,6 @@
-"""Airv2x Where2comm model, eval mode (counterpart of
-airv2x_tpu/models/where2comm_model.py), for the det and seg tasks.
+"""Airv2x Where2comm model (counterpart of
+airv2x_tpu/models/where2comm_model.py), for the det and seg tasks, in eval
+and (``model.train()``) train mode.
 
 hetero encode -> shared BEV backbone -> shrink -> single-agent confidence
 (det: the cls head; seg: the seg head's cropped features) -> Where2comm
@@ -110,11 +111,13 @@ class Airv2xWhere2comm(nn.Module):
             return self.heads.cls_head(feats_2d)
         return self.seg_head.crop(feats_2d)
 
-    def fuse(self, x, psm_single, agent_mask):
-        """Stage 3: Where2comm fusion + shrink + heads -> NHWC outputs."""
+    def fuse(self, x, psm_single, agent_mask, comm_u=None, generator=None):
+        """Stage 3: Where2comm fusion + shrink + heads -> NHWC outputs.
+        ``comm_u`` / ``generator`` feed train-mode communication."""
         b, l = x.shape[:2]
         psm = psm_single.reshape(b, l, *psm_single.shape[1:])
-        fused, rate = self.fusion_net(x, psm, agent_mask, self.backbone)
+        fused, rate = self.fusion_net(x, psm, agent_mask, self.backbone,
+                                      comm_u, generator)
         fused = self._shrink(fused)
         if self.task == "det":
             out = {k: v.permute(0, 2, 3, 1)
@@ -124,6 +127,9 @@ class Airv2xWhere2comm(nn.Module):
         out["comm_rate"] = rate
         return out
 
-    def forward(self, batch):
+    def forward(self, batch, comm_u=None, generator=None):
+        """``comm_u`` (B,) keep fractions, or a CPU ``generator`` to draw
+        them from, in train mode; eval mode ignores both."""
         x = self.encode(batch)
-        return self.fuse(x, self.single_psm(x), batch["agent_mask"])
+        return self.fuse(x, self.single_psm(x), batch["agent_mask"], comm_u,
+                         generator)

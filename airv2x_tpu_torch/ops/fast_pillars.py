@@ -1,4 +1,4 @@
-"""Sort-free PointPillars encoder, eval path (counterpart of
+"""Sort-free PointPillars encoder (counterpart of
 airv2x_tpu/ops/fast_pillars.py: ``point_cell_ids`` and ``FastPillarBEV``).
 
 The single PFN layer (Linear -> eval BN -> ReLU) is pointwise over points,
@@ -13,7 +13,12 @@ pillar mean enters every point of a cell through the same term
 So the encoder is one (N, d_in) x (d_in, C) matmul over all points plus one
 call of K1 (``ops/pillar_encode.py``), which scatter-maxes the flipped
 features and scatter-adds the cell-centre residuals and applies that
-epilogue. The training path waits for a later slice.
+epilogue.
+
+Training needs the PFN's BN batch statistics over the per-point features, so
+its path (``FastPillarBEV.train_path``, the JAX package's ``_train_path``)
+takes the classic route in plain PyTorch: a cell-mean scatter-add, the
+full 10-feature PFN over every point, and a scatter-max into the grid.
 """
 
 from __future__ import annotations
@@ -165,12 +170,73 @@ class FastPillarBEV(nn.Module):
             ),
         )
 
+    def train_path(self, points, mask):
+        """The train-mode encoder, ``_train_path`` of the JAX package: leading
+        dims fold into one scatter by offsetting the cell ids, so the PFN's
+        BN statistics are global over every valid point.
+
+        The cell mean comes from one f32 scatter-add of [1, x, y, z]; an
+        all-zero probe row rides through dense -> BN -> ReLU with its mask
+        False, so it stays out of the statistics and its output is the
+        padding floor relu(bn(dense(0))); the features scatter-max into a
+        -1e9 fill (the gradient splits evenly among tied maxima, as JAX's
+        ``.at[].max`` splits it), and occupied cells are floored there."""
+        lr, vs = self.lidar_range, self.voxel_size
+        ovs, olr = self.offset_voxel_size, self.offset_lidar_range
+        nx, ny, out_c = self.nx, self.ny, self.out_c
+        cells = nx * ny
+        lead, n = points.shape[:-2], points.shape[-2]
+        m = math.prod(lead)
+        pts_flat = points.reshape(m * n, points.shape[-1])
+        ids, valid = point_cell_ids(pts_flat, mask.reshape(m * n), lr, vs, nx, ny)
+        pts = pts_flat.to(self.dense.weight.dtype)
+        # invalid points spread over the cells (their rows write -1e9 and
+        # weight 0) rather than piling onto cell 0, as the JAX package does
+        spread = torch.arange(ids.shape[0], device=ids.device) % cells
+        ids = torch.where(valid, ids.long(), spread)
+        row = torch.arange(m, device=ids.device).repeat_interleave(n)
+        gids = row * cells + ids
+        w = valid.to(torch.float32)[:, None]
+
+        # per-cell mean via one scatter-add of [1, x, y, z]
+        ones_xyz = torch.cat([w, pts[:, :3].float() * w], dim=1)
+        sums = torch.zeros((m * cells, 4), dtype=torch.float32,
+                           device=pts.device).index_add_(0, gids, ones_xyz)
+        mean = sums[:, 1:] / sums[:, :1].clamp_min(1.0)
+        f_cluster = pts[:, :3] - mean[gids].to(pts.dtype)
+        ix = (ids % nx).to(pts.dtype)
+        iy = torch.div(ids, nx, rounding_mode="floor").to(pts.dtype)
+        f_center = torch.stack([
+            pts[:, 0] - ((ix + 0.5) * ovs[0] + olr[0]),
+            pts[:, 1] - ((iy + 0.5) * ovs[1] + olr[1]),
+            pts[:, 2] - (ovs[2] / 2 + olr[2]),
+        ], dim=-1)
+        x = torch.cat([pts, f_cluster, f_center], dim=-1)
+        x = torch.where(valid[:, None], x, torch.zeros_like(x))
+
+        probe = torch.zeros((1, x.shape[-1]), dtype=x.dtype, device=x.device)
+        x = self.dense(torch.cat([x, probe], dim=0))
+        valid_ext = torch.cat([valid, valid.new_zeros(1)])
+        x = torch.relu(self.bn(x, valid_ext))
+        pad_floor, x = x[-1], x[:-1]
+
+        # the max runs in f32 (exact for bf16 values: the same maxima and
+        # ties as a bf16 max), and the grid returns in the features' dtype
+        neg = -1e9
+        xs = torch.where(valid[:, None], x.float(), neg)
+        grid = torch.full((m * cells, out_c), neg, dtype=torch.float32,
+                          device=x.device)
+        grid = grid.scatter_reduce(0, gids[:, None].expand(-1, out_c), xs,
+                                   "amax", include_self=True)
+        occupied = grid > neg / 2
+        grid = torch.where(occupied,
+                           torch.maximum(grid, pad_floor.float()[None, :]), 0.0)
+        return grid.to(x.dtype).reshape(lead + (ny, nx, out_c))
+
     def forward(self, points, mask):
         """points (..., N, F>=4), mask (..., N) -> (..., ny, nx, C)."""
         if self.training:
-            raise NotImplementedError(
-                "FastPillarBEV's training path is not ported yet; call .eval()"
-            )
+            return self.train_path(points, mask)
         ids, feat, aux, params, kw = self.kernel_inputs(points, mask)
         grid = pillar_encode(ids, feat, aux, params, **kw)
         return grid.reshape(points.shape[:-2] + (self.ny, self.nx, self.out_c))

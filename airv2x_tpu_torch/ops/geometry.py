@@ -48,6 +48,36 @@ def boxes_to_corners_3d(boxes: torch.Tensor, order: str = "hwl") -> torch.Tensor
     return corners + b[..., None, 0:3]
 
 
+def boxes_to_corners_bev(boxes: torch.Tensor, order: str = "hwl") -> torch.Tensor:
+    """(..., 7) boxes -> (..., 4, 2) bottom-face BEV corners (x, y)."""
+    return boxes_to_corners_3d(boxes, order)[..., :4, :2]
+
+
+def corners_to_standup_2d(corners: torch.Tensor) -> torch.Tensor:
+    """(..., K, 2+) corners -> (..., 4) axis-aligned [x1, y1, x2, y2]."""
+    lo = corners[..., :2].amin(-2)
+    hi = corners[..., :2].amax(-2)
+    return torch.cat([lo, hi], dim=-1)
+
+
+def aligned_iou_2d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise axis-aligned IoU of (N, 4) x (M, 4) standup boxes -> (N, M).
+
+    Widths and heights count ``x2 - x1 + 1``: the pixel convention of the
+    reference's Cython ``bbox_overlaps``, which its label generator feeds
+    metric standup boxes. The JAX package keeps the +1 on purpose, so that
+    anchor assignment matches the reference; so does this port.
+    """
+    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
+    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    wh = (rb - lt + 1.0).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area1 = (boxes1[:, 2] - boxes1[:, 0] + 1.0) * (boxes1[:, 3] - boxes1[:, 1] + 1.0)
+    area2 = (boxes2[:, 2] - boxes2[:, 0] + 1.0) * (boxes2[:, 3] - boxes2[:, 1] + 1.0)
+    union = area1[:, None] + area2[None, :] - inter
+    return inter / union.clamp_min(1e-12)
+
+
 def project_corners(corners: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
     """Rigid-project (..., K, 3) corners with a (..., 4, 4) transform.
 

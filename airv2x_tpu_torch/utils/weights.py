@@ -131,7 +131,14 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the model's floating weights to the compute ``dtype`` in place,
     except ``BatchNorm2d`` parameters and statistics, which stay f32: the
     JAX package keeps f32 parameters under a bf16 compute dtype, and the
-    conv kernel's BN fold (``ConvBNReLU._fold``) reads them in f32."""
+    conv kernel's BN fold (``ConvBNReLU._fold``) reads them in f32.
+
+    For serving only: a model in train mode raises, since rounding its
+    weights would round the optimizer's f32 master weights (the train step
+    computes in bf16 under ``torch.autocast`` instead)."""
+    if any(mod.training for mod in model.modules()):
+        raise ValueError("cast_weights_ rounds a serving model's weights; "
+                         "call .eval() first (training keeps f32 weights)")
     for mod in model.modules():
         if isinstance(mod, nn.BatchNorm2d):
             continue
@@ -139,6 +146,33 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
                 mod.buffers(recurse=False)):
             if t.is_floating_point():
                 t.data = t.data.to(dtype)
+    return model
+
+
+def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
+    """The JAX package's initialisation, drawn from a seeded generator: every
+    dense and conv kernel flax's ``lecun_normal`` (a normal of std
+    sqrt(1 / fan_in) / 0.8796, truncated at two std; fan_in counts the
+    kernel's taps times its input channels), biases zero, BatchNorm scale 1,
+    bias 0, running mean 0 and variance 1. The start of a training run."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                fan_in = (w.shape[0] * w[0, 0].numel()
+                          if isinstance(mod, nn.ConvTranspose2d) else w[0].numel())
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                t = torch.empty(w.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
+                w.copy_(t)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (nn.BatchNorm2d, MaskedBatchNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
     return model
 
 

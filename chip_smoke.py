@@ -56,14 +56,36 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
   7. the LiDAR BEV-segmentation path (the seg config cut as in phase 5,
      the same 8 scenes, bf16) in ``auto`` and in ``pallas`` mode: ms/scene,
      stage times, peak memory, the decoded maps' class histograms, launch
-     counts, and a profile window of each.
+     counts, and a profile window of each;
+  4b. (run after phase 7, like the other training phases) one train step of
+     the tiny configs, det and seg, on the card against the same step on
+     the CPU: the same weights (copied), batch and keep fraction u, f32 with
+     TF32 off and deterministic cuDNN; max|card - CPU| of the loss parts,
+     every gradient, the updated parameters and the BN running statistics,
+     each within its stated tolerance;
+  8. training the flagship det model at full width (the cut of phase 5,
+     batch 2 = ``train_params.batch_size``, 20,000 points per agent, 12
+     objects, labels from ``make_batch``), bf16 autocast over f32 master
+     weights, flax-like initialisation: after a warm-up, 10 timed steps
+     (median ms/step and train scenes/s on the host clock with
+     synchronize() on both ends, peak memory, every step's loss parts,
+     all finite, a profile window of 3 steps), then one batch 20 times,
+     whose total loss must fall below its first value; then eval with the
+     trained weights in f32: the single-agent confidence of ``pallas``
+     against ``auto`` as phase 4a checks it (the folds were cached before
+     training), and the det path (decode included) in ``pallas`` mode with
+     its K1 / K4a / K2 launches counted;
+  9. the same training run for the LiDAR seg model (512 x 512 labels), with
+     no decode check.
 
 Launch counts are reset just before each timed path run (phases 5 and 7)
 and read just after; the ``kernels`` line sums them over those runs. Its
 K4 times are per scene: the 32 launches of one scene at their stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
 row adds the prefilter's survivor share and the scene input's numbers.
-It then prints the kernels' JSON line and, last, the device JSON line.
+Phases 8 and 9 print the card's name and power limit on every line of
+numbers and their results as one ``training`` JSON line. It then prints
+the kernels' JSON line and, last, the device JSON line.
 Nothing here imports JAX or the JAX package.
 """
 
@@ -122,6 +144,18 @@ K3_TOL = 1e-4  # relative, the sums: only the order of the atomic adds
 K4_TOL = 1e-4  # x (1 + scale), f32: sums in another order, no TF32
 K4_TOL_BF16 = 2e-2  # abs + rel, as tests/test_pallas_conv.py
 TINY_TOL = 1e-4  # whole-model outputs through ~40 conv layers, f32
+# phase 4b, card against CPU, f32: the port's f32 gradients lie within
+# 1.1e-5 of a leaf's scale (its largest |g|) from float64 on the CPU tests;
+# the bound allows 2e-3 of the leaf's scale plus 2e-4 of the step's largest
+# gradient. Loss parts 1e-5 relative; BN statistics 1e-5 x (1 + |v|); the
+# first Adam step moves each parameter by about +-lr: 1e-6 x (1 + |p|)
+# where the CPU gradient clears twice the gradient bound, else 2 lr.
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_TOL, STEP_GRAD_FLOOR = 2e-3, 2e-4
+TRAIN_BATCH = 2  # train_params.batch_size of both flagship YAMLs
+N_TRAIN_BATCHES = 4  # distinct batches the timed steps cycle through
+TRAIN_STEPS = 10  # timed, after a warm-up of 2
+REPEAT_STEPS = 20  # one batch, for the falling loss
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -961,9 +995,10 @@ def phase_seg(scenes, convs_per_scene):
     return res
 
 
-def phase_profile(label, run, events, scenes, top=15):
-    """Device time by kernel over a few scenes of a path, and the device's
-    idle share of that window (torch.profiler / CUPTI)."""
+def phase_profile(label, run, events, scenes, top=15, unit="scene"):
+    """Device time by kernel over a few scenes (or train steps: ``unit``) of
+    a path, and the device's idle share of that window (torch.profiler /
+    CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -988,17 +1023,294 @@ def phase_profile(label, run, events, scenes, top=15):
     busy = sum(r[0] for r in rows)
     if not busy:
         print(f"{label} profile: no device time recorded (not measured)")
-        return
-    print(f"{label} profile over {n} scenes: device busy {busy:.3f} ms/scene "
-          f"of {wall_ms / n:.3f} ms/scene wall under the profiler, idle share "
+        return None
+    print(f"{label} profile over {n} {unit}s: device busy {busy:.3f} ms/{unit} "
+          f"of {wall_ms / n:.3f} ms/{unit} wall under the profiler, idle share "
           f"{1 - busy / (wall_ms / n):.3f}")
     k1 = [r for r in rows if "k1_" in r[2]]  # csrc/pillar_encode.cu's kernels
-    print(f"{label} K1 kernels: {sum(r[0] for r in k1):.4f} ms/scene over "
-          f"{sum(r[1] for r in k1):.1f} launches/scene (its table memset "
+    print(f"{label} K1 kernels: {sum(r[0] for r in k1):.4f} ms/{unit} over "
+          f"{sum(r[1] for r in k1):.1f} launches/{unit} (its table memset "
           "is counted with the other memsets)")
     for ms, count, name in sorted(rows, reverse=True)[:top]:
-        print(f"  {ms:8.4f} ms/scene {count:6.1f}x/scene  {name[:100]}")
+        print(f"  {ms:8.4f} ms/{unit} {count:6.1f}x/{unit}  {name[:100]}")
     print(f"{label} clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
+    return dict(busy_ms=busy, idle_share=1 - busy / (wall_ms / n))
+
+
+def comm_cut_gaps(model, batch):
+    """Per sample and per k, the smallest relative gap, over the present
+    agents, between the k-th and (k+1)-th largest train-mode confidence of
+    ``model`` (a copy runs the forward, so the model's BN statistics stay
+    as they are)."""
+    from airv2x_tpu_torch.models.fusion.where2comm import gaussian_smooth
+
+    twin = copy.deepcopy(model).train()
+    with torch.no_grad():
+        psm = twin.single_psm(twin.encode(batch)).double()
+    b = batch["agent_mask"].shape[0]
+    conf = gaussian_smooth(torch.sigmoid(psm).amax(1), 5, 1.0)
+    conf = conf.reshape(b, -1, conf.shape[-2] * conf.shape[-1])
+    srt = conf.sort(-1, descending=True)[0]
+    gap = (srt[..., :-1] - srt[..., 1:]) / srt[..., :-1].abs().clamp_min(1e-30)
+    gap = torch.where(batch["agent_mask"][..., None], gap, torch.inf)
+    return gap.amin(1).cpu().numpy()
+
+
+def clean_keep_fraction(model, batch, target):
+    """A keep fraction u near ``target`` whose cut k = floor(u * H * W) lies
+    on a relative confidence gap of at least 1e-5 in every present agent:
+    tied confidences are common, and two devices' rounding may order the
+    ties of exact arithmetic apart."""
+    gaps = comm_cut_gaps(model, batch).min(0)
+    hw = gaps.shape[0] + 1
+    ks = np.nonzero(gaps > 1e-5)[0] + 1
+    k = ks[np.argmin(np.abs(ks - target * hw))]
+    return float(np.float32((k + 0.5) / hw))
+
+
+def phase_tiny_train(card):
+    """Phase 4b: one det and one seg train step of the tiny configs, card
+    against CPU, from the same weights, batch and keep fraction."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from airv2x_tpu_torch.loss import build_loss
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.ops.anchors import (
+        anchor_standup_boxes, generate_anchor_grid)
+    from airv2x_tpu_torch.parallel.train import (
+        TrainState, make_optimizer, make_train_step)
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    det = load_yaml(TINY)
+    seg = copy.deepcopy(det)
+    seg["task"] = seg["model"]["args"]["task"] = "seg"
+    anchors = generate_anchor_grid(det["postprocess"]["anchor_args"])
+    out = {}
+    try:
+        for name, hypes in (("det", det), ("seg", seg)):
+            models = {"cpu": init_random_(
+                build_model(hypes, device="cpu", train=True), seed=3)}
+            models["cuda"] = build_model(hypes, device="cuda", train=True)
+            models["cuda"].load_state_dict(models["cpu"].state_dict())
+            batch, _ = make_batch(
+                np.random.default_rng(2), models["cpu"].layout, TRAIN_BATCH,
+                anchors=anchors, anchor_standup=anchor_standup_boxes(anchors),
+                target_args=hypes["postprocess"]["target_args"],
+                seg_hw=hypes["seg_hw"] if name == "seg" else 0, device="cpu",
+                num_objects=6, points_per_agent=2048, pts_per_box=60,
+                lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                max_boxes=hypes["postprocess"]["max_num"])
+            u = clean_keep_fraction(models["cpu"], batch_to_torch(batch, "cpu"),
+                                    0.6)
+            parts = {}
+            for d, model in models.items():
+                opt, sched = make_optimizer(hypes, model.parameters(), 10)
+                step = make_train_step(build_loss(hypes), sched)
+                parts[d] = step(TrainState(model, opt), batch_to_torch(batch, d),
+                                comm_u=torch.full((TRAIN_BATCH,), u))
+            torch.cuda.synchronize()
+            lr = sched(0)
+            errs = {k: abs(float(parts["cuda"][k]) - float(parts["cpu"][k]))
+                    for k in parts["cpu"]}
+            bad = [k for k in errs
+                   if errs[k] > STEP_LOSS_TOL * abs(float(parts["cpu"][k])) + 1e-6]
+            cpu_p = dict(models["cpu"].named_parameters())
+            top = max(float(p.grad.abs().max()) for p in cpu_p.values())
+            grad_err = param_err = 0.0
+            for pname, p in models["cuda"].named_parameters():
+                q = cpu_p[pname]
+                g, gq = p.grad.cpu(), q.grad
+                e = float((g - gq).abs().max())
+                bound = STEP_GRAD_TOL * float(gq.abs().max()) + STEP_GRAD_FLOOR * top
+                grad_err = max(grad_err, e / max(bound, 1e-30))
+                if e > bound:
+                    bad.append(f"grad {pname}: {e:.3e} > {bound:.3e}")
+                d = (p.detach().cpu() - q.detach()).abs()
+                sure = gq.abs() > 2 * bound
+                pe = float(d[sure].max()) if bool(sure.any()) else 0.0
+                param_err = max(param_err, pe)
+                if pe > 1e-6 * (1 + float(q.detach().abs().max())) or \
+                        float(d.max()) > 2 * lr + 1e-6:
+                    bad.append(f"param {pname}: {pe:.3e} / {float(d.max()):.3e}")
+            cpu_b = dict(models["cpu"].named_buffers())
+            stat_err = 0.0
+            for bname, b in models["cuda"].named_buffers():
+                if bname.endswith("num_batches_tracked"):
+                    continue
+                e = (b.cpu() - cpu_b[bname]).abs()
+                stat_err = max(stat_err, float(e.max()))
+                if bool((e > 1e-5 * (1 + cpu_b[bname].abs())).any()):
+                    bad.append(f"stat {bname}: {float(e.max()):.3e}")
+            print(f"phase 4b [{card}] tiny {name} train step card vs CPU (u "
+                  f"{u:.6f}): max|card - CPU| loss parts {json.dumps(errs)} "
+                  f"(tol {STEP_LOSS_TOL} relative); gradients at "
+                  f"{grad_err:.3e} of their bound ({STEP_GRAD_TOL} x leaf scale "
+                  f"+ {STEP_GRAD_FLOOR} x {top:.3e}); parameters where the "
+                  f"gradient is clear {param_err:.3e} (tol 1e-6 x (1 + |p|), "
+                  f"elsewhere 2 lr = {2 * lr}); BN statistics {stat_err:.3e} "
+                  "(tol 1e-5 x (1 + |v|))")
+            if bad:
+                raise AssertionError(f"phase 4b tiny {name}: {bad[:5]}")
+            out[name] = dict(loss_err=max(errs.values()), grad_bound_share=grad_err,
+                             param_err=param_err, stat_err=stat_err)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    return out
+
+
+def train_setup(path, seg):
+    """A trainable full-width model (bf16 compute, flax-like weights) and
+    N_TRAIN_BATCHES labelled batches on the card."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.ops.anchors import (
+        anchor_standup_boxes, generate_anchor_grid)
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    hypes = cut_hypes(path)
+    hypes["model"]["args"]["dtype"] = "bf16"
+    assert int(hypes["train_params"]["batch_size"]) == TRAIN_BATCH
+    model = init_flax_like_(build_model(hypes, device="cuda", train=True), seed=0)
+    kw = dict(target_args=hypes["postprocess"]["target_args"])
+    if seg:
+        kw.update(seg_hw=int(hypes["seg_hw"]), seg_res=float(hypes["seg_res"]))
+    else:
+        anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
+        kw.update(anchors=anchors, anchor_standup=anchor_standup_boxes(anchors))
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    batches = [batch_to_torch(make_batch(
+        rng, model.layout, TRAIN_BATCH, device="cuda", num_objects=12,
+        num_agents=NUM_AGENTS, points_per_agent=POINTS_PER_AGENT,
+        lidar_range=hypes["preprocess"]["cav_lidar_range"],
+        max_boxes=hypes["postprocess"]["max_num"], pts_per_box=100, **kw)[0],
+        "cuda") for _ in range(N_TRAIN_BATCHES)]
+    print(f"{N_TRAIN_BATCHES} batches of {TRAIN_BATCH} made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return hypes, model, batches
+
+
+def phase_train(label, card, hypes, model, batches):
+    """Warm-up, TRAIN_STEPS timed steps, a profile window, then one batch
+    REPEAT_STEPS times; the kernels must not launch (the train path has no
+    TPU-kernel counterpart)."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.loss import build_loss
+    from airv2x_tpu_torch.models.registry import compute_dtype
+    from airv2x_tpu_torch.parallel.train import (
+        TrainState, make_optimizer, make_train_step)
+
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
+    opt, sched = make_optimizer(hypes, model.parameters(), 50)
+    state = TrainState(model, opt)
+    step = make_train_step(build_loss(hypes), sched,
+                           compute_dtype=compute_dtype(hypes), seed=0)
+    kernels.reset_launch_counts()
+    for b in batches[:2]:  # warm-up: allocator, cuDNN algorithm choice
+        step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        b = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in parts.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    med = statistics.median(ms)
+    print(f"{label} [{card}]: {med:.3f} ms/step median of {TRAIN_STEPS} "
+          f"({[round(t, 3) for t in ms]}), {TRAIN_BATCH * 1e3 / med:.3f} train "
+          f"scenes/s, peak memory {peak:.1f} MiB")
+    print(f"{label} loss parts per step: " + json.dumps(
+        [{k: round(v, 5) for k, v in p.items()} for p in losses]))
+    if not all(np.isfinite(v) for p in losses for v in p.values()):
+        raise AssertionError(f"{label}: a non-finite loss part")
+    prof = phase_profile(f"{label} [{card}]",
+                         lambda b, ev, host: step(state, b), lambda: [],
+                         batches, top=10, unit="step")
+    repeated = []
+    for _ in range(REPEAT_STEPS):
+        repeated.append(float(step(state, batches[0])["total_loss"]))
+    print(f"{label} [{card}] one batch {REPEAT_STEPS} times, total loss: "
+          + json.dumps([round(v, 5) for v in repeated]))
+    if not all(np.isfinite(repeated)) or not repeated[-1] < repeated[0]:
+        raise AssertionError(f"{label}: the loss on a repeated batch did not "
+                             f"fall: {repeated[0]} -> {repeated[-1]}")
+    torch.cuda.synchronize()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"{label}: kernels launched in training: "
+                             f"{kernels.LAUNCHES}")
+    return dict(ms_per_step=med, ms_runs=ms, scenes_per_s=TRAIN_BATCH * 1e3 / med,
+                peak_mib=peak, losses=losses, repeated_first=repeated[0],
+                repeated_last=repeated[-1], profile=prof, steps=state.step)
+
+
+def phase_train_det(card):
+    """Phase 8: full-width det training, then eval with the trained weights
+    through K1, K4a and K2."""
+    from airv2x_tpu_torch import kernels
+
+    hypes, model, batches = train_setup(FLAGSHIP, seg=False)
+    scene = {k: v[:1] for k, v in batches[0].items() if k != "labels"}
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    model.eval()
+    with conv_mode("pallas"):  # folds of the initial weights, cached
+        staged(model, scene)
+    res = phase_train("phase 8 det training", card, hypes, model, batches)
+    model.eval()  # f32 master weights
+    set_tf32(False)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    with conv_mode("auto"):
+        psm_auto, _ = staged(model, scene)
+    with conv_mode("pallas"):
+        psm_pallas, _ = staged(model, scene)
+    compare(f"phase 8 [{card}] trained f32 pallas vs auto, single-agent "
+            "confidence", {"single_psm": psm_pallas}, {"single_psm": psm_auto},
+            ("single_psm",))
+    run, hw = det_step(hypes, model)
+    launches = {}
+    for mode in ("auto", "pallas"):
+        kernels.reset_launch_counts()
+        with conv_mode(mode):
+            out, det = run(scene, [torch.cuda.Event(enable_timing=True)
+                                   for _ in range(len(DET_STAGES) + 1)], [])
+        torch.cuda.synchronize()
+        launches[mode] = dict(kernels.LAUNCHES)
+        for k in ("psm", "rm", "obj"):
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"phase 8 eval {mode}: non-finite {k}")
+        print(f"phase 8 [{card}] eval of the trained det model, {mode}: "
+              f"{int(det.mask.sum())} kept detections, {det.nms_passes} NMS "
+              f"passes, comm_rate {float(out['comm_rate']):.4f}; launches "
+              f"{launches[mode]}")
+    want = {"pillar_encode": 3, "conv3x3": 32, "quad_iou": 1}
+    got = {k: launches["pallas"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"phase 8 pallas eval launches {got}, expected {want}")
+    res["eval_launches"] = launches
+    res["eval_psm_err"] = float((psm_pallas - psm_auto).abs().max())
+    cudnn.deterministic = False
+    del model, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_seg(card):
+    """Phase 9: full-width seg training (512 x 512 labels)."""
+    hypes, model, batches = train_setup(SEG, seg=True)
+    res = phase_train("phase 9 seg training", card, hypes, model, batches)
+    del model, batches
+    torch.cuda.empty_cache()
+    return res
 
 
 def k4_row(name, launches, k4, form):
@@ -1055,6 +1367,18 @@ def main() -> int:
         phase_profile("phase 6 flagship pallas", run,
                       det["pallas"]["events"], scenes, top=10)
     seg = phase_seg(scenes, convs)
+    del model, scenes
+    torch.cuda.empty_cache()
+    # the training phases run after every serving phase, so that nothing
+    # they leave on the card shows in the serving paths' peak memory
+    card = smi("name,power.limit")
+    tiny_train = phase_tiny_train(card)
+    train_det = phase_train_det(card)
+    train_seg = phase_train_seg(card)
+    print(json.dumps({"training": {
+        "card": card, "tiny_card_vs_cpu": tiny_train,
+        "det": {k: v for k, v in train_det.items() if k != "losses"},
+        "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
     launches = {k: sum(r["launches"][k] for r in
                        (det["auto"], det["pallas"], seg["auto"], seg["pallas"]))
                 for k in det["auto"]["launches"]}

@@ -482,3 +482,104 @@ def test_quad_iou_kernel_no_rows(cuda, triangular):
     assert quad_iou(empty, q, triangular=triangular).shape == (0, 4)
     assert quad_iou(q, empty, triangular=triangular).shape == (4, 0)
     torch.cuda.synchronize()
+
+
+def _tiny_train(task, device):
+    """The tiny config's trainable model (flax-like initialisation), its
+    loss, optimizer, schedule and one labelled batch on ``device``."""
+    import copy
+
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from airv2x_tpu_torch.loss import build_loss
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.ops.anchors import (
+        anchor_standup_boxes, generate_anchor_grid)
+    from airv2x_tpu_torch.parallel.train import make_optimizer
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    hypes = load_yaml(os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml"))
+    if task == "seg":
+        hypes = copy.deepcopy(hypes)
+        hypes["task"] = hypes["model"]["args"]["task"] = "seg"
+    model = init_flax_like_(build_model(hypes, device=device, train=True), 0)
+    anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
+    batch, _ = make_batch(
+        np.random.default_rng(1), model.layout, 2, anchors=anchors,
+        anchor_standup=anchor_standup_boxes(anchors),
+        target_args=hypes["postprocess"]["target_args"],
+        seg_hw=96 if task == "seg" else 0, device=device, num_objects=6,
+        points_per_agent=1024, pts_per_box=60,
+        lidar_range=hypes["preprocess"]["cav_lidar_range"],
+        max_boxes=hypes["postprocess"]["max_num"])
+    opt, sched = make_optimizer(hypes, model.parameters(), 10)
+    return model, build_loss(hypes), opt, sched, batch_to_torch(batch, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("task", ["det", "seg"])
+def test_train_step_on_card(cuda, task, dtype):
+    """Three train steps of the tiny model on the card (bf16: autocast over
+    f32 master weights): finite loss parts and gradients, f32 parameters
+    and Adam moments, BN statistics moved, and no kernel launched (the
+    train path runs no TPU-kernel counterpart)."""
+    from airv2x_tpu_torch.parallel.train import TrainState, make_train_step
+
+    model, loss_fn, opt, sched, batch = _tiny_train(task, cuda)
+    state = TrainState(model, opt)
+    step = make_train_step(loss_fn, sched, compute_dtype=dtype, seed=1)
+    bn = model.backbone.stages[0].layers[0].bn
+    before = bn.running_mean.clone()
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        parts = step(state, batch)
+        assert all(bool(torch.isfinite(v)) for v in parts.values()), parts
+        for name, p in model.named_parameters():
+            assert p.dtype == torch.float32, name
+            assert bool(torch.isfinite(p.grad).all()), name
+    torch.cuda.synchronize()
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert not torch.equal(before, bn.running_mean)
+    assert all(s["exp_avg"].dtype == torch.float32 for s in opt.state.values())
+
+
+@pytest.mark.parametrize("impl", ["foreach", "fused"])
+def test_fold_cache_after_training_on_card(cuda, impl, monkeypatch):
+    """On the card: a train-mode forward bumps the BN statistics' versions,
+    AdamW's foreach update the parameters' (its fused update need not:
+    ``train()`` / ``eval()`` drop the fold cache), and the ``pallas`` eval
+    after the update (K4a, f32) equals the cuDNN ``auto`` eval."""
+    from airv2x_tpu_torch.models.nn import ConvBNReLU
+
+    torch.manual_seed(0)
+    blk = ConvBNReLU(64, 64).to(cuda).eval()
+    x = torch.randn(2, 64, 20, 24, device=cuda)
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", "pallas")
+    with torch.no_grad():
+        blk(x)  # caches the fold
+
+    def key():
+        return [(t.data_ptr(), t._version) for t in (
+            blk.conv.weight, blk.bn.weight, blk.bn.bias, blk.bn.running_mean,
+            blk.bn.running_var)]
+
+    k0 = key()
+    blk.train()
+    blk(x).square().mean().backward()
+    k1 = key()
+    assert k1[3] != k0[3] and k1[4] != k0[4]
+    flags = dict(foreach=True) if impl == "foreach" else dict(fused=True)
+    torch.optim.AdamW(blk.parameters(), lr=1e-2, weight_decay=1e-4, **flags).step()
+    if impl == "foreach":
+        assert all(a != b for a, b in zip(k1[:3], key()[:3]))
+    blk.eval()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = blk(x)
+        monkeypatch.setenv("AIRV2X_CONV_KERNEL", "auto")
+        want = blk(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv3x3"] == 1
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * (1 + scale)
