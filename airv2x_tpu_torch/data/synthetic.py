@@ -1,6 +1,6 @@
-"""Synthetic multi-agent LiDAR scenes and labelled training batches (copy of
-airv2x_tpu/data/synthetic.py ``make_scene``, ``rasterize_seg_labels`` and
-``make_batch``).
+"""Synthetic multi-agent LiDAR scenes, their camera inputs and labelled
+training batches (copy of airv2x_tpu/data/synthetic.py ``make_scene``,
+``add_camera_inputs``, ``rasterize_seg_labels`` and ``make_batch``).
 
 numpy, seeded by the caller's ``np.random.Generator``: the same seed gives
 bit-identical scene arrays to the JAX package's generator, so both packages
@@ -135,6 +135,56 @@ def make_scene(
     }
     gt = {"boxes": boxes, "mask": box_mask, "classes": classes}
     return batch, gt
+
+
+def add_camera_inputs(
+    batch: dict,
+    layout: SlotLayout,
+    rng: np.random.Generator,
+    *,
+    img_hw=(64, 96),
+    ncam={"vehicle": 2, "rsu": 2, "drone": 1},
+    with_depth: bool = True,
+):
+    """Attach per-type synthetic camera inputs ``cam_<type>`` to a scene:
+    imgs (L, Ncam, H, W, 3[+1]) over all L slots, with plausible intrinsics
+    and forward-looking camera -> agent extrinsics; the depth channel holds
+    5-45 m, so gt-depth binning works. The draws follow the JAX package's
+    order, so one seed gives the same arrays in both packages."""
+    L = layout.total
+    h, w = img_hw
+    for t in AGENT_TYPES:
+        if layout.counts[AGENT_TYPES.index(t)] == 0:
+            continue
+        n = ncam[t]
+        c = 4 if with_depth else 3
+        imgs = rng.uniform(0, 1, (L, n, h, w, c)).astype(np.float32)
+        if with_depth:
+            imgs[..., 3] = rng.uniform(5, 45, (L, n, h, w))
+        intr = np.zeros((L, n, 3, 3), np.float32)
+        intr[..., 0, 0] = w * 0.8
+        intr[..., 1, 1] = w * 0.8
+        intr[..., 0, 2] = w / 2
+        intr[..., 1, 2] = h / 2
+        intr[..., 2, 2] = 1.0
+        rots = np.zeros((L, n, 3, 3), np.float32)
+        # camera looking forward: x_img -> -y_agent, y_img -> -z_agent,
+        # z_img -> x_agent
+        rots[..., 0, 2] = 1.0
+        rots[..., 1, 0] = -1.0
+        rots[..., 2, 1] = -1.0
+        trans = rng.uniform(-2, 2, (L, n, 3)).astype(np.float32)
+        post_rots = np.broadcast_to(np.eye(3, dtype=np.float32), (L, n, 3, 3)).copy()
+        post_trans = np.zeros((L, n, 3), np.float32)
+        batch[f"cam_{t}"] = {
+            "imgs": imgs,
+            "intrinsics": intr,
+            "rots": rots,
+            "trans": trans,
+            "post_rots": post_rots,
+            "post_trans": post_trans,
+        }
+    return batch
 
 
 def rasterize_seg_labels(boxes, mask, classes, seg_hw: int, seg_res: float):

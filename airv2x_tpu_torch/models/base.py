@@ -1,5 +1,6 @@
-"""Heterogeneous multi-agent base: slot layout + per-type LiDAR encoders
-(counterpart of airv2x_tpu/models/base.py, fast pillar branch only).
+"""Heterogeneous multi-agent base: slot layout + per-type LiDAR and camera
+encoders (counterpart of airv2x_tpu/models/base.py: the fast pillar branch
+and the LSS camera branch).
 
 Every sample carries a statically laid-out agent axis:
 
@@ -12,7 +13,9 @@ encoder weights and its own z-extent for the cell-centre offsets, on the
 shared ego grid.
 
 Batch contract: points (B, L, N, 4) f32 ego frame, points_mask (B, L, N)
-bool, agent_mask (B, L) bool.
+bool, agent_mask (B, L) bool; for a type with the camera modality,
+``cam_<type>`` holds imgs (B, L, Ncam, H, W, 3[+1]), intrinsics / rots /
+post_rots (B, L, Ncam, 3, 3) and trans / post_trans (B, L, Ncam, 3).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from airv2x_tpu_torch.models.camera.lss import LSSCameraEncoder
 from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
 
 AGENT_TYPES = ("vehicle", "rsu", "drone")
@@ -53,10 +57,14 @@ class SlotLayout:
 
 
 class HeteroLidarEncoder(nn.Module):
-    """Per-type FastPillarBEV on the shared ego grid -> (B, L, ny, nx, C).
+    """Per-type LiDAR and camera encoders on the shared ego grid ->
+    (B, L, ny, nx, C).
 
-    One FastPillarBEV call (one K1 launch) per present agent type; the
-    submodules are named ``<type>_pillar_vfe`` as the flax scopes are.
+    A type with the ``lidar`` modality gets a FastPillarBEV (one K1 launch
+    per call), one with ``cam`` an LSSCameraEncoder; a type with both takes
+    the mean of the two BEV maps, and no pillar module is built for a type
+    without LiDAR. The submodules are named ``<type>_pillar_vfe`` and
+    ``<type>_lss`` as the flax scopes are.
     """
 
     def __init__(self, args: dict, preprocess: dict, layout: SlotLayout):
@@ -64,40 +72,59 @@ class HeteroLidarEncoder(nn.Module):
         self.layout = layout
         lidar_range = preprocess["cav_lidar_range"]
         voxel_size = preprocess["args"]["voxel_size"]
-        if not preprocess["args"].get("fast_pillars", True):
-            raise NotImplementedError("the classic voxel path is not ported")
         self.types = []
+        widths = set()
         for t in AGENT_TYPES:
             if not layout.counts[AGENT_TYPES.index(t)]:
                 continue
-            if args[t].get("modalities", ["lidar"]) != ["lidar"]:
-                raise NotImplementedError(f"{t}: only the LiDAR modality is ported")
-            cfg = args[t]["lidar"]
-            vfe = cfg["pillar_vfe"]
-            self.add_module(f"{t}_pillar_vfe", FastPillarBEV(
-                num_filters=vfe["num_filters"],
-                voxel_size=voxel_size,
-                lidar_range=lidar_range,
-                use_norm=vfe["use_norm"],
-                with_distance=vfe["with_distance"],
-                use_absolute_xyz=vfe["use_absolute_xyz"],
-                offset_voxel_size=cfg["voxel_size"],
-                offset_lidar_range=cfg["lidar_range"],
-            ))
-            self.types.append(t)
-        widths = {self.get_submodule(f"{t}_pillar_vfe").out_c for t in self.types}
+            modalities = args[t].get("modalities", ["lidar"])
+            if set(modalities) - {"lidar", "cam"}:
+                raise NotImplementedError(
+                    f"{t}: only the LiDAR and camera modalities are ported")
+            if "lidar" in modalities:
+                if not preprocess["args"].get("fast_pillars", True):
+                    raise NotImplementedError("the classic voxel path is not ported")
+                cfg = args[t]["lidar"]
+                vfe = cfg["pillar_vfe"]
+                self.add_module(f"{t}_pillar_vfe", FastPillarBEV(
+                    num_filters=vfe["num_filters"],
+                    voxel_size=voxel_size,
+                    lidar_range=lidar_range,
+                    use_norm=vfe["use_norm"],
+                    with_distance=vfe["with_distance"],
+                    use_absolute_xyz=vfe["use_absolute_xyz"],
+                    offset_voxel_size=cfg["voxel_size"],
+                    offset_lidar_range=cfg["lidar_range"],
+                ))
+                widths.add(self.get_submodule(f"{t}_pillar_vfe").out_c)
+            if "cam" in modalities:
+                self.add_module(f"{t}_lss", LSSCameraEncoder(args[t]["cam"]))
+                widths.add(self.get_submodule(f"{t}_lss").out_channels)
+            self.types.append((t, modalities))
         if len(widths) != 1:
             raise ValueError(f"agent types disagree on the BEV width: {widths}")
         self.out_channels = widths.pop()
 
-    def forward(self, batch):
-        pts, pmask = batch["points"], batch["points_mask"]
-        feats = [
-            self.get_submodule(f"{t}_pillar_vfe")(
-                pts[:, self.layout.slots(t)], pmask[:, self.layout.slots(t)]
-            )
-            for t in self.types
-        ]
+    def forward(self, batch, mark=None):
+        """``mark`` goes to the camera encoders (their stage boundaries)."""
+        feats = []
+        for t, modalities in self.types:
+            sl = self.layout.slots(t)
+            bevs = []
+            if "lidar" in modalities:
+                bevs.append(self.get_submodule(f"{t}_pillar_vfe")(
+                    batch["points"][:, sl], batch["points_mask"][:, sl]))
+            if "cam" in modalities:
+                if f"cam_{t}" not in batch:
+                    raise KeyError(f"the config gives {t} the cam modality but "
+                                   f"the batch has no 'cam_{t}' inputs")
+                cam = {k: v[:, sl].flatten(0, 1)
+                       for k, v in batch[f"cam_{t}"].items()}
+                bev = self.get_submodule(f"{t}_lss")(cam, mark)
+                bevs.append(bev.reshape((-1, sl.stop - sl.start) + bev.shape[1:]))
+            # mean over modalities (the reference's fuse_bev)
+            feats.append(bevs[0] if len(bevs) == 1
+                         else torch.stack(bevs).mean(0))
         x = torch.cat(feats, dim=1)  # (B, L, ny, nx, C)
         # zero the padding agents' features
         return x * batch["agent_mask"][:, :, None, None, None].to(x.dtype)

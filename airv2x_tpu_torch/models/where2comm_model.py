@@ -93,9 +93,11 @@ class Airv2xWhere2comm(nn.Module):
     def _shrink(self, x):
         return x if self.shrink_conv is None else self.shrink_conv(x)
 
-    def encode(self, batch):
-        """Stage 1: points -> (B, L, ny, nx, C) BEV features."""
-        return self.encoder(batch)
+    def encode(self, batch, mark=None):
+        """Stage 1: points and camera images -> (B, L, ny, nx, C) BEV
+        features; ``mark`` times the camera encoders' stages (see
+        ``LSSCameraEncoder.forward``)."""
+        return self.encoder(batch, mark)
 
     def single_psm(self, x):
         """Stage 2: backbone + shrink + single-agent confidence per agent:

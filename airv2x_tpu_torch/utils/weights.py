@@ -129,9 +129,12 @@ def load_flax_variables(model: nn.Module, variables: dict) -> None:
 
 def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the model's floating weights to the compute ``dtype`` in place,
-    except ``BatchNorm2d`` parameters and statistics, which stay f32: the
-    JAX package keeps f32 parameters under a bf16 compute dtype, and the
-    conv kernel's BN fold (``ConvBNReLU._fold``) reads them in f32.
+    except the parameters and statistics of every BatchNorm-type module
+    (``nn.BatchNorm2d`` and its subclass, ``MaskedBatchNorm``) and the
+    non-persistent buffers (constants such as the camera frustum), which
+    stay f32: the JAX package keeps f32 parameters under a bf16 compute
+    dtype, and the conv kernel's BN fold (``ConvBNReLU._fold``) reads them
+    in f32.
 
     For serving only: a model in train mode raises, since rounding its
     weights would round the optimizer's f32 master weights (the train step
@@ -140,10 +143,12 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         raise ValueError("cast_weights_ rounds a serving model's weights; "
                          "call .eval() first (training keeps f32 weights)")
     for mod in model.modules():
-        if isinstance(mod, nn.BatchNorm2d):
+        if isinstance(mod, (nn.BatchNorm2d, MaskedBatchNorm)):
             continue
-        for t in list(mod.parameters(recurse=False)) + list(
-                mod.buffers(recurse=False)):
+        consts = mod._non_persistent_buffers_set
+        for t in list(mod.parameters(recurse=False)) + [
+                b for name, b in mod.named_buffers(recurse=False)
+                if name not in consts]:
             if t.is_floating_point():
                 t.data = t.data.to(dtype)
     return model

@@ -37,6 +37,11 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
   4. the tiny configs on the card against the same weights on the CPU (the
      plain versions, which the CPU tests hold against the JAX package):
      det under ``auto`` and under ``pallas``, and seg;
+  4c. the tiny camera configs (tests/test_camera.py's camera block: every
+     type camera only, and the vehicles LiDAR + camera with gt depth) on
+     the card against the same weights on the CPU, f32, TF32 off,
+     deterministic cuDNN, with the frustum points' smallest distance to a
+     cell boundary;
   4a. one flagship scene at full width in f32 with TF32 off: the ``pallas``
      conv backend against ``auto`` on the single-agent confidence of all
      agents and on the outputs of the scene with only the ego agent;
@@ -45,7 +50,10 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      8 scenes, timed 3 times after a warm-up: forward, decode and rotated
      NMS per scene; median ms/scene and scenes/s, median per-stage ms, peak
      memory, kept detections, NMS passes, and the kernels' launch counts
-     during the timed runs (K1 3x, K2 1x per scene); then the same under
+     during the timed runs (K1 3x, K2 1x per scene), and the kept
+     detections of two more passes under each of three settings (cuDNN's
+     autotuner; cuDNN pinned: no autotuner, deterministic algorithms; pinned
+     with ``torch.use_deterministic_algorithms``); then the same under
      ``AIRV2X_CONV_KERNEL=pallas`` (K4a 32x per scene); then K2 checked
      and timed as in phase 3 on scene 0's own NMS input (the top-512
      corners ``decode_detections`` passes to ``rotated_nms``, caught in one
@@ -57,7 +65,18 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      the same 8 scenes, bf16) in ``auto`` and in ``pallas`` mode: ms/scene,
      stage times, peak memory, the decoded maps' class histograms, launch
      counts, and a profile window of each;
-  4b. (run after phase 7, like the other training phases) one train step of
+  10. (run after phase 7) the camera-LSS det path at full width
+     (``hypes_yaml/airv2x/camera/det/where2comm.yaml``, max_cav cut as in
+     phase 5, cameras 6 / 4 / 1 at 256 x 352, bf16, seeded random weights),
+     8 scenes resident on the card (``make_scene``, then
+     ``add_camera_inputs``), in ``auto`` and in ``pallas`` mode, timed as
+     phase 5: the convolutions' operations per scene, ms/scene, stage times
+     (trunks + heads, lift + voxel pooling, BEV encoder, backbone + shrink +
+     confidence, fusion + heads, decode + NMS), peak memory, kept
+     detections (and under the settings of phase 5), launch counts (K2 1x,
+     K4a 32x in ``pallas``, K1 never) and a profile window with each
+     stage's device busy time; a ``camera`` JSON line;
+  4b. (run after phase 10, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
      TF32 off and deterministic cuDNN; max|card - CPU| of the loss parts,
@@ -78,8 +97,8 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
   9. the same training run for the LiDAR seg model (512 x 512 labels), with
      no decode check.
 
-Launch counts are reset just before each timed path run (phases 5 and 7)
-and read just after; the ``kernels`` line sums them over those runs. Its
+Launch counts are reset just before each timed path run (phases 5, 7 and
+10) and read just after; the ``kernels`` line sums them over those runs. Its
 K4 times are per scene: the 32 launches of one scene at their stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
 row adds the prefilter's survivor share and the scene input's numbers.
@@ -107,8 +126,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml")
 SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
+CAMERA = os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml")
 TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
 NUM_AGENTS = {"vehicle": 3, "rsu": 2, "drone": 1}
+NCAM = {"vehicle": 6, "rsu": 4, "drone": 1}  # the reference's camera rigs
 POINTS_PER_AGENT = 20000
 N_SCENES = 8
 N_RUNS = 3  # timed runs over the scenes
@@ -117,6 +138,18 @@ DET_STAGES = ("encoder", "backbone+shrink+psm head", "fusion+heads",
               "decode+NMS")
 SEG_STAGES = ("encoder", "backbone+shrink+crop", "fusion+seg head",
               "decode")
+# a camera frustum point this close to a cell boundary (in cell widths)
+# could fall in another cell on the card than on the CPU
+CELL_MARGIN = 1e-4
+# the camera block of tests/test_camera.py's tiny model
+TINY_CAM = {
+    "grid_conf": {"xbound": [-19.2, 19.2, 0.4], "ybound": [-19.2, 19.2, 0.4],
+                  "zbound": [-10, 10, 20.0], "ddiscr": [2, 50, 8],
+                  "mode": "LID"},
+    "data_aug_conf": {"final_dim": [64, 96]}, "img_downsample": 8,
+    "img_features": 16, "bevout_feature": 16, "camera_encoder": "EfficientNet",
+    "use_depth_gt": True, "depth_supervision": False,
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
 # tensor-core and non-tensor-core f32 operations/s.
@@ -135,6 +168,8 @@ K2_PREFILTER_OPS = 23
 # the flagship backbone's stride-1 layer shapes (6 maps, NHWC)
 K4_STAGES = ((6, 100, 352, 64), (6, 50, 176, 128), (6, 25, 88, 256))
 
+# csrc/pillar_encode.cu's kernels, by name in a profile
+K1_KERNELS = ("k1_leader_kernel", "k1_scatter_kernel", "k1_epilogue_kernel")
 K1_TOL = 1e-4  # f32: only the order of the atomic residual sums differs
 # bf16 output, absolute plus relative: one bf16 rounding (2^-8 relative)
 # of values that agree in f32 to K1_TOL
@@ -508,8 +543,7 @@ def phase_k2_scene(run, scene):
     real = nms.quad_iou
     nms.quad_iou = catch
     try:
-        run(scene, [torch.cuda.Event(enable_timing=True)
-                    for _ in range(len(DET_STAGES) + 1)], [])
+        run(scene, no_mark)
     finally:
         nms.quad_iou = real
     torch.cuda.synchronize()
@@ -792,31 +826,55 @@ def phase_f32_pallas(model, batch):
     return n
 
 
-def time_path(label, stages, step, scenes, want):
+class Marks:
+    """Stage boundaries of one scene, for ``step(batch, mark)``: ``mark(name)``
+    records a CUDA event and the host clock at the end of stage ``name``
+    (the first point is the scene's start). A stage met more than once (the
+    camera encoder's, once per agent type) sums its intervals."""
+
+    def __init__(self):
+        self.points = []
+        self("start")
+
+    def __call__(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.points.append((name, ev, time.perf_counter()))
+
+    def stages(self):
+        """({stage: device ms}, {stage: host ms}) after a synchronize."""
+        dev, host = {}, {}
+        for (_, e0, h0), (name, e1, h1) in zip(self.points, self.points[1:]):
+            dev[name] = dev.get(name, 0.0) + e0.elapsed_time(e1)
+            host[name] = host.get(name, 0.0) + (h1 - h0) * 1e3
+        return dev, host
+
+
+def no_mark(name):
+    """The ``mark`` of an untimed run."""
+
+
+def time_path(label, step, scenes, want):
     """Warm-up, then ``N_RUNS`` timed runs over ``scenes``. ``step(batch,
-    ev, host)`` runs one scene, recording device events and host clocks at
-    the stage boundaries. Launch counts are reset just before the timed
-    runs and must equal ``want`` (per scene) times the scenes run."""
+    mark)`` runs one scene and calls ``mark`` at its stage boundaries.
+    Launch counts are reset just before the timed runs and must equal
+    ``want`` (per scene) times the scenes run."""
     from airv2x_tpu_torch import kernels
 
-    def events():
-        return [torch.cuda.Event(enable_timing=True)
-                for _ in range(len(stages) + 1)]
-
     for batch in scenes:  # warm-up: allocator, cuDNN algorithm choice
-        step(batch, events(), [])
+        step(batch, no_mark)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    evs = [events() for _ in range(N_RUNS * len(scenes))]
-    hosts = [[] for _ in evs]
-    run_ms = []
+    marks, run_ms = [], []
     kernels.reset_launch_counts()
     for r in range(N_RUNS):
-        mine = range(r * len(scenes), (r + 1) * len(scenes))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = [step(scenes[i - mine.start], evs[i], hosts[i]) for i in mine]
+        outs = []
+        for batch in scenes:
+            marks.append(Marks())
+            outs.append(step(batch, marks[-1]))
         torch.cuda.synchronize()
         run_ms.append((time.perf_counter() - t0) / len(scenes) * 1e3)
         if r == 0:
@@ -824,15 +882,14 @@ def time_path(label, stages, step, scenes, want):
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    stage_ms = {s: statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in evs)
-                for i, s in enumerate(stages)}
-    host_ms = {s: statistics.median(h[i + 1] - h[i] for h in hosts) * 1e3
-               for i, s in enumerate(stages)}
+    per = [m.stages() for m in marks]
+    stage_ms = {s: statistics.median(p[0][s] for p in per) for s in per[0][0]}
+    host_ms = {s: statistics.median(p[1][s] for p in per) for s in per[0][1]}
     ms = statistics.median(run_ms)
     print(f"{label}: {ms:.3f} ms/scene, {1e3 / ms:.3f} scenes/s "
           f"(median of {N_RUNS} runs of {len(scenes)} scenes; ms/scene of each "
           f"run {[round(r, 3) for r in run_ms]})")
-    print(f"{label} stage ms/scene, median of {len(evs)} scenes, device clock: "
+    print(f"{label} stage ms/scene, median of {len(marks)} scenes, device clock: "
           + json.dumps({k: round(v, 4) for k, v in stage_ms.items()}))
     print(f"{label} stage ms/scene, median, host clock (launch, no sync): "
           + json.dumps({k: round(v, 4) for k, v in host_ms.items()}))
@@ -843,10 +900,15 @@ def time_path(label, stages, step, scenes, want):
     if launches != expect:
         raise AssertionError(f"{label}: launch counts {launches}, expected "
                              f"{expect}")
-    return dict(ms=ms, launches=launches, results=results, events=events)
+    return dict(ms=ms, run_ms=run_ms, launches=launches, results=results,
+                stage_ms=stage_ms, peak_mib=peak / 2**20)
 
 
 def det_step(hypes, model):
+    """One det scene: forward, decode and rotated NMS. A camera encoder
+    marks its own stages (trunks + heads, lift + voxel pooling, BEV
+    encoder, per agent type); the hetero encoder's concat and agent mask
+    then join the BEV encoder stage."""
     from airv2x_tpu_torch.data.postprocess import decode_detections
     from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 
@@ -856,29 +918,23 @@ def det_step(hypes, model):
                                dtype=torch.float32, device="cuda")
     eye = torch.eye(4, device="cuda")
     tgt = hypes["postprocess"]["target_args"]
+    camera = any("cam" in m for _, m in model.encoder.types)
+    encoder_stage = "BEV encoder" if camera else DET_STAGES[0]
 
-    def run(batch, ev, host):
-        """One scene; ``ev`` gets the device-side stage boundaries, ``host``
-        the host clock at the same points (launch time, no sync)."""
+    def run(batch, mark):
         with torch.inference_mode():
-            host.append(time.perf_counter())
-            ev[0].record()
-            x = model.encode(batch)
-            ev[1].record()
-            host.append(time.perf_counter())
+            x = model.encode(batch, mark)
+            mark(encoder_stage)
             psm = model.single_psm(x)
-            ev[2].record()
-            host.append(time.perf_counter())
+            mark(DET_STAGES[1])
             out = model.fuse(x, psm, batch["agent_mask"])
-            ev[3].record()
-            host.append(time.perf_counter())
+            mark(DET_STAGES[2])
             det = decode_detections(
                 out["psm"][0], out["rm"][0], out["obj"][0], anchors, eye,
                 lidar_range, num_class=hypes["num_class"],
                 obj_threshold=tgt["obj_threshold"],
                 nms_thresh=hypes["postprocess"]["nms_thresh"], top_k=TOP_K)
-            ev[4].record()
-            host.append(time.perf_counter())
+            mark(DET_STAGES[3])
         return out, det
 
     return run, anchors.shape[:2]
@@ -906,6 +962,42 @@ def check_det(label, results, hw):
           f"{passes}; comm_rate per scene {rates}")
     if not any(kept):
         raise AssertionError("no detection survived decode")
+    return kept
+
+
+# cuDNN and PyTorch settings the kept detections are read under: (cuDNN's
+# autotuner, cuDNN deterministic, torch.use_deterministic_algorithms, which
+# makes index_add_ sum in a fixed order)
+KEPT_VARIANTS = {"autotuned": (True, False, False),
+                 "pinned": (False, True, False),
+                 "pinned, deterministic index_add_": (False, True, True)}
+
+
+def kept_variants(label, run, scenes, timed):
+    """Kept detections per scene in two untimed passes under each of
+    KEPT_VARIANTS, beside ``timed``, the timed run's: which setting makes
+    them move (the open question of PERF.md section 7); and how far scene
+    0's outputs lie apart in the two passes of each setting."""
+    cudnn = torch.backends.cudnn
+    out, apart = {"timed": timed}, {}
+    try:
+        for name, (bench, det, alg) in KEPT_VARIANTS.items():
+            cudnn.benchmark, cudnn.deterministic = bench, det
+            torch.use_deterministic_algorithms(alg, warn_only=True)
+            passes = [[run(b, no_mark) for b in scenes] for _ in range(2)]
+            out[name] = [[int(d.mask.sum()) for _, d in p] for p in passes]
+            (a, _), (b, _) = passes[0][0], passes[1][0]
+            apart[name] = {k: [float((a[k].float() - b[k].float()).abs().max()),
+                               float(a[k].float().abs().max())]
+                           for k in ("psm", "rm", "obj")}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = True, False
+        torch.use_deterministic_algorithms(False)
+    print(f"{label} kept detections per scene, timed run and two passes per "
+          "setting: " + json.dumps(out))
+    print(f"{label} scene 0, [max|pass 1 - pass 2|, max|pass 1|] per setting: "
+          + json.dumps(apart))
+    return out
 
 
 def phase_flagship(hypes, model, scenes, convs_per_scene):
@@ -921,8 +1013,9 @@ def phase_flagship(hypes, model, scenes, convs_per_scene):
             want["conv3x3"] = convs_per_scene
         label = "phase 5 flagship" + (" pallas" if mode == "pallas" else "")
         with conv_mode(mode):
-            res[mode] = time_path(label, DET_STAGES, run, scenes, want)
-        check_det(label, res[mode]["results"], hw)
+            res[mode] = time_path(label, run, scenes, want)
+            kept = check_det(label, res[mode]["results"], hw)
+            res[mode]["kept"] = kept_variants(label, run, scenes, kept)
     a, p = (res[m]["results"][0][0] for m in ("auto", "pallas"))
     print("phase 5 scene 0, bf16, [max|pallas - auto|, max|auto|]: "
           + json.dumps({k: [float((p[k].float() - a[k].float()).abs().max()),
@@ -934,22 +1027,16 @@ def phase_flagship(hypes, model, scenes, convs_per_scene):
 def seg_step(model):
     from airv2x_tpu_torch.data.postprocess import decode_segmentation
 
-    def run(batch, ev, host):
+    def run(batch, mark):
         with torch.inference_mode():
-            host.append(time.perf_counter())
-            ev[0].record()
             x = model.encode(batch)
-            ev[1].record()
-            host.append(time.perf_counter())
+            mark(SEG_STAGES[0])
             conf = model.single_psm(x)
-            ev[2].record()
-            host.append(time.perf_counter())
+            mark(SEG_STAGES[1])
             out = model.fuse(x, conf, batch["agent_mask"])
-            ev[3].record()
-            host.append(time.perf_counter())
+            mark(SEG_STAGES[2])
             maps = decode_segmentation(out["dynamic_seg"], out["static_seg"])
-            ev[4].record()
-            host.append(time.perf_counter())
+            mark(SEG_STAGES[3])
         return out, maps
 
     return run
@@ -973,8 +1060,8 @@ def phase_seg(scenes, convs_per_scene):
             want["conv3x3"] = convs_per_scene
         label = f"phase 7 seg {mode}"
         with conv_mode(mode):
-            res[mode] = time_path(label, SEG_STAGES, run, scenes, want)
-            phase_profile(label, run, res[mode]["events"], scenes, top=10)
+            res[mode] = time_path(label, run, scenes, want)
+            phase_profile(label, run, scenes, top=10)
         hists = []
         for out, maps in res[mode]["results"]:
             for key, m, c in zip(("dynamic_seg", "static_seg"), maps, ncls):
@@ -995,10 +1082,233 @@ def phase_seg(scenes, convs_per_scene):
     return res
 
 
-def phase_profile(label, run, events, scenes, top=15, unit="scene"):
+def with_lead(scene):
+    """A scene's arrays (nested camera dicts included) with a batch axis."""
+    return {k: ({kk: vv[None] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[None]) for k, v in scene.items()}
+
+
+def frustum_margin(model, batch):
+    """Smallest distance, in cell widths, of a frustum point of ``batch``'s
+    camera inputs to a cell boundary, over every camera type of ``model``
+    (its geometry on the CPU, in float64 from the f32 points)."""
+    from airv2x_tpu_torch.models.camera.lss import get_geometry
+
+    margin = np.inf
+    for t, modalities in model.encoder.types:
+        if "cam" not in modalities:
+            continue
+        enc = model.encoder.get_submodule(f"{t}_lss")
+        sl = model.layout.slots(t)
+        cam = {k: v[:, sl].flatten(0, 1).cpu().float()
+               for k, v in batch[f"cam_{t}"].items()}
+        geom = get_geometry(enc.frustum.cpu(), *(cam[k] for k in (
+            "rots", "trans", "intrinsics", "post_rots", "post_trans")))
+        u = (geom.double() - enc.lo.cpu().double()) / enc.dx.cpu().double()
+        margin = min(margin, float((u - u.round()).abs().min()))
+    return margin
+
+
+def tiny_camera_hypes(kind):
+    """The tiny config with cameras, built as tests/test_camera.py builds
+    it: ``lidar+cam`` gives the vehicles both modalities and gt depth;
+    ``cam`` gives every type the camera alone, depth from the softmax
+    head."""
+    from airv2x_tpu_torch.config import load_yaml
+
+    hypes = copy.deepcopy(load_yaml(TINY))
+    args = hypes["model"]["args"]
+    for t in (("vehicle", "rsu", "drone") if kind == "cam" else ("vehicle",)):
+        args[t]["modalities"] = ["cam"] if kind == "cam" else ["lidar", "cam"]
+        args[t]["cam"] = dict(TINY_CAM, use_depth_gt=kind != "cam")
+    return hypes
+
+
+def phase_tiny_camera():
+    """Phase 4c: the tiny camera configs on the card against the same weights
+    on the CPU, f32 with TF32 off and deterministic cuDNN; the card fuses
+    with the CPU's single-agent confidence (the same comm mask)."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.synthetic import (
+        add_camera_inputs, batch_to_torch, make_scene)
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        for kind in ("cam", "lidar+cam"):
+            hypes = tiny_camera_hypes(kind)
+            models = {d: init_random_(build_model(hypes, device=d), seed=3)
+                      for d in ("cpu", "cuda")}
+            rng = np.random.default_rng(3)  # the scene of the CPU tests
+            b, _ = make_scene(rng, models["cpu"].layout, num_objects=6,
+                              points_per_agent=1024, pts_per_box=60,
+                              lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                              num_agents={"vehicle": 2, "rsu": 1, "drone": 1})
+            add_camera_inputs(b, models["cpu"].layout, rng, img_hw=(64, 96),
+                              ncam={"vehicle": 2, "rsu": 1, "drone": 1})
+            batch = {d: batch_to_torch(with_lead(b), d) for d in models}
+            margin = frustum_margin(models["cpu"], batch["cpu"])
+            kernels.reset_launch_counts()
+            psm_cpu, want = staged(models["cpu"], batch["cpu"])
+            psm_card, got = staged(models["cuda"], batch["cuda"], psm_cpu)
+            torch.cuda.synchronize()
+            k1 = kernels.LAUNCHES["pillar_encode"]
+            if k1 != (0 if kind == "cam" else 3):
+                raise AssertionError(f"tiny camera {kind}: {k1} K1 launches")
+            compare(f"phase 4c tiny camera {kind} card vs CPU ({k1} K1 "
+                    f"launches; frustum margin {margin:.3e} cell widths, "
+                    f"limit {CELL_MARGIN})",
+                    {"single": psm_card, **got}, {"single": psm_cpu, **want},
+                    ("single", "psm", "rm", "obj", "comm_rate"))
+            if margin <= CELL_MARGIN:
+                raise AssertionError(f"tiny camera {kind}: a frustum point "
+                                     f"lies {margin} from a cell boundary")
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+
+
+def camera_setup():
+    """The camera det model at full width (bf16 serving cast, seeded random
+    weights) and N_SCENES scenes resident on the card: ``make_scene`` as
+    phase 5, then ``add_camera_inputs`` at the configs' 256 x 352."""
+    from airv2x_tpu_torch.data.synthetic import (
+        add_camera_inputs, batch_to_torch, make_scene)
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    hypes = cut_hypes(CAMERA)
+    model = init_random_(build_model(hypes, device="cuda"), seed=0)
+    cast_weights_(model, torch.bfloat16)
+    hw = tuple(hypes["model"]["args"]["vehicle"]["cam"]["data_aug_conf"][
+        "final_dim"])
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    scenes = []
+    for _ in range(N_SCENES):
+        b, _ = make_scene(rng, model.layout, num_objects=12,
+                          num_agents=NUM_AGENTS,
+                          points_per_agent=POINTS_PER_AGENT,
+                          lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                          pts_per_box=100)
+        add_camera_inputs(b, model.layout, rng, img_hw=hw, ncam=NCAM)
+        scenes.append(batch_to_torch(with_lead(b), "cuda"))
+    torch.cuda.synchronize()
+    mib = sum(v.numel() * v.element_size() for s in scenes
+              for k, d in s.items() if k.startswith("cam_")
+              for v in d.values()) / 2**20
+    print(f"phase 10 camera: {N_SCENES} scenes made in "
+          f"{time.perf_counter() - t0:.2f} s, camera inputs {mib:.1f} MiB "
+          "resident on the card")
+    return hypes, model, scenes
+
+
+def conv_flops(model, run, batch):
+    """Operations (2 per multiply-add) of every convolution of one run of
+    ``batch`` under ``auto``, by part of the model, from forward hooks: a
+    conv's output elements times its input channels per group times its
+    taps."""
+    parts = {}
+
+    def hook(name):
+        part = ("trunks+heads" if ".camencode." in name else
+                "BEV encoder" if ".bevencode." in name else
+                "backbone, shrink, fusion, heads")
+
+        def count(mod, args, out):
+            taps = mod.kernel_size[0] * mod.kernel_size[1]
+            cin = (mod.in_channels // mod.groups
+                   if isinstance(mod, torch.nn.Conv2d) else mod.out_channels)
+            parts[part] = parts.get(part, 0) + 2 * out.numel() * cin * taps
+        return count
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with conv_mode("auto"):
+            run(batch, no_mark)
+    finally:
+        for h in handles:
+            h.remove()
+    return parts
+
+
+def phase_camera(card, convs_per_scene):
+    """Phase 10: the camera-LSS det path at full width in ``auto`` and in
+    ``pallas`` mode: timed runs, stage times, peak memory, kept detections,
+    launch counts (K2 once per scene, K4a 32 times in ``pallas``, K1 never),
+    a profile window, and the kept detections under each of KEPT_VARIANTS;
+    first, the convolutions' operations per scene and their time at the
+    card's dense bf16 peak."""
+    hypes, model, scenes = camera_setup()
+    run, hw = det_step(hypes, model)
+    flops = conv_flops(model, run, scenes[0])
+    with torch.inference_mode():  # the voxel pooling's atomic order
+        x = [model.encode(scenes[0]) for _ in range(2)]
+    print(f"phase 10 camera [{card}] scene 0, two encodes (bf16 BEV maps): "
+          f"max|encode 1 - encode 2| {float((x[0] - x[1]).float().abs().max())}"
+          f" of max|encode 1| {float(x[0].float().abs().max())}; "
+          f"{int((x[0] != x[1]).sum())} of {x[0].numel()} values differ")
+    del x
+    total = sum(flops.values())
+    print(f"phase 10 camera [{card}] convolution operations per scene: "
+          f"{total / 1e12:.4f} T ({json.dumps({k: round(v / 1e12, 4) for k, v in flops.items()})}); "
+          f"at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s of dense bf16 "
+          f"{total / BF16_OPS_PER_S * 1e3:.4f} ms")
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = True, False
+    res = {}
+    # both modes' timed runs before this phase's profile windows: the
+    # camera pallas runs read slower than auto when a window ran between
+    # them, in host launch time of code that is the same in both modes
+    for mode in ("auto", "pallas"):
+        want = {"quad_iou": 1}
+        if mode == "pallas":
+            want["conv3x3"] = convs_per_scene
+        with conv_mode(mode):
+            res[mode] = time_path(f"phase 10 camera {mode} [{card}]", run,
+                                  scenes, want)
+    for mode in ("auto", "pallas"):
+        label = f"phase 10 camera {mode} [{card}]"
+        with conv_mode(mode):
+            res[mode]["profile"] = phase_profile(label, run, scenes)
+            kept = check_det(label, res[mode].pop("results"), hw)
+            res[mode]["kept"] = kept_variants(label, run, scenes, kept)
+    return res, {"conv_tflop": {k: v / 1e12 for k, v in flops.items()},
+                 "flop_floor_ms": total / BF16_OPS_PER_S * 1e3}
+
+
+class RangeMarks:
+    """The ``mark`` of a profiled run: each stage runs inside a profiler
+    range named ``stage <i>`` (its index in the scene), and ``names`` maps
+    the index to the name that ``mark`` gives when the stage ends."""
+
+    def __init__(self):
+        self.names = []
+        self._open()
+
+    def _open(self):
+        self.range = torch.profiler.record_function(f"stage {len(self.names)}")
+        self.range.__enter__()
+
+    def __call__(self, name):
+        self.range.__exit__(None, None, None)
+        self.names.append(name)
+        self._open()
+
+    def close(self):
+        self.range.__exit__(None, None, None)
+
+
+def phase_profile(label, run, scenes, top=15, unit="scene"):
     """Device time by kernel over a few scenes (or train steps: ``unit``) of
-    a path, and the device's idle share of that window (torch.profiler /
-    CUPTI)."""
+    a path, the device's idle share of that window (torch.profiler /
+    CUPTI), and the device time of the kernels launched in each stage."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1008,13 +1318,27 @@ def phase_profile(label, run, events, scenes, top=15, unit="scene"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for batch in scenes[:n]:
-            run(batch, events(), [])
+            marks = RangeMarks()
+            run(batch, marks)
+            marks.close()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    stage_busy = {}
+    for e in prof.events():
+        # the host-side ranges: their device time is that of the kernels
+        # launched inside them (the ranges' own spans on the device's
+        # timeline are no kernels and are left out)
+        if e.name.startswith("stage ") and e.device_type == DeviceType.CPU:
+            i = int(e.name.split()[1])
+            if i < len(marks.names):
+                us = getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0))
+                name = marks.names[i]
+                stage_busy[name] = stage_busy.get(name, 0.0) + us / 1e3 / n
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # kernels, memcpy and memset
-            continue
+        if e.device_type != DeviceType.CUDA or e.key.startswith("stage "):
+            continue  # kernels, memcpy and memset only
         # per scene; the attribute's name differs between releases
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
@@ -1026,15 +1350,23 @@ def phase_profile(label, run, events, scenes, top=15, unit="scene"):
         return None
     print(f"{label} profile over {n} {unit}s: device busy {busy:.3f} ms/{unit} "
           f"of {wall_ms / n:.3f} ms/{unit} wall under the profiler, idle share "
-          f"{1 - busy / (wall_ms / n):.3f}")
-    k1 = [r for r in rows if "k1_" in r[2]]  # csrc/pillar_encode.cu's kernels
+          f"{1 - busy / (wall_ms / n):.3f}; "
+          f"{sum(r[1] for r in rows):.0f} kernels, copies and memsets/{unit}")
+    if stage_busy:
+        print(f"{label} device busy ms/{unit} by stage (the kernels PyTorch "
+              "launched in it; the port's own kernels, launched through ctypes, "
+              f"are in no stage; {sum(stage_busy.values()):.3f} in all): "
+              + json.dumps(
+                  {k: round(v, 4) for k, v in stage_busy.items()}))
+    k1 = [r for r in rows if any(k in r[2] for k in K1_KERNELS)]
     print(f"{label} K1 kernels: {sum(r[0] for r in k1):.4f} ms/{unit} over "
           f"{sum(r[1] for r in k1):.1f} launches/{unit} (its table memset "
           "is counted with the other memsets)")
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.4f} ms/{unit} {count:6.1f}x/{unit}  {name[:100]}")
     print(f"{label} clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
-    return dict(busy_ms=busy, idle_share=1 - busy / (wall_ms / n))
+    return dict(busy_ms=busy, idle_share=1 - busy / (wall_ms / n),
+                device_ops=sum(r[1] for r in rows), stage_busy_ms=stage_busy)
 
 
 def comm_cut_gaps(model, batch):
@@ -1233,8 +1565,7 @@ def phase_train(label, card, hypes, model, batches):
         [{k: round(v, 5) for k, v in p.items()} for p in losses]))
     if not all(np.isfinite(v) for p in losses for v in p.values()):
         raise AssertionError(f"{label}: a non-finite loss part")
-    prof = phase_profile(f"{label} [{card}]",
-                         lambda b, ev, host: step(state, b), lambda: [],
+    prof = phase_profile(f"{label} [{card}]", lambda b, mark: step(state, b),
                          batches, top=10, unit="step")
     repeated = []
     for _ in range(REPEAT_STEPS):
@@ -1281,8 +1612,7 @@ def phase_train_det(card):
     for mode in ("auto", "pallas"):
         kernels.reset_launch_counts()
         with conv_mode(mode):
-            out, det = run(scene, [torch.cuda.Event(enable_timing=True)
-                                   for _ in range(len(DET_STAGES) + 1)], [])
+            out, det = run(scene, no_mark)
         torch.cuda.synchronize()
         launches[mode] = dict(kernels.LAUNCHES)
         for k in ("psm", "rm", "obj"):
@@ -1353,6 +1683,7 @@ def main() -> int:
     k3 = phase_k3()
     k4 = phase_k4(per_stage)
     phase_tiny()
+    phase_tiny_camera()
     n_f32 = phase_f32_pallas(model, scenes[0])
     if n_f32 != convs:
         raise AssertionError(f"f32 pallas scene ran {n_f32} conv3x3 launches")
@@ -1361,17 +1692,20 @@ def main() -> int:
     with conv_mode("auto"):
         k2_scene = phase_k2_scene(run, scenes[0])
     with conv_mode("auto"):
-        phase_profile("phase 6 flagship auto", run, det["auto"]["events"],
-                      scenes)
+        phase_profile("phase 6 flagship auto", run, scenes)
     with conv_mode("pallas"):
-        phase_profile("phase 6 flagship pallas", run,
-                      det["pallas"]["events"], scenes, top=10)
+        phase_profile("phase 6 flagship pallas", run, scenes, top=10)
     seg = phase_seg(scenes, convs)
     del model, scenes
     torch.cuda.empty_cache()
+    card = smi("name,power.limit")
+    cam, cam_flops = phase_camera(card, convs)
+    print(json.dumps({"camera": {"card": card, **cam_flops, **{
+        mode: {k: v for k, v in r.items() if k != "launches"}
+        for mode, r in cam.items()}}}))
+    torch.cuda.empty_cache()
     # the training phases run after every serving phase, so that nothing
     # they leave on the card shows in the serving paths' peak memory
-    card = smi("name,power.limit")
     tiny_train = phase_tiny_train(card)
     train_det = phase_train_det(card)
     train_seg = phase_train_seg(card)
@@ -1379,10 +1713,14 @@ def main() -> int:
         "card": card, "tiny_card_vs_cpu": tiny_train,
         "det": {k: v for k, v in train_det.items() if k != "losses"},
         "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
-    launches = {k: sum(r["launches"][k] for r in
-                       (det["auto"], det["pallas"], seg["auto"], seg["pallas"]))
+    runs = {"det": det, "seg": seg, "camera": cam}
+    for path, res in runs.items():
+        for mode, r in res.items():
+            print(f"launches in the timed {path} {mode} runs: {r['launches']}")
+    launches = {k: sum(r["launches"][k] for res in runs.values()
+                       for r in res.values())
                 for k in det["auto"]["launches"]}
-    print(f"launches over the timed main-path runs (phases 5 and 7): "
+    print(f"launches over the timed main-path runs (phases 5, 7 and 10): "
           f"{launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [

@@ -12,19 +12,23 @@ import pytest
 import torch
 
 from airv2x_tpu.config import load_yaml as jax_load_yaml
+from airv2x_tpu.data.synthetic import add_camera_inputs as jax_add_camera_inputs
 from airv2x_tpu.data.synthetic import make_scene as jax_make_scene
 from airv2x_tpu.models import build_model as jax_build_model
 from airv2x_tpu.models.base import SlotLayout as JaxSlotLayout
 from airv2x_tpu.ops.anchors import generate_anchor_grid as jax_anchor_grid
 from airv2x_tpu_torch.config import load_yaml
-from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_scene
+from airv2x_tpu_torch.data.synthetic import (
+    add_camera_inputs, batch_to_torch, make_scene)
 from airv2x_tpu_torch.models import build_model
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 from airv2x_tpu_torch.utils.weights import load_flax_variables
-from tests.torch_port_helpers import FLAGSHIP, REPO, SEG, TINY, random_variables
+from tests.torch_port_helpers import (
+    CAMERA, FLAGSHIP, REPO, SEG, TINY, random_variables)
 
-CONFIGS = [TINY, FLAGSHIP, SEG]
+CONFIGS = [TINY, FLAGSHIP, SEG, CAMERA]
+IDS = ["tiny", "flagship", "seg", "camera"]
 
 
 def _assert_same_tree(a, b, path="hypes"):
@@ -43,12 +47,12 @@ def _assert_same_tree(a, b, path="hypes"):
         assert type(a) is type(b) and a == b, (path, a, b)
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship", "seg"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
 def test_load_yaml_matches_jax(cfg):
     _assert_same_tree(load_yaml(cfg), jax_load_yaml(cfg))
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship", "seg"])
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
 def test_make_scene_bit_identical(cfg):
     hypes = load_yaml(cfg)
     args = hypes["model"]["args"]
@@ -67,7 +71,36 @@ def test_make_scene_bit_identical(cfg):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["tiny", "flagship", "seg"])
+@pytest.mark.parametrize("with_depth", [True, False])
+def test_add_camera_inputs_bit_identical(with_depth):
+    """The camera inputs of the benchmarked camera scene, drawn after
+    ``make_scene`` from the same generator (every type's imgs over all L
+    slots), at a small image size."""
+    args = load_yaml(CAMERA)["model"]["args"]
+    args["max_cav"] = {"vehicle": 3, "rsu": 2, "drone": 1}
+    ncam = {"vehicle": 6, "rsu": 4, "drone": 1}
+    out = []
+    for layout, scene, add in (
+            (SlotLayout.from_args(args), make_scene, add_camera_inputs),
+            (JaxSlotLayout.from_args(args), jax_make_scene,
+             jax_add_camera_inputs)):
+        rng = np.random.default_rng(9)
+        b, _ = scene(rng, layout, points_per_agent=500, pts_per_box=20)
+        add(b, layout, rng, img_hw=(16, 24), ncam=ncam, with_depth=with_depth)
+        out.append((b, rng.uniform()))  # the generator's state after
+    (got, got_next), (want, want_next) = out
+    assert got_next == want_next
+    assert set(got) == set(want)
+    for t in ("vehicle", "rsu", "drone"):
+        g, w = got[f"cam_{t}"], want[f"cam_{t}"]
+        assert set(g) == set(w)
+        assert g["imgs"].shape == (6, ncam[t], 16, 24, 4 if with_depth else 3)
+        for k in g:
+            assert g[k].dtype == w[k].dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=f"{t} {k}")
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
 def test_anchor_grid_identical(cfg):
     aa = load_yaml(cfg)["postprocess"]["anchor_args"]
     got, want = generate_anchor_grid(aa), jax_anchor_grid(aa)
@@ -99,6 +132,42 @@ def test_bridge_consumes_every_leaf(tiny_variables):
     want = tiny_variables["batch_stats"]["backbone"]["stages_1"][
         "ConvBNReLU_0"]["BatchNorm_0"]["var"]
     np.testing.assert_array_equal(bn.running_var.numpy(), want)
+
+
+def test_bridge_fills_the_camera_model():
+    """The full-width camera det model, max_cav cut to the benchmarked scene:
+    every flax leaf (trunks, LSS heads, BEV encoders) fills one tensor. The
+    flax variables' shapes come from an abstract init, no forward runs."""
+    import jax
+
+    hypes = jax_load_yaml(CAMERA)
+    hypes["model"]["args"]["max_cav"] = {"vehicle": 3, "rsu": 2, "drone": 1}
+    layout = JaxSlotLayout.from_args(hypes["model"]["args"])
+    b, _ = jax_make_scene(np.random.default_rng(0), layout, points_per_agent=64,
+                          pts_per_box=8)
+    jax_add_camera_inputs(b, layout, np.random.default_rng(1), img_hw=(8, 8),
+                          ncam={"vehicle": 6, "rsu": 4, "drone": 1})
+    shapes = jax.tree.map(
+        lambda v: jax.ShapeDtypeStruct((1,) + v.shape, v.dtype), b)
+    for t in ("vehicle", "rsu", "drone"):  # the images at full size
+        imgs = shapes[f"cam_{t}"]["imgs"]
+        shapes[f"cam_{t}"]["imgs"] = jax.ShapeDtypeStruct(
+            imgs.shape[:3] + (256, 352, 4), imgs.dtype)
+    variables = random_variables(jax_build_model(hypes), shapes, seed=2,
+                                 train=False)
+    thypes = load_yaml(CAMERA)
+    thypes["model"]["args"]["max_cav"] = {"vehicle": 3, "rsu": 2, "drone": 1}
+    model = build_model(thypes, device="cpu")
+    load_flax_variables(model, variables)  # raises on any leftover
+    n_leaves = sum(len(v) for col in variables.values() for v in _leaves(col))
+    n_tensors = sum(t.numel() for k, t in model.state_dict().items()
+                    if not k.endswith("num_batches_tracked"))
+    assert n_leaves == n_tensors
+    dw = model.encoder.rsu_lss.camencode.trunk.block3.depthwise_conv
+    want = variables["params"]["encoder"]["rsu_lss"]["camencode"]["trunk"][
+        "block3"]["depthwise_conv"]["kernel"]  # HWIO (5, 5, 1, 144)
+    assert dw.weight.shape == (144, 1, 5, 5)
+    np.testing.assert_array_equal(dw.weight.numpy(), want.transpose(3, 2, 0, 1))
 
 
 def _leaves(tree):
@@ -141,7 +210,8 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     names = {os.path.relpath(p, REPO) for p in files}
     for module in ("ops/conv3x3.py", "ops/pillar_reduce.py", "ops/warp.py",
-                   "models/heads.py", "models/nn.py"):
+                   "models/heads.py", "models/nn.py", "models/camera/lss.py",
+                   "models/camera/trunks.py"):
         assert os.path.join("airv2x_tpu_torch", module) in names, module
     for path in files:
         for name in _imports(path):

@@ -583,3 +583,127 @@ def test_fold_cache_after_training_on_card(cuda, impl, monkeypatch):
     assert kernels.LAUNCHES["conv3x3"] == 1
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * (1 + scale)
+
+
+# --- the camera-LSS path --------------------------------------------------------
+
+# the camera block of tests/test_camera.py's tiny model
+TINY_CAM = {
+    "grid_conf": {"xbound": [-19.2, 19.2, 0.4], "ybound": [-19.2, 19.2, 0.4],
+                  "zbound": [-10, 10, 20.0], "ddiscr": [2, 50, 8], "mode": "LID"},
+    "data_aug_conf": {"final_dim": [64, 96]}, "img_downsample": 8,
+    "img_features": 16, "bevout_feature": 16, "camera_encoder": "EfficientNet",
+    "use_depth_gt": True, "depth_supervision": False,
+}
+
+
+def _tiny_camera(kind, device):
+    """The model of the tiny config with cameras (``cam``: every type camera
+    only, depth from the softmax head; ``lidar+cam``: the vehicles both, gt
+    depth) with seeded random weights, and two scenes with camera inputs
+    (the scenes of tests/test_torch_camera.py, whose frustum points lie
+    more than 1e-4 of a cell from every cell boundary)."""
+    import copy
+
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import add_camera_inputs, make_scene
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    hypes = copy.deepcopy(load_yaml(os.path.join(
+        REPO, "hypes_yaml/test/tiny_where2comm.yaml")))
+    args = hypes["model"]["args"]
+    for t in (("vehicle", "rsu", "drone") if kind == "cam" else ("vehicle",)):
+        args[t]["modalities"] = ["cam"] if kind == "cam" else ["lidar", "cam"]
+        args[t]["cam"] = dict(TINY_CAM, use_depth_gt=kind != "cam")
+    model = init_random_(build_model(hypes, device=device), seed=3)
+    rng = np.random.default_rng(3)
+    scenes = []
+    for na in ({"vehicle": 2, "rsu": 1, "drone": 1},
+               {"vehicle": 2, "rsu": 1, "drone": 0}):
+        b, _ = make_scene(rng, model.layout, num_objects=6, points_per_agent=1024,
+                          lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                          pts_per_box=60, num_agents=na)
+        add_camera_inputs(b, model.layout, rng, img_hw=(64, 96),
+                          ncam={"vehicle": 2, "rsu": 1, "drone": 1})
+        scenes.append(b)
+    batch = {k: ({kk: np.stack([s[k][kk] for s in scenes]) for kk in scenes[0][k]}
+                 if isinstance(scenes[0][k], dict)
+                 else np.stack([s[k] for s in scenes])) for k in scenes[0]}
+    return model, batch
+
+
+@pytest.mark.parametrize("kind", ["cam", "lidar+cam"])
+def test_tiny_camera_model_on_card_matches_cpu(cuda, kind):
+    """f32, TF32 off, deterministic cuDNN: the card's single-agent
+    confidence and fused outputs (fused with the CPU's confidence, so the
+    comm mask is the same) within 1e-4 x (1 + scale) of the CPU's; K1 runs
+    once per LiDAR type, never for a camera-only type."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = {}
+        for d in ("cpu", "cuda"):
+            model, batch = _tiny_camera(kind, d)
+            tb = batch_to_torch(batch, d)
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                x = model.encode(tb)
+                psm = model.single_psm(x)
+                use = psm if d == "cpu" else outs["cpu"]["single"].to(d)
+                out = model.fuse(x, use, tb["agent_mask"])
+            torch.cuda.synchronize()
+            outs[d] = {"single": psm, **out}
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert launches["pillar_encode"] == (0 if kind == "cam" else 3), launches
+    for k in ("single", "psm", "rm", "obj", "comm_rate"):
+        want, got = outs["cpu"][k].double(), outs["cuda"][k].cpu().double()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * (1 + scale), (k, err, scale)
+
+
+def test_voxel_pooling_full_width_bf16_on_card(cuda):
+    """One full-width vehicle call of ``voxel_pooling`` (3 agents x 6
+    cameras x 8 depths x 32 x 44 lifted points, 64 channels, the 704 x 200
+    grid) in bf16 on the card against the f32 sum of the same bf16 values:
+    bf16 accumulation rounds each add (unit roundoff u = 2^-8), so a cell of
+    n points lies within (n - 1) u sum|x| of the exact sum, plus the
+    final rounding."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import add_camera_inputs
+    from airv2x_tpu_torch.models.base import SlotLayout
+    from airv2x_tpu_torch.models.camera.lss import (
+        create_frustum, gen_dx_bx, get_geometry, voxel_pooling)
+
+    cfg = load_yaml(os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml"))[
+        "model"]["args"]["vehicle"]["cam"]
+    grid = cfg["grid_conf"]
+    layout = SlotLayout((3, 0, 0))
+    b = add_camera_inputs({}, layout, np.random.default_rng(0), img_hw=(256, 352),
+                          ncam={"vehicle": 6}, with_depth=False)["cam_vehicle"]
+    frustum = create_frustum((256, 352), 8, grid["ddiscr"], grid["mode"])
+    geom = get_geometry(torch.from_numpy(frustum).to(cuda), *(
+        torch.from_numpy(b[k]).to(cuda)
+        for k in ("rots", "trans", "intrinsics", "post_rots", "post_trans")))
+    geom = geom.permute(0, 1, 3, 4, 2, 5)  # the lifted order (B, N, fH, fW, D)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    depth = torch.softmax(torch.randn(geom.shape[:-1], device=cuda, generator=gen), -1)
+    ctx = torch.randn(geom.shape[:-2] + (64,), device=cuda, generator=gen)
+    feats = (depth[..., None] * ctx[..., None, :]).to(torch.bfloat16)
+    dx, bx, nx = gen_dx_bx(grid["xbound"], grid["ybound"], grid["zbound"])
+    dx_t, lo = torch.from_numpy(dx).to(cuda), torch.from_numpy(bx - dx / 2.0).to(cuda)
+    got = voxel_pooling(geom, feats, dx_t, lo, nx)
+    exact = voxel_pooling(geom, feats.double(), dx_t, lo, nx)
+    abs_sum = voxel_pooling(geom, feats.double().abs(), dx_t, lo, nx)
+    count = voxel_pooling(geom, torch.ones_like(feats[..., :1], dtype=torch.double),
+                          dx_t, lo, nx)
+    assert got.shape == (3, 200, 704, 64) and got.dtype == torch.bfloat16
+    u = 2.0 ** -8
+    bound = (count - 1).clamp_min(0) * u * abs_sum + u * exact.abs()
+    err = (got.double() - exact).abs()
+    assert float(count.max()) > 100  # cells near the cameras gather many points
+    assert bool((err <= bound * 1.0001 + 1e-30).all()), float((err - bound).max())

@@ -19,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
 FLAGSHIP = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml")
 SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
+CAMERA = os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml")
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
