@@ -268,6 +268,39 @@ def make_batch(
     return batch, gt
 
 
+# perturb_poses' ranges: yaw in degrees, xy shift in metres, delay in frames.
+PERTURB_MAX_DEG = 5.0
+PERTURB_MAX_SHIFT = 3.0
+PERTURB_MAX_DELAY = 3
+
+
+def perturb_poses(batch: dict, rng: np.random.Generator) -> dict:
+    """Give every non-ego agent slot of a numpy batch (``make_scene``'s, with
+    or without a batch axis) a planar pose and a time delay, in place:
+    ``pairwise_t`` a rotation about z of up to ``PERTURB_MAX_DEG`` degrees
+    and an xy translation of up to ``PERTURB_MAX_SHIFT`` metres,
+    ``prior_encoding[..., 1]`` an integer delay in [0, PERTURB_MAX_DELAY].
+    Slot 0, the ego, keeps the identity and delay 0; the points stay as
+    they are.
+
+    ``make_scene``'s identity poses and zero delays leave the V2X-ViT
+    warp, its ROI mask and its temporal encoding untried; this exercises
+    them."""
+    pt = batch["pairwise_t"]
+    prior = batch["prior_encoding"]
+    lead, l = pt.shape[:-3], pt.shape[-3]
+    for idx in np.ndindex(*lead):
+        for slot in range(1, l):
+            yaw = np.deg2rad(rng.uniform(-PERTURB_MAX_DEG, PERTURB_MAX_DEG))
+            c, s = np.cos(yaw), np.sin(yaw)
+            m = np.eye(4, dtype=np.float32)
+            m[:2, :2] = [[c, -s], [s, c]]
+            m[:2, 3] = rng.uniform(-PERTURB_MAX_SHIFT, PERTURB_MAX_SHIFT, 2)
+            pt[idx + (slot,)] = m
+            prior[idx + (slot, 1)] = rng.integers(0, PERTURB_MAX_DELAY + 1)
+    return batch
+
+
 def batch_to_torch(batch: dict, device="cuda") -> dict:
     """numpy batch arrays -> tensors on ``device`` (bool stays bool); nested
     dicts (the ``labels``) are moved leaf by leaf."""

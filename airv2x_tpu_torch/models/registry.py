@@ -1,14 +1,17 @@
 """Model registry (counterpart of airv2x_tpu/models/registry.py): the
-Where2comm model, whose ``task`` (det or seg) the config names."""
+Where2comm and V2X-ViT models, whose ``task`` (det or seg) the config
+names."""
 
 from __future__ import annotations
 
 import torch
 
+from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
 from airv2x_tpu_torch.models.where2comm_model import Airv2xWhere2comm
 from airv2x_tpu_torch.utils.device import resolve_device
 
-MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm}
+MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
+                  "airv2x_v2xvit": Airv2xV2XViT}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 

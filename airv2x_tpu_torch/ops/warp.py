@@ -1,6 +1,15 @@
-"""Bilinear grid sampling (counterpart of airv2x_tpu/ops/warp.py:
-``grid_sample_bilinear``; the affine warps wait for the models that use
-them). Layout: channel-last (..., H, W, C), as in the JAX package."""
+"""Bilinear grid sampling and the STTF affine warp into the ego frame
+(counterpart of airv2x_tpu/ops/warp.py: ``grid_sample_bilinear``,
+``warp_affine``, ``discretized_transform``, ``center_pixel_affine``,
+``warp_bev_features`` and ``rotated_roi_mask``; the normalized-coordinate
+warps wait for the fusions that use them). Layout: channel-last
+(..., H, W, C), as in the JAX package.
+
+The affine arithmetic is written out as f32 products and sums (no matmul,
+so no TF32 on the card, and no division by a host scalar, which CUDA turns
+into a product with its reciprocal): the card and the CPU compute the same
+sample coordinates bit for bit.
+"""
 
 from __future__ import annotations
 
@@ -9,7 +18,9 @@ import torch
 
 def grid_sample_bilinear(src, grid_x, grid_y):
     """Bilinear sample of ``src`` (..., H, W, C) at pixel coordinates
-    ``grid_x`` / ``grid_y`` (out_h, out_w) -> (..., out_h, out_w, C).
+    ``grid_x`` / ``grid_y`` (out_h, out_w) -> (..., out_h, out_w, C); or,
+    with one grid per map, of ``src`` (N, H, W, C) at ``grid_x`` / ``grid_y``
+    (N, out_h, out_w) -> (N, out_h, out_w, C).
 
     Four clamped gathers; a tap outside the source contributes zero (torch
     ``padding_mode='zeros'``). The weights keep the grid's dtype, so a bf16
@@ -22,10 +33,14 @@ def grid_sample_bilinear(src, grid_x, grid_y):
     ty = (grid_y - y0)[..., None]
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
+    per_map = grid_x.dim() == 3
+    if per_map:
+        n = torch.arange(src.shape[0], device=src.device)[:, None, None]
 
     def tap(yi, xi):
         inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        v = src[..., yi.clamp(0, h - 1), xi.clamp(0, w - 1), :]
+        yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
+        v = src[n, yc, xc] if per_map else src[..., yc, xc, :]
         return v * inside[..., None].to(src.dtype)
 
     v00 = tap(y0i, x0i)
@@ -35,3 +50,93 @@ def grid_sample_bilinear(src, grid_x, grid_y):
     top = v00 * (1 - tx) + v01 * tx
     bot = v10 * (1 - tx) + v11 * tx
     return top * (1 - ty) + bot * ty
+
+
+def warp_affine(src, M, dsize):
+    """Warp (..., H, W, C) features by the pixel affine ``M`` (..., 2, 3):
+    the output at dst pixel p samples src at ``A^-1 p``, the 2x3 inverse
+    taken analytically (a determinant within 1e-12 of zero divides by 1), as
+    the JAX package's ``warp_affine`` with ``align_corners=True``."""
+    out_h, out_w = dsize
+    lead = src.shape[:-3]
+    ms = M.reshape(-1, 2, 3).to(torch.float32)
+    srcs = src.reshape((-1,) + src.shape[-3:])
+    r00, r01, t0 = ms[:, 0, 0], ms[:, 0, 1], ms[:, 0, 2]
+    r10, r11, t1 = ms[:, 1, 0], ms[:, 1, 1], ms[:, 1, 2]
+    det = r00 * r11 - r01 * r10
+    inv_det = 1.0 / torch.where(det.abs() > 1e-12, det, torch.ones_like(det))
+    i00, i01 = r11 * inv_det, -r01 * inv_det
+    i10, i11 = -r10 * inv_det, r00 * inv_det
+    u0 = -(i00 * t0 + i01 * t1)
+    u1 = -(i10 * t0 + i11 * t1)
+    ys, xs = torch.meshgrid(
+        torch.arange(out_h, dtype=torch.float32, device=src.device),
+        torch.arange(out_w, dtype=torch.float32, device=src.device),
+        indexing="ij")
+
+    def per(a):
+        return a[:, None, None]
+
+    sx = per(i00) * xs + per(i01) * ys + per(u0)
+    sy = per(i10) * xs + per(i11) * ys + per(u1)
+    out = grid_sample_bilinear(srcs, sx, sy)
+    return out.reshape(lead + (out_h, out_w, src.shape[-1]))
+
+
+def discretized_transform(pairwise_t, discrete_ratio: float,
+                          downsample_rate: float):
+    """(..., 4, 4) SE(3) -> (..., 2, 3) pixel-level planar affine: the planar
+    rotation block, and the xy translation in metres over the feature
+    pixel's size."""
+    rot = pairwise_t[..., :2, :2]
+    # a device tensor made by a fill: a host scalar would be copied to the
+    # card with a stream sync
+    pixel = torch.full((), discrete_ratio * downsample_rate,
+                       dtype=pairwise_t.dtype, device=pairwise_t.device)
+    t = pairwise_t[..., :2, 3:4] / pixel
+    return torch.cat([rot, t], dim=-1)
+
+
+def center_pixel_affine(M, dsize):
+    """The (..., 2, 3) affine with its rotation moved about the image
+    centre c = (w / 2, h / 2): translation t + c - R c."""
+    h, w = dsize
+    cx, cy = w / 2.0, h / 2.0
+    r00, r01 = M[..., 0, 0], M[..., 0, 1]
+    r10, r11 = M[..., 1, 0], M[..., 1, 1]
+    t0 = M[..., 0, 2] + (cx - (r00 * cx + r01 * cy))
+    t1 = M[..., 1, 2] + (cy - (r10 * cx + r11 * cy))
+    return torch.cat([M[..., :2, :2], torch.stack([t0, t1], -1)[..., None]],
+                     dim=-1)
+
+
+def _pixel_affines(pairwise_t, hw, discrete_ratio, downsample_rate):
+    m = discretized_transform(pairwise_t, discrete_ratio, downsample_rate)
+    return center_pixel_affine(m, hw)
+
+
+def warp_bev_features(feats, pairwise_t, discrete_ratio, downsample_rate):
+    """Warp (B, L, H, W, C) agent features into the ego frame by their
+    ``pairwise_t`` (B, L, 4, 4); slot 0, the ego, is left as it is (STTF)."""
+    hw = feats.shape[-3], feats.shape[-2]
+    m = _pixel_affines(pairwise_t, hw, discrete_ratio, downsample_rate)
+    warped = warp_affine(feats[:, 1:], m[:, 1:], hw)
+    return torch.cat([feats[:, :1], warped], dim=1)
+
+
+def rotated_roi_weights(shape_hw, pairwise_t, discrete_ratio, downsample_rate):
+    """(B, L, H, W) f32: a canvas of ones warped as each agent's features
+    are; ``rotated_roi_mask`` thresholds it at 0.5."""
+    h, w = shape_hw
+    b, l = pairwise_t.shape[:2]
+    ones = torch.ones((b, l, h, w, 1), dtype=torch.float32,
+                      device=pairwise_t.device)
+    m = _pixel_affines(pairwise_t, (h, w), discrete_ratio, downsample_rate)
+    return warp_affine(ones, m, (h, w))[..., 0]
+
+
+def rotated_roi_mask(shape_hw, pairwise_t, discrete_ratio, downsample_rate):
+    """(B, L, H, W) bool: the dst pixels that map inside the source canvas
+    after the warp."""
+    return rotated_roi_weights(shape_hw, pairwise_t, discrete_ratio,
+                               downsample_rate) > 0.5

@@ -10,12 +10,18 @@ airv2x_tpu/utils/torch_convert.py (torch -> flax):
     (in, out, kh, kw) with the spatial taps flipped (torch scatters the
     kernel as is, ``lax.conv_transpose`` correlates)
   * BatchNorm params scale / bias and batch_stats mean / var are copied
+  * LayerNorm scale / bias            -> weight / bias
   * biases are copied as they are
+  * a raw parameter that a module owns itself (V2X-ViT's ``relation_att``,
+    ``relation_msg``, ``pos_embedding``) is copied as it is: both packages
+    contract it the same way round
 
 Modules are matched to flax scopes by attribute name, renamed where a
-module's ``FLAX_NAMES`` says so; a ``ModuleList`` child ``x`` maps to
-scopes ``x_0``, ``x_1``, ... Modules applied twice with shared weights are
-registered once, so each flax leaf fills exactly one tensor.
+module's ``FLAX_NAMES`` says so (flax's auto-names inside ``@nn.compact``,
+such as ``Dense_0`` or ``V2XTEncoder_0``, come in that way); a
+``ModuleList`` child ``x`` maps to scopes ``x_0``, ``x_1``, ... Modules
+applied twice with shared weights are registered once, so each flax leaf
+fills exactly one tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ from torch import nn
 
 from airv2x_tpu_torch.models.heads import DetectionHeads
 from airv2x_tpu_torch.models.nn import MaskedBatchNorm
+
+# modules whose parameters stay f32 under the serving cast, besides those
+# whose class sets ``KEEP_F32 = True``: the JAX package keeps f32 parameters
+# and computes BatchNorm and LayerNorm statistics and affines in f32
+_F32_MODULES = (nn.BatchNorm2d, MaskedBatchNorm, nn.LayerNorm)
 
 
 class _Variables:
@@ -75,6 +86,9 @@ def _leaf(module, scope, v: _Variables):
         if isinstance(module, nn.BatchNorm2d):
             sd["num_batches_tracked"] = np.zeros((), np.int64)
         return sd
+    if isinstance(module, nn.LayerNorm):
+        return {"weight": v.take("params", scope, "scale"),
+                "bias": v.take("params", scope, "bias")}
     kernel = None
     if isinstance(module, nn.Linear):
         kernel = v.take("params", scope, "kernel").T
@@ -96,6 +110,8 @@ def _walk(module, scope: tuple, prefix: str, v: _Variables, out: dict):
         out.update({prefix + k: t for k, t in leaf.items()})
         return
     names = getattr(module, "FLAX_NAMES", {})
+    for name, _ in module.named_parameters(recurse=False):
+        out[prefix + name] = v.take("params", scope, names.get(name, name))
     for name, child in module.named_children():
         if next(child.parameters(), None) is None and next(child.buffers(), None) is None:
             continue  # stateless (e.g. the fusion's communication)
@@ -130,11 +146,13 @@ def load_flax_variables(model: nn.Module, variables: dict) -> None:
 def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the model's floating weights to the compute ``dtype`` in place,
     except the parameters and statistics of every BatchNorm-type module
-    (``nn.BatchNorm2d`` and its subclass, ``MaskedBatchNorm``) and the
+    (``nn.BatchNorm2d`` and its subclass, ``MaskedBatchNorm``), of every
+    LayerNorm and of every module whose class sets ``KEEP_F32`` (its
+    submodules included; V2X-ViT's RTE), and the
     non-persistent buffers (constants such as the camera frustum), which
     stay f32: the JAX package keeps f32 parameters under a bf16 compute
-    dtype, and the conv kernel's BN fold (``ConvBNReLU._fold``) reads them
-    in f32.
+    dtype and computes these modules in f32, and the conv kernel's BN fold
+    (``ConvBNReLU._fold``) reads them in f32.
 
     For serving only: a model in train mode raises, since rounding its
     weights would round the optimizer's f32 master weights (the train step
@@ -142,8 +160,11 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     if any(mod.training for mod in model.modules()):
         raise ValueError("cast_weights_ rounds a serving model's weights; "
                          "call .eval() first (training keeps f32 weights)")
+    keep = {id(sub) for mod in model.modules()
+            if isinstance(mod, _F32_MODULES) or getattr(mod, "KEEP_F32", False)
+            for sub in mod.modules()}
     for mod in model.modules():
-        if isinstance(mod, (nn.BatchNorm2d, MaskedBatchNorm)):
+        if id(mod) in keep:
             continue
         consts = mod._non_persistent_buffers_set
         for t in list(mod.parameters(recurse=False)) + [
@@ -159,7 +180,9 @@ def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
     dense and conv kernel flax's ``lecun_normal`` (a normal of std
     sqrt(1 / fan_in) / 0.8796, truncated at two std; fan_in counts the
     kernel's taps times its input channels), biases zero, BatchNorm scale 1,
-    bias 0, running mean 0 and variance 1. The start of a training run."""
+    bias 0, running mean 0 and variance 1, LayerNorm scale 1 and bias 0, and
+    a module's own raw parameters by its ``flax_init_(g)`` (V2X-ViT's
+    relation tensors and position biases). The start of a training run."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -178,14 +201,29 @@ def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
                 mod.bias.zero_()
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+            else:
+                _init_own_leaves_(mod, g)
     return model
+
+
+def _init_own_leaves_(mod: nn.Module, g: torch.Generator) -> None:
+    """flax's initialisers of the leaves that are neither dense, conv nor
+    BatchNorm, from ``g``: LayerNorm scale 1 and bias 0, and whatever the
+    module's own ``flax_init_(g)`` draws."""
+    with torch.no_grad():
+        if isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif hasattr(mod, "flax_init_"):
+            mod.flax_init_(g)
 
 
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights for a run without a checkpoint: He-normal conv
     and dense weights, small biases, BN affines and statistics around the
     identity with some negative scales (so the pillar encoder's flipped
-    channels are exercised)."""
+    channels are exercised); LayerNorms and a module's own raw parameters
+    as flax initialises them (``_init_own_leaves_``)."""
     g = torch.Generator().manual_seed(seed)
 
     def draw(t, fn):
@@ -206,6 +244,8 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             draw(mod.bias, lambda t: t.normal_(0.0, 0.2, generator=g))
             draw(mod.running_mean, lambda t: t.normal_(0.0, 0.2, generator=g))
             draw(mod.running_var, lambda t: t.uniform_(0.5, 2.0, generator=g))
+        else:
+            _init_own_leaves_(mod, g)
     for mod in model.modules():
         if isinstance(mod, DetectionHeads):
             # small box deltas: decoded boxes stay near their anchors, as a

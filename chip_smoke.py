@@ -42,6 +42,12 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      the card against the same weights on the CPU, f32, TF32 off,
      deterministic cuDNN, with the frustum points' smallest distance to a
      cell boundary;
+  4d. the tiny V2X-ViT det and seg configs (the tiny config with
+     tests/test_torch_v2xvit.py's transformer block: three windows, split
+     attention) on the card against the same weights on the CPU, f32, TF32
+     off, pinned cuDNN, in ``auto`` and ``pallas``, on a scene with
+     perturbed poses (up to 5 degrees and 3 m) and delays (0-3), with the
+     ROI samples' smallest distance from the 0.5 threshold;
   4a. one flagship scene at full width in f32 with TF32 off: the ``pallas``
      conv backend against ``auto`` on the single-agent confidence of all
      agents and on the outputs of the scene with only the ego agent;
@@ -76,7 +82,21 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      detections (and under the settings of phase 5), launch counts (K2 1x,
      K4a 32x in ``pallas``, K1 never) and a profile window with each
      stage's device busy time; a ``camera`` JSON line;
-  4b. (run after phase 10, like the other training phases) one train step of
+  11. (run after phase 10) the V2X-ViT LiDAR path at full width
+     (``hypes_yaml/airv2x/lidar/{det,seg}/v2xvit.yaml``, cut as phase 5,
+     the same 8 scenes, bf16, seeded random weights), det then seg, in
+     ``auto`` and in ``pallas`` mode: the transformer's operations per scene
+     (Linears and attention products, from the configuration's shapes: the
+     work its function needs, the floor, and the work the code executes)
+     and their time at the dense bf16 peak; ms/scene, stage times (encoder,
+     backbone + shrink, transformer, heads, decode), peak memory, launch
+     counts (K1 3x, K2 1x per det scene, K4a 16x in ``pallas``: one
+     backbone pass), a profile window, kept detections or class
+     histograms; then one det scene with perturbed poses and delays: finite
+     outputs, the ROI mask on the card equal to the CPU's, and the f32
+     model's fused map and psm / rm / obj on the card against the CPU's
+     (TINY_TOL x (1 + scale)); a ``v2xvit`` JSON line;
+  4b. (run after phase 11, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
      TF32 off and deterministic cuDNN; max|card - CPU| of the loss parts,
@@ -97,9 +117,10 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
   9. the same training run for the LiDAR seg model (512 x 512 labels), with
      no decode check.
 
-Launch counts are reset just before each timed path run (phases 5, 7 and
-10) and read just after; the ``kernels`` line sums them over those runs. Its
-K4 times are per scene: the 32 launches of one scene at their stages, in
+Launch counts are reset just before each timed path run (phases 5, 7, 10
+and 11) and read just after; the ``kernels`` line sums them over those
+runs. Its K4 times are per scene: the 32 launches of one scene at their
+stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
 row adds the prefilter's survivor share and the scene input's numbers.
 Phases 8 and 9 print the card's name and power limit on every line of
@@ -128,6 +149,8 @@ FLAGSHIP = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml")
 SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
 CAMERA = os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml")
 TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
+V2XVIT = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/v2xvit.yaml")
+V2XVIT_SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/v2xvit.yaml")
 NUM_AGENTS = {"vehicle": 3, "rsu": 2, "drone": 1}
 NCAM = {"vehicle": 6, "rsu": 4, "drone": 1}  # the reference's camera rigs
 POINTS_PER_AGENT = 20000
@@ -138,6 +161,7 @@ DET_STAGES = ("encoder", "backbone+shrink+psm head", "fusion+heads",
               "decode+NMS")
 SEG_STAGES = ("encoder", "backbone+shrink+crop", "fusion+seg head",
               "decode")
+V2XVIT_STAGES = ("encoder", "backbone+shrink", "transformer", "heads")
 # a camera frustum point this close to a cell boundary (in cell widths)
 # could fall in another cell on the card than on the CPU
 CELL_MARGIN = 1e-4
@@ -149,6 +173,27 @@ TINY_CAM = {
     "data_aug_conf": {"final_dim": [64, 96]}, "img_downsample": 8,
     "img_features": 16, "bevout_feature": 16, "camera_encoder": "EfficientNet",
     "use_depth_gt": True, "depth_supervision": False,
+}
+
+# an ROI sample (a bilinear sample of the warped ones canvas) this close to
+# the 0.5 threshold could fall on the other side of it on the card
+ROI_MARGIN = 1e-4
+# the tiny V2X-ViT transformer: dim 64, heads 4, dim_head 16, depth 1,
+# windows 2 / 4 / 4 with split attention, at the tiny backbone's feature
+# stride 2. The one copy: tests/torch_port_helpers.py (the CPU tests) and
+# tests/test_torch_kernels_gpu.py (the card tests) load it from here.
+TINY_V2XVIT_ENCODER = {
+    "num_blocks": 1, "depth": 1, "use_roi_mask": True, "use_RTE": True,
+    "RTE_ratio": 2,
+    "cav_att_config": {"dim": 64, "use_hetero": True, "use_RTE": True,
+                       "RTE_ratio": 2, "heads": 4, "dim_head": 16,
+                       "dropout": 0.0},
+    "pwindow_att_config": {"dim": 64, "heads": [4, 2, 1],
+                           "dim_head": [16, 32, 64], "window_size": [2, 4, 4],
+                           "relative_pos_embedding": True,
+                           "fusion_method": "split_attn", "dropout": 0.0},
+    "feed_forward": {"mlp_dim": 64, "dropout": 0.0},
+    "sttf": {"voxel_size": [0.4, 0.4, 4], "downsample_rate": 2},
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
@@ -299,23 +344,32 @@ def cut_hypes(path: str) -> dict:
     return hypes
 
 
-def flagship_setup():
+def lidar_scenes(hypes, layout):
+    """The N_SCENES ``make_scene`` scenes of the LiDAR paths (seed 0, 12
+    objects, POINTS_PER_AGENT points per agent) on the card, and their
+    ground truth."""
     from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_scene
-    from airv2x_tpu_torch.models import build_model
-    from airv2x_tpu_torch.utils.weights import init_random_
 
-    hypes = cut_hypes(FLAGSHIP)
-    model = init_random_(build_model(hypes, device="cuda"), seed=0)
     rng = np.random.default_rng(0)
     scenes, gts = [], []
     for _ in range(N_SCENES):
-        b, gt = make_scene(rng, model.layout, num_objects=12,
+        b, gt = make_scene(rng, layout, num_objects=12,
                            num_agents=NUM_AGENTS,
                            points_per_agent=POINTS_PER_AGENT,
                            lidar_range=hypes["preprocess"]["cav_lidar_range"],
                            pts_per_box=100)
         scenes.append(batch_to_torch({k: v[None] for k, v in b.items()}, "cuda"))
         gts.append(gt)
+    return scenes, gts
+
+
+def flagship_setup():
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    hypes = cut_hypes(FLAGSHIP)
+    model = init_random_(build_model(hypes, device="cuda"), seed=0)
+    scenes, gts = lidar_scenes(hypes, model.layout)
     return hypes, model, scenes, gts
 
 
@@ -909,15 +963,7 @@ def det_step(hypes, model):
     marks its own stages (trunks + heads, lift + voxel pooling, BEV
     encoder, per agent type); the hetero encoder's concat and agent mask
     then join the BEV encoder stage."""
-    from airv2x_tpu_torch.data.postprocess import decode_detections
-    from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
-
-    anchors = torch.from_numpy(
-        generate_anchor_grid(hypes["postprocess"]["anchor_args"])).cuda()
-    lidar_range = torch.tensor(hypes["preprocess"]["cav_lidar_range"],
-                               dtype=torch.float32, device="cuda")
-    eye = torch.eye(4, device="cuda")
-    tgt = hypes["postprocess"]["target_args"]
+    decode, hw = det_decoder(hypes)
     camera = any("cam" in m for _, m in model.encoder.types)
     encoder_stage = "BEV encoder" if camera else DET_STAGES[0]
 
@@ -929,15 +975,35 @@ def det_step(hypes, model):
             mark(DET_STAGES[1])
             out = model.fuse(x, psm, batch["agent_mask"])
             mark(DET_STAGES[2])
-            det = decode_detections(
-                out["psm"][0], out["rm"][0], out["obj"][0], anchors, eye,
-                lidar_range, num_class=hypes["num_class"],
-                obj_threshold=tgt["obj_threshold"],
-                nms_thresh=hypes["postprocess"]["nms_thresh"], top_k=TOP_K)
+            det = decode(out)
             mark(DET_STAGES[3])
         return out, det
 
-    return run, anchors.shape[:2]
+    return run, hw
+
+
+def det_decoder(hypes):
+    """(decode, anchor grid (H, W)): ``decode(out)`` runs
+    ``decode_detections`` (top_k TOP_K, rotated NMS) on sample 0 of a det
+    model's outputs."""
+    from airv2x_tpu_torch.data.postprocess import decode_detections
+    from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
+
+    anchors = torch.from_numpy(
+        generate_anchor_grid(hypes["postprocess"]["anchor_args"])).cuda()
+    lidar_range = torch.tensor(hypes["preprocess"]["cav_lidar_range"],
+                               dtype=torch.float32, device="cuda")
+    eye = torch.eye(4, device="cuda")
+    tgt = hypes["postprocess"]["target_args"]
+
+    def decode(out):
+        return decode_detections(
+            out["psm"][0], out["rm"][0], out["obj"][0], anchors, eye,
+            lidar_range, num_class=hypes["num_class"],
+            obj_threshold=tgt["obj_threshold"],
+            nms_thresh=hypes["postprocess"]["nms_thresh"], top_k=TOP_K)
+
+    return decode, anchors.shape[:2]
 
 
 def check_det(label, results, hw):
@@ -1049,7 +1115,6 @@ def phase_seg(scenes, convs_per_scene):
 
     hypes = cut_hypes(SEG)
     args = hypes["model"]["args"]
-    hw, ncls = args["seg_hw"], (args["dynamic_class"], args["static_class"])
     model = init_random_(build_model(hypes, device="cuda"), seed=0)
     cast_weights_(model, torch.bfloat16)
     run = seg_step(model)
@@ -1062,24 +1127,31 @@ def phase_seg(scenes, convs_per_scene):
         with conv_mode(mode):
             res[mode] = time_path(label, run, scenes, want)
             phase_profile(label, run, scenes, top=10)
-        hists = []
-        for out, maps in res[mode]["results"]:
-            for key, m, c in zip(("dynamic_seg", "static_seg"), maps, ncls):
-                if tuple(out[key].shape) != (1, hw, hw, c) or not bool(
-                        torch.isfinite(out[key]).all()):
-                    raise AssertionError(f"{label} {key}: shape "
-                                         f"{tuple(out[key].shape)} or "
-                                         "non-finite")
-                if tuple(m.shape) != (1, hw, hw):
-                    raise AssertionError(f"{label} map {tuple(m.shape)}")
-            if not 0.0 <= float(out["comm_rate"]) <= 1.0:
-                raise AssertionError(f"comm_rate {float(out['comm_rate'])}")
-            hists.append([np.bincount(m.cpu().numpy().ravel(),
-                                      minlength=c).tolist()
-                          for m, c in zip(maps, ncls)])
-        print(f"{label} class histograms per scene [dynamic, static]: "
-              + json.dumps(hists))
+        check_seg(label, res[mode]["results"], args)
     return res
+
+
+def check_seg(label, results, args):
+    """Each scene's logits of shape (1, seg_hw, seg_hw, classes) and finite,
+    its class maps (1, seg_hw, seg_hw), comm_rate in [0, 1]; prints the
+    maps' class histograms."""
+    hw, ncls = args["seg_hw"], (args["dynamic_class"], args["static_class"])
+    hists = []
+    for out, maps in results:
+        for key, m, c in zip(("dynamic_seg", "static_seg"), maps, ncls):
+            if tuple(out[key].shape) != (1, hw, hw, c) or not bool(
+                    torch.isfinite(out[key]).all()):
+                raise AssertionError(f"{label} {key}: shape "
+                                     f"{tuple(out[key].shape)} or non-finite")
+            if tuple(m.shape) != (1, hw, hw):
+                raise AssertionError(f"{label} map {tuple(m.shape)}")
+        if not 0.0 <= float(out["comm_rate"]) <= 1.0:
+            raise AssertionError(f"comm_rate {float(out['comm_rate'])}")
+        hists.append([np.bincount(m.cpu().numpy().ravel(), minlength=c).tolist()
+                      for m, c in zip(maps, ncls)])
+    print(f"{label} class histograms per scene [dynamic, static]: "
+          + json.dumps(hists))
+    return hists
 
 
 def with_lead(scene):
@@ -1167,6 +1239,82 @@ def phase_tiny_camera():
             if margin <= CELL_MARGIN:
                 raise AssertionError(f"tiny camera {kind}: a frustum point "
                                      f"lies {margin} from a cell boundary")
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+
+
+def tiny_v2xvit_hypes(task):
+    """The tiny config as the V2X-ViT model (TINY_V2XVIT_ENCODER), patched
+    as tests/test_torch_v2xvit.py patches it; ``task`` det or seg."""
+    from airv2x_tpu_torch.config import load_yaml
+
+    hypes = copy.deepcopy(load_yaml(TINY))
+    hypes["model"]["core_method"] = "airv2x_v2xvit"
+    hypes["model"]["args"]["transformer"] = {
+        "encoder": copy.deepcopy(TINY_V2XVIT_ENCODER)}
+    hypes["task"] = hypes["model"]["args"]["task"] = task
+    return hypes
+
+
+def roi_samples(hypes, pairwise_t, hw):
+    """The V2X-ViT ROI samples (the warped ones canvas, which the mask
+    thresholds at 0.5) of ``pairwise_t`` on its device, at the fused map's
+    (H, W)."""
+    from airv2x_tpu_torch.ops.warp import rotated_roi_weights
+
+    sttf = hypes["model"]["args"]["transformer"]["encoder"]["sttf"]
+    return rotated_roi_weights(hw, pairwise_t, sttf["voxel_size"][0],
+                               sttf["downsample_rate"])
+
+
+def phase_tiny_v2xvit():
+    """Phase 4d: the tiny V2X-ViT det and seg configs on the card against the
+    same weights on the CPU, f32 with TF32 off and pinned cuDNN, in ``auto``
+    and ``pallas``, on a scene with perturbed poses and delays; the ROI
+    samples' smallest distance from 0.5 is printed and bounded."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.synthetic import (
+        batch_to_torch, make_scene, perturb_poses)
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        for task, keys in (("det", ("psm", "rm", "obj", "comm_rate")),
+                           ("seg", ("dynamic_seg", "static_seg", "comm_rate"))):
+            hypes = tiny_v2xvit_hypes(task)
+            models = {d: init_random_(build_model(hypes, device=d), seed=3)
+                      for d in ("cpu", "cuda")}
+            b, _ = make_scene(np.random.default_rng(2), models["cpu"].layout,
+                              num_objects=6, points_per_agent=2048,
+                              pts_per_box=60,
+                              lidar_range=hypes["preprocess"]["cav_lidar_range"])
+            scene = perturb_poses(with_lead(b), np.random.default_rng(1))
+            batch = {d: batch_to_torch(scene, d) for d in models}
+            margin = float((roi_samples(hypes, batch["cpu"]["pairwise_t"],
+                                        (48, 48)) - 0.5).abs().min())
+            per_pass = sum(hypes["model"]["args"]["modality_fusion"][
+                "base_bev_backbone"]["layer_nums"])
+            for mode in ("auto", "pallas"):
+                kernels.reset_launch_counts()
+                with conv_mode(mode), torch.inference_mode():
+                    want = models["cpu"](batch["cpu"])
+                    got = models["cuda"](batch["cuda"])
+                torch.cuda.synchronize()
+                n = dict(kernels.LAUNCHES)
+                convs = per_pass if mode == "pallas" else 0
+                if n["conv3x3"] != convs or n["pillar_encode"] != 3:
+                    raise AssertionError(f"tiny V2X-ViT {task} {mode}: {n}")
+                compare(f"phase 4d tiny V2X-ViT {task} {mode} card vs CPU "
+                        f"({n['pillar_encode']} K1, {n['conv3x3']} K4a "
+                        f"launches; ROI margin {margin:.3e}, limit "
+                        f"{ROI_MARGIN})", got, want, keys)
+            if margin <= ROI_MARGIN:
+                raise AssertionError(f"tiny V2X-ViT {task}: an ROI sample "
+                                     f"lies {margin} from 0.5")
     finally:
         cudnn.benchmark, cudnn.deterministic = flags
 
@@ -1283,6 +1431,332 @@ def phase_camera(card, convs_per_scene):
                  "flop_floor_ms": total / BF16_OPS_PER_S * 1e3}
 
 
+def v2xvit_step(hypes, model):
+    """One V2X-ViT scene, det (decode and rotated NMS) or seg (class maps),
+    with its stages marked: encoder, backbone + shrink, transformer, heads,
+    decode."""
+    from airv2x_tpu_torch.data.postprocess import decode_segmentation
+
+    if model.task == "det":
+        decode, _ = det_decoder(hypes)
+        last = DET_STAGES[3]
+    else:
+        def decode(out):
+            return decode_segmentation(out["dynamic_seg"], out["static_seg"])
+        last = SEG_STAGES[3]
+
+    def run(batch, mark):
+        with torch.inference_mode():
+            x = model.encode(batch, mark)
+            mark(V2XVIT_STAGES[0])
+            feats = model.backbone(x)
+            mark(V2XVIT_STAGES[1])
+            fused = model.fuse(feats, batch)
+            mark(V2XVIT_STAGES[2])
+            out = model.heads(fused)
+            mark(V2XVIT_STAGES[3])
+            res = decode(out)
+            mark(last)
+        return out, res
+
+    return run
+
+
+def transformer_ops(enc, batch, hw, needed):
+    """Operations (2 per multiply-add) of the V2X-ViT transformer on one
+    scene, by part, from the configuration's shapes (``enc``, its
+    ``transformer.encoder`` block, with HGT agent attention) and the
+    scene's agents, types and ROI mask, at the fused map's (H, W) ``hw``.
+
+    ``needed``: the work the function needs. Each present agent runs its
+    own type's q / k / v / output Linears; the relation products q W and
+    m W run once per type present; the score and message products run only
+    for the (pixel, agent pair)s the mask keeps; and at the last depth only
+    the ego slot's queries, windows and FFN count, since the transformer
+    returns slot 0. Otherwise, the work the port (and the JAX package)
+    executes: both types' Linears and every type's products on every slot
+    and column at every depth. Softmax, LayerNorm, the warp and the
+    elementwise passes are not counted by either."""
+    from airv2x_tpu_torch.ops.warp import rotated_roi_mask
+
+    cav, pw = enc["cav_att_config"], enc["pwindow_att_config"]
+    assert cav["use_hetero"] and cav["use_RTE"], cav
+    c, mlp, depth = cav["dim"], enc["feed_forward"]["mlp_dim"], enc["depth"]
+    heads, dh, nt = cav["heads"], cav["dim_head"], 2
+    inner = heads * dh
+    agents = batch["agent_mask"].cpu()
+    b, l = agents.shape
+    p = hw[0] * hw[1]
+    types = batch["prior_encoding"][..., 2].long().cpu()
+    roi = rotated_roi_mask(hw, batch["pairwise_t"].cpu(), enc["sttf"][
+        "voxel_size"][0], enc["sttf"]["downsample_rate"])
+    cols = (roi & agents[:, :, None, None]).flatten(1).sum(1)  # per scene
+    parts = {}
+
+    def add(part, ops):
+        parts[part] = parts.get(part, 0) + int(ops)
+
+    # slots whose output is read, per scene: (all depths but the last, last)
+    if needed:
+        present = [int(agents[i].sum()) for i in range(b)]
+        slots = [(n, 1) for n in present]
+        n_types = [len(set(types[i][agents[i]].tolist())) for i in range(b)]
+        typed = 1
+    else:
+        slots, n_types, typed = [(l, l)] * b, [nt] * b, nt
+    add("RTE Linear", 2 * sum(n for n, _ in slots) * c * c)
+    for d in range(depth):
+        for i in range(b):
+            kv = slots[i][0] if needed else l
+            nq = slots[i][d == depth - 1]
+            # q and output for the read slots, k and v for every present one
+            add("HGT Linear", 2 * p * typed * (2 * nq + 2 * kv) * c * inner)
+            # q W and m W per type; q k and a v per (pixel, column) kept
+            pairs = int(cols[i]) if needed else nt * l * p
+            add("HGT attention", 2 * heads * nq * (
+                2 * n_types[i] * dh * dh * p + 2 * dh * pairs))
+            for h, d_h, ws in zip(pw["heads"], pw["dim_head"],
+                                  pw["window_size"]):
+                tok = nq * p
+                add("window pyramid Linear", 2 * tok * 4 * c * h * d_h)
+                add("window attention", 2 * 2 * tok * h * ws * ws * d_h)
+            if pw["fusion_method"] == "split_attn":
+                add("window pyramid Linear", 2 * nq * 4 * c * c)
+            add("FFN Linear", 2 * 2 * nq * p * c * mlp)
+    return parts
+
+
+def transformer_busy(model, run, scenes, n=3):
+    """Device ms per scene of the V2X-ViT transformer's parts over a
+    profile window of ``n`` scenes: each part's forward runs inside a
+    profiler range opened and closed by module hooks, and a range's device
+    time is that of the kernels launched inside it. What no part holds
+    (the ROI mask, the GELU and the FFN's residual add, the permutes at the
+    transformer's entry and exit) is the transformer stage's rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from airv2x_tpu_torch.models.fusion.v2xvit import (
+        RTE, STTF, CavAttention, HGTCavAttention, LayerNorm,
+        PyramidWindowAttention)
+
+    part = {RTE: "RTE", STTF: "STTF warp", HGTCavAttention: "agent attention",
+            CavAttention: "agent attention",
+            PyramidWindowAttention: "window pyramid", LayerNorm: "LayerNorm"}
+    enc = model.fusion_net.encoder
+    mods = [(m, part[type(m)]) for name, m in enc.named_modules()
+            if type(m) in part and ".split_attn." not in name]
+    mods += [(m, "FFN Linear") for m in enc.ffn]
+    open_ranges = []
+
+    def enter(label):
+        def pre(mod, args):
+            r = torch.profiler.record_function(f"v2xvit {label}")
+            r.__enter__()
+            open_ranges.append(r)
+        return pre
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    handles = [h for m, label in mods for h in (
+        m.register_forward_pre_hook(enter(label)), m.register_forward_hook(leave))]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for batch in scenes[:n]:
+                marks = RangeMarks()
+                run(batch, marks)
+                marks.close()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    busy, stage = {}, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = _device_us(e)
+        if e.name.startswith("v2xvit "):
+            key = e.name.removeprefix("v2xvit ")
+            busy[key] = busy.get(key, 0.0) + us / 1e3 / n
+        elif e.name == f"stage {V2XVIT_STAGES.index('transformer')}":
+            stage += us / 1e3 / n
+    busy["rest"] = stage - sum(busy.values())
+    return {k: round(v, 4) for k, v in busy.items()}
+
+
+def v2xvit_model(path):
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    hypes = cut_hypes(path)
+    model = init_random_(build_model(hypes, device="cuda"), seed=0)
+    return hypes, cast_weights_(model, torch.bfloat16)
+
+
+def phase_v2xvit(card):
+    """Phase 11: the V2X-ViT LiDAR det path at full width (the cut and the
+    8 scenes of phase 5, bf16, seeded random weights) in ``auto`` and
+    ``pallas``: the transformer's operations per scene, those its function
+    needs (the floor) and those the code executes, and their times at the
+    dense bf16 peak; timed runs (K1 3, K2 1 and, in ``pallas``, K4a 16
+    launches per scene, asserted), stage times, peak memory, a profile
+    window, kept detections; the seg task the same way; then one det scene
+    with perturbed poses and delays: finite outputs, the ROI mask on the
+    card equal to the CPU's, and the f32 model's outputs on the card
+    against the CPU's."""
+    hypes, model = v2xvit_model(V2XVIT)
+    scenes, _ = lidar_scenes(hypes, model.layout)
+    per_pass = sum(hypes["model"]["args"]["modality_fusion"][
+        "base_bev_backbone"]["layer_nums"])
+    assert per_pass == 16, per_pass
+    run = v2xvit_step(hypes, model)
+    enc = hypes["model"]["args"]["transformer"]["encoder"]
+    ops = {kind: transformer_ops(enc, scenes[0], det_decoder(hypes)[1],
+                                 needed=kind == "needed")
+           for kind in ("needed", "executed")}
+    ms = {kind: sum(o.values()) / BF16_OPS_PER_S * 1e3 for kind, o in ops.items()}
+    for kind, o in ops.items():
+        print(f"phase 11 V2X-ViT [{card}] transformer operations per scene, "
+              f"{kind}: {sum(o.values()) / 1e12:.4f} T ("
+              + json.dumps({k: round(v / 1e12, 4) for k, v in o.items()})
+              + f"); at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s of dense bf16 "
+              f"{ms[kind]:.4f} ms")
+    floor_ms = ms["needed"]
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = True, False
+    out = {"card": card,
+           "transformer_tflop": {kind: {k: v / 1e12 for k, v in o.items()}
+                                 for kind, o in ops.items()},
+           "transformer_floor_ms": floor_ms,
+           "transformer_executed_ms_at_peak": ms["executed"]}
+    for task, path in (("det", V2XVIT), ("seg", V2XVIT_SEG)):
+        if task == "seg":  # the det model went before the f32 check
+            hypes, model = v2xvit_model(path)
+            run = v2xvit_step(hypes, model)
+        res = {}
+        # both modes' timed runs before the profile windows, as phase 10
+        for mode in ("auto", "pallas"):
+            want = {"pillar_encode": 3}
+            if task == "det":
+                want["quad_iou"] = 1
+            if mode == "pallas":
+                want["conv3x3"] = per_pass
+            with conv_mode(mode):
+                res[mode] = time_path(f"phase 11 V2X-ViT {task} {mode} [{card}]",
+                                      run, scenes, want)
+            res[mode]["launches_per_scene"] = want
+        for mode in ("auto", "pallas"):
+            label = f"phase 11 V2X-ViT {task} {mode} [{card}]"
+            with conv_mode(mode):
+                res[mode]["profile"] = phase_profile(label, run, scenes, top=12)
+                if task == "det" and mode == "auto":
+                    parts = transformer_busy(model, run, scenes)
+                    out["transformer_busy_ms"] = parts
+                    print(f"{label} transformer device busy ms/scene by part "
+                          f"({sum(parts.values()):.3f} in all, "
+                          f"{sum(parts.values()) / floor_ms:.1f}x the floor): "
+                          + json.dumps(parts))
+            results = res[mode].pop("results")
+            if task == "det":
+                res[mode]["kept"] = check_det(label, results,
+                                              det_decoder(hypes)[1])
+            else:
+                check_seg(label, results, hypes["model"]["args"])
+        out[task] = res
+        if task == "det":
+            out["perturbed"] = v2xvit_perturbed(card, hypes, model, run)
+            del model, run
+            torch.cuda.empty_cache()
+            out["perturbed_f32_card_vs_cpu"] = v2xvit_f32_vs_cpu(card, hypes)
+    del model, run, scenes
+    torch.cuda.empty_cache()
+    return out
+
+
+def perturbed_scene(hypes, layout):
+    """One full-width scene (numpy, batch 1) with perturbed poses (up to 5
+    degrees and 3 m) and delays (0-3)."""
+    from airv2x_tpu_torch.data.synthetic import make_scene, perturb_poses
+
+    b, _ = make_scene(np.random.default_rng(8), layout, num_objects=12,
+                      num_agents=NUM_AGENTS, points_per_agent=POINTS_PER_AGENT,
+                      lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                      pts_per_box=100)
+    return perturb_poses(with_lead(b), np.random.default_rng(9))
+
+
+def v2xvit_perturbed(card, hypes, model, run):
+    """The perturbed det scene through the bf16 model: finite outputs, and
+    the ROI mask on the card equal to the CPU's, with its samples' smallest
+    distance from 0.5."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+
+    batch = batch_to_torch(perturbed_scene(hypes, model.layout), "cuda")
+    with conv_mode("auto"):
+        out, det = run(batch, no_mark)
+    hw = tuple(out["psm"].shape[1:3])
+    for k in ("psm", "rm", "obj"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"phase 11 perturbed scene: non-finite {k}")
+    card_w = roi_samples(hypes, batch["pairwise_t"], hw)
+    cpu_w = roi_samples(hypes, batch["pairwise_t"].cpu(), hw)
+    equal = bool(torch.equal(card_w.cpu() > 0.5, cpu_w > 0.5))
+    margin = float((cpu_w - 0.5).abs().min())
+    kept = int(det.mask.sum())
+    print(f"phase 11 V2X-ViT perturbed det scene [{card}]: outputs finite, "
+          f"{kept} kept detections; ROI mask card == CPU: {equal} "
+          f"({int((cpu_w <= 0.5).sum())} of {cpu_w.numel()} pixels masked, "
+          f"samples' smallest distance from 0.5 {margin:.3e}; card and CPU "
+          f"samples max|diff| {float((card_w.cpu() - cpu_w).abs().max())})")
+    if not equal:
+        raise AssertionError("phase 11: the ROI mask differs on the card")
+    return {"kept": kept, "roi_equal": equal, "roi_margin": margin}
+
+
+def v2xvit_f32_vs_cpu(card, hypes):
+    """The perturbed det scene through the full-width f32 model (seeded
+    random weights, TF32 off, pinned cuDNN, ``auto``) on the card and on the
+    CPU: the fused ego map and psm / rm / obj within TINY_TOL x (1 +
+    scale)."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    models = {d: init_random_(build_model(hypes, device=d), seed=0)
+              for d in ("cpu", "cuda")}
+    scene = perturbed_scene(hypes, models["cpu"].layout)
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    outs, secs = {}, {}
+    try:
+        for d, model in models.items():
+            batch = batch_to_torch(scene, d)
+            t0 = time.perf_counter()
+            with conv_mode("auto"), torch.inference_mode():
+                fused = model.fuse(model.backbone(model.encode(batch)), batch)
+                outs[d] = dict(model.heads(fused), fused=fused)
+            torch.cuda.synchronize()
+            secs[d] = time.perf_counter() - t0
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    keys = ("fused", "psm", "rm", "obj")
+    errs = {k: float((outs["cuda"][k].cpu().double()
+                      - outs["cpu"][k].double()).abs().max()) for k in keys}
+    scales = {k: float(outs["cpu"][k].abs().max()) for k in keys}
+    compare(f"phase 11 V2X-ViT perturbed det scene, f32, card vs CPU [{card}] "
+            f"(CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s)",
+            outs["cuda"], outs["cpu"], keys)
+    del models, outs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "scale": scales, "tol": TINY_TOL}
+
+
 class RangeMarks:
     """The ``mark`` of a profiled run: each stage runs inside a profiler
     range named ``stage <i>`` (its index in the scene), and ``names`` maps
@@ -1303,6 +1777,14 @@ class RangeMarks:
 
     def close(self):
         self.range.__exit__(None, None, None)
+
+
+def _device_us(event):
+    """A profiler range's device microseconds (the attribute's name differs
+    between releases)."""
+    if hasattr(event, "device_time_total"):
+        return event.device_time_total
+    return event.cuda_time_total
 
 
 def phase_profile(label, run, scenes, top=15, unit="scene"):
@@ -1331,8 +1813,7 @@ def phase_profile(label, run, scenes, top=15, unit="scene"):
         if e.name.startswith("stage ") and e.device_type == DeviceType.CPU:
             i = int(e.name.split()[1])
             if i < len(marks.names):
-                us = getattr(e, "device_time_total",
-                             getattr(e, "cuda_time_total", 0))
+                us = _device_us(e)
                 name = marks.names[i]
                 stage_busy[name] = stage_busy.get(name, 0.0) + us / 1e3 / n
     rows = []
@@ -1684,6 +2165,7 @@ def main() -> int:
     k4 = phase_k4(per_stage)
     phase_tiny()
     phase_tiny_camera()
+    phase_tiny_v2xvit()
     n_f32 = phase_f32_pallas(model, scenes[0])
     if n_f32 != convs:
         raise AssertionError(f"f32 pallas scene ran {n_f32} conv3x3 launches")
@@ -1703,7 +2185,15 @@ def main() -> int:
     print(json.dumps({"camera": {"card": card, **cam_flops, **{
         mode: {k: v for k, v in r.items() if k != "launches"}
         for mode, r in cam.items()}}}))
+    for res in (det, seg):  # checked outputs: off the card before phase 11
+        for r in res.values():
+            r.pop("results", None)
     torch.cuda.empty_cache()
+    v2x = phase_v2xvit(card)
+    print(json.dumps({"v2xvit": {
+        k: ({mode: {kk: vv for kk, vv in r.items() if kk != "launches"}
+             for mode, r in v.items()} if k in ("det", "seg") else v)
+        for k, v in v2x.items()}}))
     # the training phases run after every serving phase, so that nothing
     # they leave on the card shows in the serving paths' peak memory
     tiny_train = phase_tiny_train(card)
@@ -1713,14 +2203,15 @@ def main() -> int:
         "card": card, "tiny_card_vs_cpu": tiny_train,
         "det": {k: v for k, v in train_det.items() if k != "losses"},
         "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
-    runs = {"det": det, "seg": seg, "camera": cam}
+    runs = {"det": det, "seg": seg, "camera": cam, "v2xvit det": v2x["det"],
+            "v2xvit seg": v2x["seg"]}
     for path, res in runs.items():
         for mode, r in res.items():
             print(f"launches in the timed {path} {mode} runs: {r['launches']}")
     launches = {k: sum(r["launches"][k] for res in runs.values()
                        for r in res.values())
                 for k in det["auto"]["launches"]}
-    print(f"launches over the timed main-path runs (phases 5, 7 and 10): "
+    print("launches over the timed main-path runs (phases 5, 7, 10 and 11): "
           f"{launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [

@@ -23,12 +23,14 @@ from airv2x_tpu_torch.data.synthetic import (
 from airv2x_tpu_torch.models import build_model
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
-from airv2x_tpu_torch.utils.weights import load_flax_variables
+from airv2x_tpu_torch.models.nn import MaskedBatchNorm
+from airv2x_tpu_torch.utils.weights import (
+    cast_weights_, init_flax_like_, init_random_, load_flax_variables)
 from tests.torch_port_helpers import (
-    CAMERA, FLAGSHIP, REPO, SEG, TINY, random_variables)
+    CAMERA, FLAGSHIP, REPO, SEG, TINY, V2XVIT, V2XVIT_SEG, random_variables)
 
-CONFIGS = [TINY, FLAGSHIP, SEG, CAMERA]
-IDS = ["tiny", "flagship", "seg", "camera"]
+CONFIGS = [TINY, FLAGSHIP, SEG, CAMERA, V2XVIT, V2XVIT_SEG]
+IDS = ["tiny", "flagship", "seg", "camera", "v2xvit", "v2xvit_seg"]
 
 
 def _assert_same_tree(a, b, path="hypes"):
@@ -170,6 +172,102 @@ def test_bridge_fills_the_camera_model():
     np.testing.assert_array_equal(dw.weight.numpy(), want.transpose(3, 2, 0, 1))
 
 
+@pytest.mark.parametrize("cfg", [V2XVIT, V2XVIT_SEG], ids=["det", "seg"])
+def test_bridge_fills_the_v2xvit_model(cfg):
+    """The full-width V2X-ViT model: every flax leaf (encoder, backbone,
+    shrink, the transformer's auto-named Dense / LayerNorm scopes, relation
+    tensors and position biases, heads) fills one tensor, strict. The flax
+    variables' shapes come from an abstract init, no forward runs."""
+    import jax
+
+    hypes = jax_load_yaml(cfg)
+    layout = JaxSlotLayout.from_args(hypes["model"]["args"])
+    b, _ = jax_make_scene(np.random.default_rng(0), layout, points_per_agent=64,
+                          pts_per_box=8)
+    shapes = jax.tree.map(
+        lambda v: jax.ShapeDtypeStruct((1,) + v.shape, v.dtype), b)
+    variables = random_variables(jax_build_model(hypes), shapes, seed=3,
+                                 train=False)
+    model = build_model(load_yaml(cfg), device="cpu")
+    load_flax_variables(model, variables)  # raises on any leftover
+    n_leaves = sum(len(v) for col in variables.values() for v in _leaves(col))
+    n_tensors = sum(t.numel() for k, t in model.state_dict().items()
+                    if not k.endswith("num_batches_tracked"))
+    assert n_leaves == n_tensors
+    enc = variables["params"]["fusion_net"]["V2XTEncoder_0"]
+    assert sorted(enc) == [
+        "Dense_0", "Dense_1", "Dense_2", "Dense_3", "Dense_4", "Dense_5",
+        "LayerNorm_0", "LayerNorm_1", "LayerNorm_2", "RTE_0",
+        "V2XFusionBlock_0", "V2XFusionBlock_1", "V2XFusionBlock_2"]
+    pw = enc["V2XFusionBlock_2"]["PyramidWindowAttention_0"]
+    tpw = model.fusion_net.encoder.blocks[2].pwin[0]
+    np.testing.assert_array_equal(
+        tpw.windows[0].pos_embedding.detach().numpy(),
+        pw["BaseWindowAttention_0"]["pos_embedding"])
+    np.testing.assert_array_equal(
+        tpw.split_attn.fc2.weight.detach().numpy(),
+        pw["SplitAttn_0"]["Dense_1"]["kernel"].T)
+    ln = enc["V2XFusionBlock_1"]["LayerNorm_1"]
+    np.testing.assert_array_equal(
+        model.fusion_net.encoder.blocks[1].norms[1].weight.detach().numpy(),
+        ln["scale"])
+
+
+def _v2xvit_full_width():
+    hypes = load_yaml(V2XVIT)
+    hypes["model"]["args"]["max_cav"] = {"vehicle": 3, "rsu": 2, "drone": 1}
+    return build_model(hypes, device="cpu")
+
+
+def test_cast_weights_keeps_the_v2xvit_f32_parts():
+    """Under the bf16 serving cast RTE's Linear, every LayerNorm and every
+    BatchNorm-type module stay f32; the typed and window Linears, the
+    relation tensors and the position biases go bf16."""
+    model = cast_weights_(_v2xvit_full_width(), torch.bfloat16)
+    enc = model.fusion_net.encoder
+    keep = [m for m in model.modules() if isinstance(
+        m, (torch.nn.LayerNorm, torch.nn.BatchNorm2d, MaskedBatchNorm))]
+    assert sum(isinstance(m, torch.nn.LayerNorm) for m in keep) == 3 * 3 + 3
+    assert sum(isinstance(m, MaskedBatchNorm) for m in keep) == 3
+    for m in keep + [enc.rte]:
+        for name, t in list(m.named_parameters()) + list(m.named_buffers()):
+            if t.is_floating_point():
+                assert t.dtype == torch.float32, (m, name)
+    att = enc.blocks[0].att[0]
+    for t in (att.relation_att, att.relation_msg, att.q[0].weight,
+              att.a[1].bias, enc.blocks[2].pwin[0].windows[1].pos_embedding,
+              enc.ffn[5].weight, model.det_heads.cls_head.weight):
+        assert t.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("init", [init_flax_like_, init_random_],
+                         ids=["flax_like", "random"])
+def test_initialisers_cover_the_v2xvit_leaves(init):
+    """Both initialisers reach the transformer's own leaves: LayerNorm 1 /
+    0, xavier-uniform relation tensors (flax's fans: the leading axes count
+    as receptive field), standard-normal position biases; and they are
+    repeatable from their seed."""
+    from airv2x_tpu_torch.models.fusion.v2xvit import relation_init_limit
+
+    model = init(_v2xvit_full_width(), seed=4)
+    enc = model.fusion_net.encoder
+    for norm in (enc.norms[2], enc.blocks[0].norms[1],
+                 enc.blocks[1].pwin[0].split_attn.norm):
+        assert (norm.weight == 1).all() and (norm.bias == 0).all()
+    att = enc.blocks[1].att[0]
+    lim = relation_init_limit(att.relation_att.shape)  # (4, 8, 32, 32)
+    assert lim == pytest.approx((6 / (2 * 32 * 4 * 8)) ** 0.5)
+    for p in (att.relation_att, att.relation_msg):
+        assert lim * 0.99 < float(p.abs().max()) <= lim
+        assert abs(float(p.mean())) < 0.05 * lim
+    pos = enc.blocks[0].pwin[0].windows[2].pos_embedding  # (7, 7)
+    assert 0.5 < float(pos.std()) < 1.5
+    again = init(_v2xvit_full_width(), seed=4)
+    for (k, a), b in zip(model.state_dict().items(),
+                         again.state_dict().values()):
+        assert torch.equal(a, b), k
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -211,7 +309,8 @@ def test_port_imports_no_jax():
     names = {os.path.relpath(p, REPO) for p in files}
     for module in ("ops/conv3x3.py", "ops/pillar_reduce.py", "ops/warp.py",
                    "models/heads.py", "models/nn.py", "models/camera/lss.py",
-                   "models/camera/trunks.py"):
+                   "models/camera/trunks.py", "models/fusion/v2xvit.py",
+                   "models/v2xvit_model.py"):
         assert os.path.join("airv2x_tpu_torch", module) in names, module
     for path in files:
         for name in _imports(path):

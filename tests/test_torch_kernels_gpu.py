@@ -7,6 +7,7 @@ nor ``airv2x_tpu``, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -23,6 +24,16 @@ from airv2x_tpu_torch.ops.quad_iou import quad_iou, quad_iou_plain
 pytestmark = pytest.mark.gpu
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports only numpy and
+    torch), for the tiny V2X-ViT transformer it defines."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(scope="module")
@@ -707,3 +718,87 @@ def test_voxel_pooling_full_width_bf16_on_card(cuda):
     err = (got.double() - exact).abs()
     assert float(count.max()) > 100  # cells near the cameras gather many points
     assert bool((err <= bound * 1.0001 + 1e-30).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas"])
+@pytest.mark.parametrize("task", ["det", "seg"])
+def test_tiny_v2xvit_model_on_card_matches_cpu(cuda, task, mode, monkeypatch):
+    """The tiny V2X-ViT model with seeded random weights on a scene with
+    perturbed poses and delays, f32, TF32 off, deterministic cuDNN: the
+    card's outputs within 1e-4 x (1 + scale) of the CPU's; K1 three times,
+    K2 never (no decode here), K4a once per stride-1 conv in ``pallas``."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import (
+        batch_to_torch, make_scene, perturb_poses)
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.ops.warp import rotated_roi_weights
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    hypes = load_yaml(os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml"))
+    hypes["model"]["core_method"] = "airv2x_v2xvit"
+    hypes["model"]["args"]["transformer"] = {
+        "encoder": _chip_smoke().TINY_V2XVIT_ENCODER}
+    hypes["task"] = hypes["model"]["args"]["task"] = task
+    models = {d: init_random_(build_model(hypes, device=d), seed=3)
+              for d in ("cpu", "cuda")}
+    b, _ = make_scene(np.random.default_rng(2), models["cpu"].layout,
+                      num_objects=6, points_per_agent=2048, pts_per_box=60,
+                      lidar_range=hypes["preprocess"]["cav_lidar_range"])
+    batch = perturb_poses({k: v[None] for k, v in b.items()},
+                          np.random.default_rng(1))
+    roi = rotated_roi_weights((48, 48), torch.from_numpy(batch["pairwise_t"]),
+                              0.4, 2)
+    assert float((roi - 0.5).abs().min()) > 1e-4
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", mode)
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = {}
+        for d, model in models.items():
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                outs[d] = model(batch_to_torch(batch, d))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert kernels.LAUNCHES["pillar_encode"] == 3
+    assert kernels.LAUNCHES["conv3x3"] == (3 if mode == "pallas" else 0)
+    keys = ("psm", "rm", "obj") if task == "det" else ("dynamic_seg",
+                                                       "static_seg")
+    for k in keys:
+        want, got = outs["cpu"][k].double(), outs["cuda"][k].cpu().double()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert scale > 0 and err <= 1e-4 * (1 + scale), (k, err, scale)
+
+
+def test_sttf_warp_full_width_on_card_matches_cpu(cuda):
+    """``warp_bev_features`` and ``rotated_roi_mask`` at the full-width
+    transformer input (6 agents x 100 x 352 x 256, f32 and bf16) under
+    perturbed poses: the card's sample coordinates are the CPU's bit for
+    bit (f32 products and sums, no division by a host scalar), so the
+    warped maps agree to rounding and the ROI masks exactly."""
+    from airv2x_tpu_torch.data.synthetic import perturb_poses
+    from airv2x_tpu_torch.ops.warp import (
+        rotated_roi_mask, rotated_roi_weights, warp_bev_features)
+
+    rng = np.random.default_rng(0)
+    batch = {"pairwise_t": np.broadcast_to(np.eye(4, dtype=np.float32),
+                                           (1, 6, 4, 4)).copy(),
+             "prior_encoding": np.zeros((1, 6, 3), np.float32)}
+    perturb_poses(batch, rng)
+    pt = torch.from_numpy(batch["pairwise_t"])
+    weights = rotated_roi_weights((100, 352), pt, 0.4, 2)
+    margin = float((weights - 0.5).abs().min())
+    assert margin > 1e-6, margin
+    masks = [rotated_roi_mask((100, 352), p, 0.4, 2).cpu() for p in (pt, pt.to(cuda))]
+    assert torch.equal(masks[0], masks[1])
+    assert not bool(masks[0][:, 1:].all())
+    feats = torch.from_numpy(rng.normal(0, 1, (1, 6, 100, 352, 256)).astype(
+        np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        x = feats.to(dt)
+        want = warp_bev_features(x, pt, 0.4, 2)
+        got = warp_bev_features(x.to(cuda), pt.to(cuda), 0.4, 2).cpu()
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got[:, 0], x[:, 0].float())
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)

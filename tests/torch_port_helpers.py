@@ -8,6 +8,8 @@ values from a seeded numpy generator, so batch-norm statistics and scales
 
 from __future__ import annotations
 
+import copy
+import importlib.util
 import os
 
 import jax
@@ -20,6 +22,32 @@ TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
 FLAGSHIP = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml")
 SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
 CAMERA = os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml")
+V2XVIT = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/v2xvit.yaml")
+V2XVIT_SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/v2xvit.yaml")
+
+
+
+def load_chip_smoke():
+    """chip_smoke.py as a module (its top level imports only numpy and
+    torch): it holds the one copy of the tiny V2X-ViT transformer, which its
+    phase 4d, the card tests and the CPU tests all run."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the tiny V2X-ViT transformer: tests/test_model_zoo.py's airv2x_v2xvit
+# block with three windows and split attention (or, ``windows=2``, the zoo's
+# own two windows and naive mean), at the tiny backbone's feature stride 2
+TINY_V2XVIT_ENCODER = load_chip_smoke().TINY_V2XVIT_ENCODER
+TINY_PWINDOW = {
+    3: {k: TINY_V2XVIT_ENCODER["pwindow_att_config"][k]
+        for k in ("heads", "dim_head", "window_size", "fusion_method")},
+    2: {"heads": [4, 2], "dim_head": [16, 32], "window_size": [2, 4],
+        "fusion_method": "naive"},
+}
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -77,4 +105,21 @@ def tiny_seg(hypes: dict) -> dict:
     BEV-segmentation task: ``task: seg`` at the top and in the model args."""
     hypes["task"] = "seg"
     hypes["model"]["args"]["task"] = "seg"
+    return hypes
+
+
+def tiny_v2xvit_encoder(windows: int = 3) -> dict:
+    """The tiny ``transformer.encoder`` block (dim 64, heads 4, dim_head
+    16, depth 1) with ``windows`` windows (TINY_PWINDOW)."""
+    enc = copy.deepcopy(TINY_V2XVIT_ENCODER)
+    enc["pwindow_att_config"].update(copy.deepcopy(TINY_PWINDOW[windows]))
+    return enc
+
+
+def tiny_v2xvit(hypes: dict, windows: int = 3) -> dict:
+    """The tiny config (TINY, loaded by either package) as the V2X-ViT
+    model, patched as tests/test_model_zoo.py patches it."""
+    hypes["model"]["core_method"] = "airv2x_v2xvit"
+    hypes["model"]["args"]["transformer"] = {
+        "encoder": tiny_v2xvit_encoder(windows)}
     return hypes
