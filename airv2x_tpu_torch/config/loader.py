@@ -1,8 +1,9 @@
 """YAML experiment-config loader (trimmed copy of airv2x_tpu/config/loader.py).
 
-Keeps ``load_yaml``, ``save_yaml`` and the ``load_airv2x_params`` deriver
-that the AirV2X LiDAR configs name; the other parsers of the JAX package
-wait for the workloads that use them.
+Keeps ``load_yaml``, ``save_yaml``, the ``load_airv2x_params`` deriver
+that the AirV2X configs name and ``load_point_pillar_params``, the OPV2V
+point-pillar family's (SCOPE); the other parsers of the JAX package wait
+for the workloads that use them.
 """
 
 from __future__ import annotations
@@ -45,8 +46,6 @@ def _grid_size(lidar_range, voxel_size) -> np.ndarray:
 def load_airv2x_params(param: dict) -> dict:
     """Fill per-agent-type ``point_pillar_scatter.grid_size``, the
     postprocess ``anchor_args`` W/H/D + voxel sizes, and ``max_cav_num``."""
-    cav_lidar_range = param["preprocess"]["cav_lidar_range"]
-    voxel_size = param["preprocess"]["args"]["voxel_size"]
     max_cav = param["train_params"]["max_cav"]
     max_cav_num = sum(max_cav.get(k, 0) for k in ("vehicle", "rsu", "drone"))
     param["train_params"]["max_cav_num"] = max_cav_num
@@ -59,17 +58,35 @@ def load_airv2x_params(param: dict) -> dict:
         gs = _grid_size(cfg["lidar"]["lidar_range"], cfg["lidar"]["voxel_size"])
         cfg["lidar"]["point_pillar_scatter"]["grid_size"] = gs
 
+    _fill_anchor_args(param)
+    return param
+
+
+def load_point_pillar_params(param: dict) -> dict:
+    """Fill the model's ``point_pillar_scatter.grid_size`` (when the block
+    is present) and the postprocess ``anchor_args`` W/H/D + voxel sizes."""
+    cav_lidar_range = param["preprocess"]["cav_lidar_range"]
+    voxel_size = param["preprocess"]["args"]["voxel_size"]
+    if "point_pillar_scatter" in param["model"]["args"]:
+        param["model"]["args"]["point_pillar_scatter"]["grid_size"] = (
+            _grid_size(cav_lidar_range, voxel_size))
+    _fill_anchor_args(param)
+    return param
+
+
+def _fill_anchor_args(param: dict) -> None:
+    cav_lidar_range = param["preprocess"]["cav_lidar_range"]
     anchor_args = param["postprocess"]["anchor_args"]
-    vw, vh, vd = voxel_size
+    vw, vh, vd = param["preprocess"]["args"]["voxel_size"]
     anchor_args["vw"], anchor_args["vh"], anchor_args["vd"] = vw, vh, vd
     anchor_args["W"] = math.ceil((cav_lidar_range[3] - cav_lidar_range[0]) / vw)
     anchor_args["H"] = math.ceil((cav_lidar_range[4] - cav_lidar_range[1]) / vh)
     anchor_args["D"] = math.ceil((cav_lidar_range[5] - cav_lidar_range[2]) / vd)
-    return param
 
 
 PARSER_REGISTRY: dict[str, Callable[[dict], dict]] = {
     "load_airv2x_params": load_airv2x_params,
+    "load_point_pillar_params": load_point_pillar_params,
 }
 
 

@@ -40,6 +40,8 @@ class SlotLayout:
     @classmethod
     def from_args(cls, args: dict) -> "SlotLayout":
         max_cav = args["max_cav"]
+        if not isinstance(max_cav, dict):  # OPV2V's scalar: all vehicles
+            return cls(counts=(int(max_cav), 0, 0))
         collab = args.get("collaborators", list(AGENT_TYPES))
         counts = tuple(
             int(max_cav.get(t, 0)) if t in collab else 0 for t in AGENT_TYPES

@@ -1,17 +1,20 @@
-"""Model registry (counterpart of airv2x_tpu/models/registry.py): the
-Where2comm and V2X-ViT models, whose ``task`` (det or seg) the config
-names."""
+"""Model registry (counterpart of airv2x_tpu/models/registry.py):
+``airv2x_where2comm`` and ``airv2x_v2xvit``, whose ``task`` (det or seg) the
+config names, and OPV2V's ``point_pillar_scope`` (SCOPE temporal
+detection)."""
 
 from __future__ import annotations
 
 import torch
 
+from airv2x_tpu_torch.models.scope_model import PointPillarScope
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
 from airv2x_tpu_torch.models.where2comm_model import Airv2xWhere2comm
 from airv2x_tpu_torch.utils.device import resolve_device
 
 MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
-                  "airv2x_v2xvit": Airv2xV2XViT}
+                  "airv2x_v2xvit": Airv2xV2XViT,
+                  "point_pillar_scope": PointPillarScope}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 

@@ -1,9 +1,9 @@
 """Bilinear grid sampling and the STTF affine warp into the ego frame
 (counterpart of airv2x_tpu/ops/warp.py: ``grid_sample_bilinear``,
 ``warp_affine``, ``discretized_transform``, ``center_pixel_affine``,
-``warp_bev_features`` and ``rotated_roi_mask``; the normalized-coordinate
-warps wait for the fusions that use them). Layout: channel-last
-(..., H, W, C), as in the JAX package.
+``warp_bev_features``, ``rotated_roi_mask`` and the normalized-coordinate
+pair ``warp_affine_normalized`` / ``normalized_pairwise_affine`` that SCOPE
+uses). Layout: channel-last (..., H, W, C), as in the JAX package.
 
 The affine arithmetic is written out as f32 products and sums (no matmul,
 so no TF32 on the card, and no division by a host scalar, which CUDA turns
@@ -140,3 +140,57 @@ def rotated_roi_mask(shape_hw, pairwise_t, discrete_ratio, downsample_rate):
     after the warp."""
     return rotated_roi_weights(shape_hw, pairwise_t, discrete_ratio,
                                downsample_rate) > 0.5
+
+
+def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """An f32 scalar on ``like``'s device, made by a fill: a division by it
+    is a true division on the card too."""
+    return torch.full((), float(value), dtype=torch.float32, device=like.device)
+
+
+def warp_affine_normalized(src, M):
+    """Warp (..., H, W, C) by the (..., 2, 3) affine ``M`` given in
+    normalized coordinates: it maps each dst pixel's normalized coordinates
+    in [-1, 1], -1 and 1 on the outer pixel edges (``F.affine_grid``'s
+    convention with ``align_corners=False``, SCOPE's), straight to the
+    src's, then samples bilinearly with zero padding."""
+    h, w = src.shape[-3], src.shape[-2]
+    lead = src.shape[:-3]
+    ms = M.reshape(-1, 2, 3).to(torch.float32)
+    srcs = src.reshape((-1,) + src.shape[-3:])
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=src.device),
+        torch.arange(w, dtype=torch.float32, device=src.device),
+        indexing="ij")
+    gx = (2.0 * xs + 1.0) / device_scalar(w, ms) - 1.0
+    gy = (2.0 * ys + 1.0) / device_scalar(h, ms) - 1.0
+
+    def per(a):
+        return a[:, None, None]
+
+    sxn = per(ms[:, 0, 0]) * gx + per(ms[:, 0, 1]) * gy + per(ms[:, 0, 2])
+    syn = per(ms[:, 1, 0]) * gx + per(ms[:, 1, 1]) * gy + per(ms[:, 1, 2])
+    sx = ((sxn + 1.0) * w - 1.0) * 0.5
+    sy = ((syn + 1.0) * h - 1.0) * 0.5
+    out = grid_sample_bilinear(srcs, sx, sy)
+    return out.reshape(lead + (h, w, src.shape[-1]))
+
+
+def normalized_pairwise_affine(pairwise_t, h: int, w: int,
+                               discrete_ratio: float, downsample_rate: float):
+    """(..., 4, 4) SE(3) -> (..., 2, 3) affine in normalized coordinates:
+    the planar rotation block with its off-diagonals scaled by the aspect
+    (h / w and w / h), and the xy translation in metres over half the
+    feature map's extent (``downsample_rate * discrete_ratio`` metres per
+    pixel)."""
+    m = pairwise_t[..., :2, :].to(torch.float32)
+    hf, wf = device_scalar(h, m), device_scalar(w, m)
+    a00 = m[..., 0, 0]
+    a01 = m[..., 0, 1] * h / wf
+    a10 = m[..., 1, 0] * w / hf
+    a11 = m[..., 1, 1]
+    pixel = downsample_rate * discrete_ratio
+    t0 = m[..., 0, 3] / device_scalar(pixel * w, m) * 2.0
+    t1 = m[..., 1, 3] / device_scalar(pixel * h, m) * 2.0
+    return torch.stack([torch.stack([a00, a01, t0], -1),
+                        torch.stack([a10, a11, t1], -1)], -2)

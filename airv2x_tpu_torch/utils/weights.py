@@ -14,7 +14,9 @@ airv2x_tpu/utils/torch_convert.py (torch -> flax):
   * biases are copied as they are
   * a raw parameter that a module owns itself (V2X-ViT's ``relation_att``,
     ``relation_msg``, ``pos_embedding``) is copied as it is: both packages
-    contract it the same way round
+    contract it the same way round; or, where the module's ``FLAX_LAYOUT``
+    names it, with its axes permuted from flax's channels-last layout to
+    the module's (SCOPE's LSTM biases and initial cell state)
 
 Modules are matched to flax scopes by attribute name, renamed where a
 module's ``FLAX_NAMES`` says so (flax's auto-names inside ``@nn.compact``,
@@ -32,7 +34,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from airv2x_tpu_torch.models.heads import DetectionHeads
 from airv2x_tpu_torch.models.nn import MaskedBatchNorm
 
 # modules whose parameters stay f32 under the serving cast, besides those
@@ -110,8 +111,10 @@ def _walk(module, scope: tuple, prefix: str, v: _Variables, out: dict):
         out.update({prefix + k: t for k, t in leaf.items()})
         return
     names = getattr(module, "FLAX_NAMES", {})
+    layout = getattr(module, "FLAX_LAYOUT", {})
     for name, _ in module.named_parameters(recurse=False):
-        out[prefix + name] = v.take("params", scope, names.get(name, name))
+        t = v.take("params", scope, names.get(name, name))
+        out[prefix + name] = t.transpose(layout[name]) if name in layout else t
     for name, child in module.named_children():
         if next(child.parameters(), None) is None and next(child.buffers(), None) is None:
             continue  # stateless (e.g. the fusion's communication)
@@ -148,8 +151,9 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     except the parameters and statistics of every BatchNorm-type module
     (``nn.BatchNorm2d`` and its subclass, ``MaskedBatchNorm``), of every
     LayerNorm and of every module whose class sets ``KEEP_F32`` (its
-    submodules included; V2X-ViT's RTE), and the
-    non-persistent buffers (constants such as the camera frustum), which
+    submodules included; V2X-ViT's RTE), the own parameters that a module's
+    ``F32_PARAMS`` names (SCOPE's LSTM biases and initial cell state), and
+    the non-persistent buffers (constants such as the camera frustum), which
     stay f32: the JAX package keeps f32 parameters under a bf16 compute
     dtype and computes these modules in f32, and the conv kernel's BN fold
     (``ConvBNReLU._fold``) reads them in f32.
@@ -167,7 +171,9 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         if id(mod) in keep:
             continue
         consts = mod._non_persistent_buffers_set
-        for t in list(mod.parameters(recurse=False)) + [
+        own = getattr(mod, "F32_PARAMS", ())
+        for t in [p for name, p in mod.named_parameters(recurse=False)
+                  if name not in own] + [
                 b for name, b in mod.named_buffers(recurse=False)
                 if name not in consts]:
             if t.is_floating_point():
@@ -246,11 +252,11 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             draw(mod.running_var, lambda t: t.uniform_(0.5, 2.0, generator=g))
         else:
             _init_own_leaves_(mod, g)
-    for mod in model.modules():
-        if isinstance(mod, DetectionHeads):
+    for name, mod in model.named_modules():
+        if name.rsplit(".", 1)[-1] == "reg_head":
             # small box deltas: decoded boxes stay near their anchors, as a
             # trained detector's do, so the box filters keep candidates
             with torch.no_grad():
-                mod.reg_head.weight.mul_(1e-3)
-                mod.reg_head.bias.zero_()
+                mod.weight.mul_(1e-3)
+                mod.bias.zero_()
     return model

@@ -48,6 +48,13 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      off, pinned cuDNN, in ``auto`` and ``pallas``, on a scene with
      perturbed poses (up to 5 degrees and 3 m) and delays (0-3), with the
      ROI samples' smallest distance from the 0.5 threshold;
+  4e. the tiny SCOPE config (tests/test_temporal.py's fusion block over the
+     tiny point-pillar config, ``TINY_SCOPE_ARGS``), ResNet and plain
+     backbone, on the card against the same weights on the CPU, f32, TF32
+     off, pinned cuDNN, on two distinct frames with perturbed history and
+     ego-row poses: outputs, comm masks, query cells and keep sets, K1 2 /
+     K2 1 launches, and the margins at the comm threshold, the query cut and
+     the NMS threshold;
   4a. one flagship scene at full width in f32 with TF32 off: the ``pallas``
      conv backend against ``auto`` on the single-agent confidence of all
      agents and on the outputs of the scene with only the ego agent;
@@ -96,7 +103,22 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      outputs, the ROI mask on the card equal to the CPU's, and the f32
      model's fused map and psm / rm / obj on the card against the CPU's
      (TINY_TOL x (1 + scale)); a ``v2xvit`` JSON line;
-  4b. (run after phase 11, like the other training phases) one train step of
+  12. (run after phase 11) the SCOPE temporal det path at full width
+     (``hypes_yaml/opv2v/opv2v_scope.yaml``, nothing cut: 5 vehicles, 2
+     frames, 20,000 points per agent, bf16, seeded random weights), 8
+     scenes built as ``tools/bench_workloads.py`` builds ``temporal_det``
+     (one ``make_scene`` frame repeated, identity history), in ``auto`` and
+     in ``pallas`` mode: the convolutions' and Linears' operations per scene
+     from the configuration's shapes (``scope_ops``) and their time at the
+     dense bf16 peak; ms/scene, stage times (encoder + backbone + shrink of
+     both frames, temporal, collaboration, late fusion + heads, decode),
+     peak memory, launch counts (K1 2, K2 1, K4a 0 per scene), a profile
+     window with the device busy by stage and the idle share, kept
+     detections and NMS passes; then one scene with perturbed poses
+     through the f32 model on the card and on the CPU (psm, rm and the
+     late-fused map within TINY_TOL x (1 + scale), comm masks and query
+     cells equal); a ``scope`` JSON line;
+  4b. (run after phase 12, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
      TF32 off and deterministic cuDNN; max|card - CPU| of the loss parts,
@@ -117,8 +139,8 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
   9. the same training run for the LiDAR seg model (512 x 512 labels), with
      no decode check.
 
-Launch counts are reset just before each timed path run (phases 5, 7, 10
-and 11) and read just after; the ``kernels`` line sums them over those
+Launch counts are reset just before each timed path run (phases 5, 7, 10,
+11 and 12) and read just after; the ``kernels`` line sums them over those
 runs. Its K4 times are per scene: the 32 launches of one scene at their
 stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
@@ -151,6 +173,7 @@ CAMERA = os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml")
 TINY = os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")
 V2XVIT = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/v2xvit.yaml")
 V2XVIT_SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/v2xvit.yaml")
+SCOPE = os.path.join(REPO, "hypes_yaml/opv2v/opv2v_scope.yaml")
 NUM_AGENTS = {"vehicle": 3, "rsu": 2, "drone": 1}
 NCAM = {"vehicle": 6, "rsu": 4, "drone": 1}  # the reference's camera rigs
 POINTS_PER_AGENT = 20000
@@ -195,6 +218,222 @@ TINY_V2XVIT_ENCODER = {
     "feed_forward": {"mlp_dim": 64, "dropout": 0.0},
     "sttf": {"voxel_size": [0.4, 0.4, 4], "downsample_rate": 2},
 }
+
+# SCOPE's tiny config: tests/test_temporal.py's fusion block over
+# tests/test_point_pillar_family.py's tiny point-pillar config (3 slots,
+# 64 x 64 grid, 16 / 32 channels, a 1x1 shrink), with the ResNet or the
+# plain backbone, and the anchors and thresholds decode reads. The one copy:
+# tests/torch_port_helpers.py and tests/test_torch_kernels_gpu.py load it.
+TINY_SCOPE_ARGS = {
+    "max_cav": 3, "anchor_number": 2,
+    "pillar_vfe": {"use_norm": True, "with_distance": False,
+                   "use_absolute_xyz": True, "num_filters": [16]},
+    "base_bev_backbone": {"layer_nums": [1, 1], "layer_strides": [2, 2],
+                          "num_filters": [16, 32], "upsample_strides": [1, 2],
+                          "num_upsample_filter": [16, 16]},
+    "shrink_header": {"use": True, "input_dim": 32, "dim": [32],
+                      "kernal_size": [1], "stride": [1], "padding": [0]},
+    "compression": 0,
+    "fusion_args": {
+        "voxel_size": [0.4, 0.4, 4], "downsample_rate": 1,
+        "communication": {"thre": 0.01,
+                          "gaussian_smooth": {"k_size": 5, "c_sigma": 1.0}},
+        "agg_operator": {"mode": "Deform"}, "multi_scale": True, "frame": 2,
+        "num_queries": 64, "layer_nums": [1, 1], "num_filters": [16, 32],
+        "temporal_fusion": {"channel": 32, "height": 32, "width": 32}},
+}
+TINY_SCOPE_RANGE = [-12.8, -12.8, -3, 12.8, 12.8, 1]
+
+
+def tiny_scope_hypes(resnet: bool = True, mode: str = "Deform") -> dict:
+    """The tiny SCOPE config (TINY_SCOPE_ARGS) as ``load_yaml`` would give
+    it: ``resnet`` picks the backbone, ``mode`` the aggregation."""
+    args = copy.deepcopy(TINY_SCOPE_ARGS)
+    args["base_bev_backbone"]["resnet"] = resnet
+    args["fusion_args"]["agg_operator"]["mode"] = mode
+    return {
+        "model": {"core_method": "point_pillar_scope", "args": args},
+        "preprocess": {"cav_lidar_range": list(TINY_SCOPE_RANGE),
+                       "args": {"voxel_size": [0.4, 0.4, 4],
+                                "max_voxel_train": 512,
+                                "max_points_per_voxel": 8}},
+        "postprocess": {
+            "anchor_args": {"cav_lidar_range": list(TINY_SCOPE_RANGE),
+                            "l": 3.9, "w": 1.6, "h": 1.56, "r": [0, 90],
+                            "feature_stride": 2, "num": 2, "vw": 0.4,
+                            "vh": 0.4, "vd": 4, "W": 64, "H": 64, "D": 1},
+            "target_args": {"score_threshold": 0.2, "obj_threshold": 0.2},
+            "nms_thresh": 0.15, "max_num": 20},
+    }
+
+
+def scope_scene(rng, layout, frames, lidar_range, pose_rng=None, **scene_kw):
+    """One SCOPE scene, numpy, batch 1: points / points_mask / agent_mask /
+    pairwise_t_full stacked on a time axis (the last frame current) and
+    history_t (1, frames, 4, 4). ``scene_kw`` goes to ``make_scene``.
+
+    Without ``pose_rng`` as ``tools/bench_workloads.py`` builds
+    ``temporal_det``: one ``make_scene`` frame repeated, identity history.
+    With it, ``frames`` distinct ``make_scene`` draws from ``rng`` (their
+    poses are the identity) and, from ``pose_rng``, each earlier frame's
+    ``history_t`` and every frame's ego row of ``pairwise_t_full`` (slots
+    1..) a rotation about z of up to PERTURB_MAX_DEG degrees and an xy shift
+    of up to PERTURB_MAX_SHIFT metres, so that both warps move features."""
+    from airv2x_tpu_torch.data.synthetic import (
+        PERTURB_MAX_DEG, PERTURB_MAX_SHIFT, make_scene)
+
+    def pose():
+        yaw = np.deg2rad(pose_rng.uniform(-PERTURB_MAX_DEG, PERTURB_MAX_DEG))
+        m = np.eye(4, dtype=np.float32)
+        m[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        m[:2, 3] = pose_rng.uniform(-PERTURB_MAX_SHIFT, PERTURB_MAX_SHIFT, 2)
+        return m
+
+    draws = [make_scene(rng, layout, lidar_range=lidar_range, **scene_kw)[0]
+             for _ in range(1 if pose_rng is None else frames)]
+    draws = draws * (frames // len(draws))
+    keys = ("points", "points_mask", "agent_mask", "pairwise_t_full")
+    batch = {k: np.stack([d[k] for d in draws])[None] for k in keys}
+    batch["history_t"] = np.broadcast_to(
+        np.eye(4, dtype=np.float32), (1, frames, 4, 4)).copy()
+    if pose_rng is not None:
+        for t in range(frames - 1):
+            batch["history_t"][0, t] = pose()
+        for t in range(frames):
+            for j in range(1, layout.total):
+                batch["pairwise_t_full"][0, t, 0, j] = pose()
+    return batch
+
+
+def scope_margins(model, batch):
+    """One run of a SCOPE ``model`` on ``batch`` with hooks on its comm and
+    deformable fusion -> (margins, {"masks": the comm masks, "queries": each
+    level's query cells}, outputs). Margins: "comm",
+    the smallest distance of a thresholded slot's smoothed confidence (the
+    odd slots present; the even ones send their whole map) from the comm
+    threshold; "topk", the smallest gap between the K-th and (K+1)-th query
+    score of any level over the level's largest |score|. Either could
+    decide the two sides of a comparison apart when it is small."""
+    comm, scores = {}, []
+    hooks = [model.naive_communication.register_forward_hook(
+        lambda mod, args, out: comm.update(args=args, out=out))]
+    hooks += [m.register_forward_hook(
+        lambda mod, args, out: scores.append((mod.num_queries, args[1])))
+        for m in model.fuse_modules]
+    try:
+        with torch.inference_mode():
+            out = model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    agent_mask = comm["args"][1]
+    masks, _, smooth = comm["out"]
+    dist = (smooth.float() - model.naive_communication.thre).abs()[:, 1::2]
+    present = agent_mask[:, 1::2]
+    margins = {"comm": float(dist[present].min()) if present.any() else 1.0,
+               "topk": 1.0}
+    queries = []
+    for nq, psm in scores:
+        s, order = torch.sort(psm.sum(1).flatten(1), dim=1, descending=True,
+                              stable=True)
+        queries.append(order[:, :nq])
+        if nq < s.shape[1]:
+            s = s.float()
+            gap = (s[:, nq - 1] - s[:, nq]) / s.abs().amax(1)
+            margins["topk"] = min(margins["topk"], float(gap.min()))
+    return margins, {"masks": masks, "queries": queries}, out
+
+
+def _conv_ops(maps, hw_out, cin, cout, k):
+    return 2 * maps * hw_out[0] * hw_out[1] * cout * cin * k * k
+
+
+def _down(hw, stride):
+    """Output size of a 3x3 (padding 1) or 1x1 conv of ``stride``."""
+    return tuple((v - 1) // stride + 1 for v in hw)
+
+
+def scope_ops(hypes, n_points: int) -> dict:
+    """Operations (2 per multiply-add) of one SCOPE scene's convolutions and
+    Linears, by part, from the configuration's shapes: ``max_cav`` agents,
+    ``fusion_args.frame`` frames, ``n_points`` point slots per cloud (the
+    PFN's Linear runs on every slot), batch 1. The backbone part counts each frame's
+    pass and the collaboration's rerun of the stages on the current frame.
+    The bilinear sampling, the BatchNorms and the elementwise work are
+    left out."""
+    args = hypes["model"]["args"]
+    fa, pv = args["fusion_args"], args["pillar_vfe"]
+    bb, shrink = args["base_bev_backbone"], args["shrink_header"]
+    pre = hypes["preprocess"]
+    lr, vs = pre["cav_lidar_range"], pre["args"]["voxel_size"]
+    grid = (int(round((lr[4] - lr[1]) / vs[1])), int(round((lr[3] - lr[0]) / vs[0])))
+    l, t = int(args["max_cav"]), int(fa["frame"])
+    c0 = int(pv["num_filters"][0])
+    parts = dict.fromkeys(("pillar PFN", "backbone", "shrink", "temporal LSTM",
+                           "deformable attention", "heads"), 0)
+    # every point slot, and the zero row of the padding floor, per frame
+    parts["pillar PFN"] = 2 * t * (l * n_points + 1) * 10 * c0
+
+    def stage_ops(maps, hw, cin, f, n, s):
+        """(operations, output size) of one backbone stage."""
+        out = _down(hw, s)
+        if bb.get("resnet"):
+            ops = _conv_ops(maps, out, cin, f, 3) + _conv_ops(maps, out, f, f, 3)
+            if s != 1 or cin != f:
+                ops += _conv_ops(maps, out, cin, f, 1)
+            ops += (n - 1) * 2 * _conv_ops(maps, out, f, f, 3)
+        else:
+            ops = _conv_ops(maps, out, cin, f, 3) + n * _conv_ops(maps, out, f, f, 3)
+        return ops, out
+
+    levels, hw, cin = [], grid, int(bb.get("inplanes", c0))
+    for f, n, s, uf, us in zip(bb["num_filters"], bb["layer_nums"],
+                               bb["layer_strides"], bb["num_upsample_filter"],
+                               bb["upsample_strides"]):
+        ops, hw = stage_ops(1, hw, cin, f, n, s)
+        deblock = 2 * hw[0] * hw[1] * f * uf * us * us
+        parts["backbone"] += (t * l + l) * ops + (t * l + 1) * deblock
+        levels.append((f, hw))
+        cin = f
+    hw2 = (levels[0][1][0] * bb["upsample_strides"][0],
+           levels[0][1][1] * bb["upsample_strides"][0])
+    cin = sum(bb["num_upsample_filter"])
+    for d, k, s in zip(shrink["dim"], shrink["kernal_size"], shrink["stride"]):
+        hw2 = _down(hw2, s)
+        parts["shrink"] += (t * l + 1) * (_conv_ops(1, hw2, cin, d, k)
+                                          + _conv_ops(1, hw2, d, d, 3))
+        cin = d
+    a = int(args["anchor_number"]) * int(args.get("num_class", 1))
+    reg = 7 * int(args["anchor_number"])
+    # the slots' cls and reg, the temporal and cross cls, the final cls + reg
+    parts["heads"] = (_conv_ops(l + 1, hw2, cin, a + reg, 1)
+                      + _conv_ops(2, hw2, cin, a, 1))
+
+    tf = fa["temporal_fusion"]
+    c, cs = int(tf["channel"]), 64
+    r = max(1, int((c / cs) ** 0.5))
+    lstm = _conv_ops(1, hw2, 2, 1, 7)
+    if cs != c:
+        lstm += _conv_ops(t, hw2, c, r * cs, 3) + _conv_ops(t, hw2, r * cs, cs, 3)
+        lstm += _conv_ops(1, hw2, cs, r * cs, 3) + _conv_ops(1, hw2, r * cs, c, 3)
+    h1, h2 = _down(hw2, 2), _down(_down(hw2, 2), 2)
+    stpn = (_conv_ops(1, h1, cs, 2 * cs, 3) + _conv_ops(1, h1, 2 * cs, 2 * cs, 3)
+            + _conv_ops(1, h2, 2 * cs, 4 * cs, 3) + _conv_ops(1, h2, 4 * cs, 4 * cs, 3)
+            + _conv_ops(1, h1, 6 * cs, 2 * cs, 3) + _conv_ops(1, h1, 2 * cs, 2 * cs, 3)
+            + _conv_ops(1, hw2, 3 * cs, cs, 3) + _conv_ops(1, hw2, cs, cs, 3))
+    parts["temporal LSTM"] = lstm + 8 * (t - 1) * stpn
+
+    if fa["agg_operator"]["mode"] == "Deform":
+        nq, heads, pts, dh = int(fa.get("num_queries", 500)), 8, 9, 64
+        for f, (h, w) in levels:
+            k = min(nq, h * w)
+            parts["deformable attention"] += 2 * (
+                l * h * w * f * heads * dh  # value_proj
+                + k * f * heads * l * pts * 3  # sampling offsets, weights
+                + k * heads * dh * f + k * 2 * f  # output_proj, pos_embedding
+                + 2 * k * f * 256)  # the feed-forward
+    return parts
+
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
 # tensor-core and non-tensor-core f32 operations/s.
@@ -982,38 +1221,47 @@ def det_step(hypes, model):
     return run, hw
 
 
-def det_decoder(hypes):
+def det_decoder(hypes, device="cuda", top_k=TOP_K):
     """(decode, anchor grid (H, W)): ``decode(out)`` runs
-    ``decode_detections`` (top_k TOP_K, rotated NMS) on sample 0 of a det
-    model's outputs."""
+    ``decode_detections`` (rotated NMS) on sample 0 of a det model's
+    outputs on ``device``. A model without an objectness head (the binary
+    point-pillar family, SCOPE) scores by psm, as the JAX package's
+    inference tools pass ``out.get("obj", out["psm"])``, with one class."""
     from airv2x_tpu_torch.data.postprocess import decode_detections
     from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 
     anchors = torch.from_numpy(
-        generate_anchor_grid(hypes["postprocess"]["anchor_args"])).cuda()
+        generate_anchor_grid(hypes["postprocess"]["anchor_args"])).to(device)
     lidar_range = torch.tensor(hypes["preprocess"]["cav_lidar_range"],
-                               dtype=torch.float32, device="cuda")
-    eye = torch.eye(4, device="cuda")
+                               dtype=torch.float32, device=device)
+    eye = torch.eye(4, device=device)
     tgt = hypes["postprocess"]["target_args"]
 
     def decode(out):
         return decode_detections(
-            out["psm"][0], out["rm"][0], out["obj"][0], anchors, eye,
-            lidar_range, num_class=hypes["num_class"],
+            out["psm"][0], out["rm"][0], out.get("obj", out["psm"])[0],
+            anchors, eye, lidar_range, num_class=int(hypes.get("num_class", 1)),
             obj_threshold=tgt["obj_threshold"],
-            nms_thresh=hypes["postprocess"]["nms_thresh"], top_k=TOP_K)
+            nms_thresh=hypes["postprocess"]["nms_thresh"], top_k=top_k)
 
     return decode, anchors.shape[:2]
 
 
-def check_det(label, results, hw):
+# the det heads' channels: AirV2X's multiclass layout (7 classes x 2
+# anchors, an objectness head) and SCOPE's binary one (no objectness head)
+AIRV2X_HEADS = {"psm": 14, "rm": 14, "obj": 2}
+SCOPE_HEADS = {"psm": 2, "rm": 14}
+
+
+def check_det(label, results, hw, heads=AIRV2X_HEADS):
+    """Each scene's head outputs (1, H, W, ``heads[k]``) finite, comm_rate in
+    [0, 1], the kept boxes finite, and some box kept; prints the kept
+    detections, NMS passes and comm rates per scene."""
     h, w = hw
     kept, passes, rates = [], [], []
     for out, det in results:
-        assert tuple(out["psm"].shape) == (1, h, w, 14), out["psm"].shape
-        assert tuple(out["rm"].shape) == (1, h, w, 14), out["rm"].shape
-        assert tuple(out["obj"].shape) == (1, h, w, 2), out["obj"].shape
-        for k in ("psm", "rm", "obj"):
+        for k, c in heads.items():
+            assert tuple(out[k].shape) == (1, h, w, c), (k, out[k].shape)
             if not bool(torch.isfinite(out[k]).all()):
                 raise AssertionError(f"non-finite {k}")
         rate = float(out["comm_rate"])
@@ -1757,6 +2005,288 @@ def v2xvit_f32_vs_cpu(card, hypes):
     return {"max_abs_err": errs, "scale": scales, "tol": TINY_TOL}
 
 
+def tiny_scope_batch(hypes, frames=2):
+    """The tiny SCOPE scene of phase 4e and the CPU tests (numpy, batch 1):
+    ``frames`` distinct ``make_scene`` frames of two vehicles in three slots,
+    with perturbed history and ego-row poses (``scope_scene``'s
+    ``pose_rng``)."""
+    from airv2x_tpu_torch.models.base import SlotLayout
+
+    return scope_scene(np.random.default_rng(0),
+                       SlotLayout.from_args(hypes["model"]["args"]), frames,
+                       hypes["preprocess"]["cav_lidar_range"],
+                       pose_rng=np.random.default_rng(1), num_objects=6,
+                       points_per_agent=1024, pts_per_box=60,
+                       num_agents={"vehicle": 2})
+
+
+def nms_margin(det, nms_thresh):
+    """The smallest distance of a pairwise IoU of the decoded candidates'
+    corners (plain version, on the CPU) from the NMS threshold."""
+    from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
+
+    live = det.corners[:, :4, :2].float().cpu().contiguous()
+    iou = quad_iou_plain(live, live)
+    i, j = torch.triu_indices(len(iou), len(iou), offset=1)
+    return float((iou[i, j] - nms_thresh).abs().min())
+
+
+# the tiny SCOPE models' random-weight seed (init_random_): the first from 0
+# up whose comm, query and NMS margins on phase 4e's scene (decoded with
+# top_k TINY_SCOPE_TOP_K, as the CPU tests decode) all exceed SCOPE_MARGIN
+# on the CPU with either backbone
+TINY_SCOPE_SEED = 4
+TINY_SCOPE_TOP_K = 256
+SCOPE_MARGIN = 1e-4
+
+
+def phase_tiny_scope():
+    """Phase 4e: the tiny SCOPE config, ResNet then plain backbone, on the
+    card against the same weights on the CPU, f32 with TF32 off and pinned
+    cuDNN, on the perturbed 2-frame scene: the outputs within TINY_TOL x
+    (1 + scale), the comm masks, the query cells and the kept detections
+    equal; K1 2 and K2 1 launches; the margins at the comm threshold, the
+    query cut and the NMS threshold printed and bounded."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    out = {}
+    try:
+        for resnet in (True, False):
+            name = "ResNet" if resnet else "plain"
+            hypes = tiny_scope_hypes(resnet)
+            scene = tiny_scope_batch(hypes)
+            res, keys = {}, ("psm", "rm", "psm_single_v", "rm_single_v",
+                             "psm_single_i", "rm_single_i")
+            for d in ("cpu", "cuda"):
+                model = init_random_(build_model(hypes, device=d),
+                                     seed=TINY_SCOPE_SEED)
+                decode, _ = det_decoder(hypes, d, TINY_SCOPE_TOP_K)
+                kernels.reset_launch_counts()
+                margins, caught, outs = scope_margins(model, batch_to_torch(scene, d))
+                with torch.inference_mode():
+                    det = decode(outs)
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                res[d] = dict(margins=margins, caught=caught, outs=outs, det=det,
+                              launches=dict(kernels.LAUNCHES))
+            n = res["cuda"]["launches"]
+            if (n["pillar_encode"], n["quad_iou"], n["conv3x3"]) != (2, 1, 0):
+                raise AssertionError(f"tiny SCOPE {name}: launches {n}")
+            margins = dict(res["cpu"]["margins"],
+                           nms=nms_margin(res["cpu"]["det"], 0.15))
+            compare(f"phase 4e tiny SCOPE {name} card vs CPU ({n['pillar_encode']} "
+                    f"K1, {n['quad_iou']} K2 launches; margins comm "
+                    f"{margins['comm']:.3e}, query cut {margins['topk']:.3e}, "
+                    f"NMS {margins['nms']:.3e}, limit {SCOPE_MARGIN})",
+                    res["cuda"]["outs"], res["cpu"]["outs"], keys)
+            same = scope_same_decisions(res["cuda"], res["cpu"])
+            kept = [int(res[d]["det"].mask.sum()) for d in ("cuda", "cpu")]
+            print(f"phase 4e tiny SCOPE {name}: card against CPU {same}; kept "
+                  f"{kept}")
+            if (not (same["comm masks equal"] and same["keep sets equal"])
+                    or same["query cells differing"]
+                    or min(margins.values()) <= SCOPE_MARGIN):
+                raise AssertionError(f"tiny SCOPE {name}: {same}, {margins}")
+            out[name] = {"margins": margins, "kept": kept[1]}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    return out
+
+
+def scope_same_decisions(card, cpu):
+    """The card's decisions against the CPU's (each a dict with the
+    ``caught`` of ``scope_margins`` and, optionally, ``det``): whether the
+    comm masks are equal, how many query cells the card picks that the CPU
+    does not (over every level; the order within a level does not matter:
+    each query writes its own cell), and whether the keep sets are equal."""
+    a, b = card["caught"], cpu["caught"]
+    same = {"comm masks equal": bool(torch.equal(a["masks"].cpu(), b["masks"])),
+            "query cells differing": sum(
+                int((~torch.isin(x.cpu(), y)).sum())
+                for x, y in zip(a["queries"], b["queries"]))}
+    if "det" in card:
+        same["keep sets equal"] = bool(torch.equal(card["det"].mask.cpu(),
+                                                   cpu["det"].mask))
+    return same
+
+
+# init_random_'s weights (He-normal convolutions, random BN statistics) grow
+# SCOPE's activations through the ResNet blocks and the unnormalised shrink
+# (mean ~310, at most ~5,800 on a phase-12 scene): the cls logits reach
+# +-3,800 and saturate the sigmoid at 1.0 over half of the anchors, where
+# the query cut and NMS would rank ties by index and decode keeps nothing
+# inside the range. Phase 12 scales the cls head's weights by this factor
+# (logits within +-40, 1.6% saturated; NVIDIA H100, f32).
+SCOPE_CLS_SCALE = 0.01
+
+
+def scope_model(hypes, device, dtype=torch.float32):
+    """The full-width SCOPE model with phase 12's seeded random weights
+    (``init_random_`` seed 0, the cls head scaled by SCOPE_CLS_SCALE), cast
+    to ``dtype`` for serving."""
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    model = init_random_(build_model(hypes, device=device), seed=0)
+    with torch.no_grad():
+        model.cls_head.weight.mul_(SCOPE_CLS_SCALE)
+    return model if dtype == torch.float32 else cast_weights_(model, dtype)
+
+
+def scope_setup(card):
+    """The SCOPE det model at full width (``hypes_yaml/opv2v/opv2v_scope.yaml``,
+    nothing cut: 5 vehicles, 2 frames, bf16 serving cast, seeded random
+    weights) and N_SCENES scenes on the card, built as
+    ``tools/bench_workloads.py`` builds ``temporal_det``."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+
+    hypes = load_yaml(SCOPE)
+    model = scope_model(hypes, "cuda", torch.bfloat16)
+    frames = int(hypes["model"]["args"]["fusion_args"]["frame"])
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    scenes = [batch_to_torch(scope_scene(
+        rng, model.layout, frames, hypes["preprocess"]["cav_lidar_range"],
+        num_objects=12, num_agents={"vehicle": model.layout.total},
+        points_per_agent=POINTS_PER_AGENT, pts_per_box=100), "cuda")
+        for _ in range(N_SCENES)]
+    print(f"phase 12 SCOPE [{card}]: {N_SCENES} scenes of {frames} frames x "
+          f"{model.layout.total} vehicles made in {time.perf_counter() - t0:.2f} s")
+    return hypes, model, scenes
+
+
+def scope_step(hypes, model):
+    """One SCOPE scene: the model's four stages (each marked by the model)
+    and decode + rotated NMS."""
+    decode, _ = det_decoder(hypes)
+
+    def run(batch, mark):
+        with torch.inference_mode():
+            out = model(batch, mark)
+            det = decode(out)
+            mark(DET_STAGES[3])
+        return out, det
+
+    return run
+
+
+def phase_scope(card):
+    """Phase 12: the SCOPE det path at full width in ``auto`` and, to show
+    that no K4 runs on it, ``pallas`` mode: the convolutions' and Linears'
+    operations per scene from the configuration's shapes and their time at
+    the dense bf16 peak; timed runs (K1 2, K2 1, K4a 0 launches per scene,
+    asserted), stage times, peak memory, a profile window with each
+    stage's device busy and the idle share, kept detections and NMS passes;
+    then one perturbed scene through the f32 model on the card and on the
+    CPU."""
+    hypes, model, scenes = scope_setup(card)
+    run = scope_step(hypes, model)
+    ops = scope_ops(hypes, POINTS_PER_AGENT)
+    floor_ms = sum(ops.values()) / BF16_OPS_PER_S * 1e3
+    print(f"phase 12 SCOPE [{card}] operations per scene (convolutions and "
+          f"Linears, from the configuration's shapes): "
+          f"{sum(ops.values()) / 1e12:.4f} T ("
+          + json.dumps({k: round(v / 1e12, 4) for k, v in ops.items()})
+          + f"); at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s of dense bf16 "
+          f"{floor_ms:.4f} ms")
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = True, False
+    want = {"pillar_encode": 2, "quad_iou": 1}
+    res = {}
+    for mode in ("auto", "pallas"):  # K4a 0 in both: SCOPE has no ConvBNReLU
+        with conv_mode(mode):
+            res[mode] = time_path(f"phase 12 SCOPE {mode} [{card}]", run,
+                                  scenes, want)
+        res[mode]["launches_per_scene"] = dict(want, conv3x3=0)
+    _, hw = det_decoder(hypes)
+    for mode in ("auto", "pallas"):
+        label = f"phase 12 SCOPE {mode} [{card}]"
+        with conv_mode(mode):
+            prof = phase_profile(label, run, scenes, top=12)
+        res[mode]["profile"] = prof
+        if prof:
+            print(f"{label} device busy {prof['busy_ms']:.3f} ms/scene, "
+                  f"{prof['busy_ms'] / floor_ms:.1f}x the {floor_ms:.3f} ms "
+                  "the operations take at the bf16 peak")
+        results = res[mode].pop("results")
+        res[mode]["kept"] = check_det(label, results, hw, SCOPE_HEADS)
+        res[mode]["nms_passes"] = [det.nms_passes for _, det in results]
+    del model, run, scenes
+    torch.cuda.empty_cache()
+    out = {"card": card, "tflop": {k: v / 1e12 for k, v in ops.items()},
+           "ops_ms_at_peak": floor_ms, **res}
+    out["perturbed_f32_card_vs_cpu"] = scope_f32_vs_cpu(card, hypes)
+    return out
+
+
+def scope_f32_vs_cpu(card, hypes):
+    """One full-width scene with perturbed history and ego-row poses through
+    the f32 model (``scope_model``, TF32 off, pinned cuDNN) on the card and
+    on the CPU: psm, rm and the late-fused map within TINY_TOL x (1 +
+    scale); the comm masks and query cells equal, with the margins at the
+    comm threshold and the query cut."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+
+    models = {d: scope_model(hypes, d) for d in ("cpu", "cuda")}
+    layout = models["cpu"].layout
+    scene = scope_scene(np.random.default_rng(8), layout,
+                        int(hypes["model"]["args"]["fusion_args"]["frame"]),
+                        hypes["preprocess"]["cav_lidar_range"],
+                        pose_rng=np.random.default_rng(9), num_objects=12,
+                        num_agents={"vehicle": layout.total},
+                        points_per_agent=POINTS_PER_AGENT, pts_per_box=100)
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    res, secs = {}, {}
+    try:
+        for d, model in models.items():
+            fused = []
+            hook = model.late_fusion.register_forward_hook(
+                lambda mod, args, o: fused.append(o))
+            t0 = time.perf_counter()
+            try:
+                margins, caught, outs = scope_margins(model, batch_to_torch(scene, d))
+            finally:
+                hook.remove()
+            if d == "cuda":
+                torch.cuda.synchronize()
+            secs[d] = time.perf_counter() - t0
+            res[d] = dict(margins=margins, caught=caught,
+                          outs=dict(outs, late_fused=fused[0]))
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    keys = ("psm", "rm", "late_fused")
+    margins = res["cpu"]["margins"]
+    same = scope_same_decisions(res["cuda"], res["cpu"])
+    errs = {k: float((res["cuda"]["outs"][k].cpu().double()
+                      - res["cpu"]["outs"][k].double()).abs().max()) for k in keys}
+    scales = {k: float(res["cpu"]["outs"][k].abs().max()) for k in keys}
+    print(f"phase 12 SCOPE perturbed scene, f32 [{card}]: card against CPU "
+          f"{same}; margins comm {margins['comm']:.3e}, query cut "
+          f"{margins['topk']:.3e} (CPU {secs['cpu']:.1f} s, card "
+          f"{secs['cuda']:.2f} s)")
+    compare(f"phase 12 SCOPE perturbed scene, f32, card vs CPU [{card}]",
+            res["cuda"]["outs"], res["cpu"]["outs"], keys)
+    if not same["comm masks equal"]:
+        raise AssertionError(f"phase 12 perturbed scene: {same}")
+    del models, res
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "scale": scales, "tol": TINY_TOL,
+            "margins": margins, "same": same, "cpu_s": secs["cpu"]}
+
+
 class RangeMarks:
     """The ``mark`` of a profiled run: each stage runs inside a profiler
     range named ``stage <i>`` (its index in the scene), and ``names`` maps
@@ -2166,6 +2696,7 @@ def main() -> int:
     phase_tiny()
     phase_tiny_camera()
     phase_tiny_v2xvit()
+    tiny_scope = phase_tiny_scope()
     n_f32 = phase_f32_pallas(model, scenes[0])
     if n_f32 != convs:
         raise AssertionError(f"f32 pallas scene ran {n_f32} conv3x3 launches")
@@ -2194,6 +2725,11 @@ def main() -> int:
         k: ({mode: {kk: vv for kk, vv in r.items() if kk != "launches"}
              for mode, r in v.items()} if k in ("det", "seg") else v)
         for k, v in v2x.items()}}))
+    scope = phase_scope(card)
+    print(json.dumps({"scope": dict(
+        {k: ({kk: vv for kk, vv in v.items() if kk != "launches"}
+             if k in ("auto", "pallas") else v) for k, v in scope.items()},
+        tiny_card_vs_cpu=tiny_scope)}))
     # the training phases run after every serving phase, so that nothing
     # they leave on the card shows in the serving paths' peak memory
     tiny_train = phase_tiny_train(card)
@@ -2204,14 +2740,15 @@ def main() -> int:
         "det": {k: v for k, v in train_det.items() if k != "losses"},
         "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
     runs = {"det": det, "seg": seg, "camera": cam, "v2xvit det": v2x["det"],
-            "v2xvit seg": v2x["seg"]}
+            "v2xvit seg": v2x["seg"],
+            "scope": {mode: scope[mode] for mode in ("auto", "pallas")}}
     for path, res in runs.items():
         for mode, r in res.items():
             print(f"launches in the timed {path} {mode} runs: {r['launches']}")
     launches = {k: sum(r["launches"][k] for res in runs.values()
                        for r in res.values())
                 for k in det["auto"]["launches"]}
-    print("launches over the timed main-path runs (phases 5, 7, 10 and 11): "
+    print("launches over the timed main-path runs (phases 5, 7, 10, 11 and 12): "
           f"{launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [

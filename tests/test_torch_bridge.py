@@ -27,10 +27,11 @@ from airv2x_tpu_torch.models.nn import MaskedBatchNorm
 from airv2x_tpu_torch.utils.weights import (
     cast_weights_, init_flax_like_, init_random_, load_flax_variables)
 from tests.torch_port_helpers import (
-    CAMERA, FLAGSHIP, REPO, SEG, TINY, V2XVIT, V2XVIT_SEG, random_variables)
+    CAMERA, CHIP_SMOKE, FLAGSHIP, REPO, SCOPE, SEG, TINY, V2XVIT, V2XVIT_SEG,
+    random_variables)
 
-CONFIGS = [TINY, FLAGSHIP, SEG, CAMERA, V2XVIT, V2XVIT_SEG]
-IDS = ["tiny", "flagship", "seg", "camera", "v2xvit", "v2xvit_seg"]
+CONFIGS = [TINY, FLAGSHIP, SEG, CAMERA, V2XVIT, V2XVIT_SEG, SCOPE]
+IDS = ["tiny", "flagship", "seg", "camera", "v2xvit", "v2xvit_seg", "scope"]
 
 
 def _assert_same_tree(a, b, path="hypes"):
@@ -266,6 +267,98 @@ def test_initialisers_cover_the_v2xvit_leaves(init):
     for (k, a), b in zip(model.state_dict().items(),
                          again.state_dict().values()):
         assert torch.equal(a, b), k
+
+
+def test_bridge_fills_the_scope_model():
+    """The full-width SCOPE model (5 vehicles, 2 frames, the LSTM at 256
+    channels on 100 x 352): every flax leaf (the ResNet blocks, the three
+    deform_fuse_<i> transformers, the eight STPN pyramids of the cell, the
+    raw biases and initial cell state) fills one tensor, strict, the raw
+    ones permuted from channels-last. The flax variables' shapes come from
+    an abstract init, no forward runs."""
+    import jax
+
+    hypes = jax_load_yaml(SCOPE)
+    layout = SlotLayout.from_args(hypes["model"]["args"])
+    assert layout.counts == (5, 0, 0)
+    batch = CHIP_SMOKE.scope_scene(
+        np.random.default_rng(0), layout, 2, hypes["preprocess"]["cav_lidar_range"],
+        points_per_agent=64, pts_per_box=8, num_agents={"vehicle": 5})
+    shapes = jax.tree.map(lambda v: jax.ShapeDtypeStruct(v.shape, v.dtype), batch)
+    variables = random_variables(jax_build_model(hypes), shapes, seed=5,
+                                 train=False)
+    model = build_model(load_yaml(SCOPE), device="cpu")
+    load_flax_variables(model, variables)  # raises on any leftover
+    n_leaves = sum(len(v) for col in variables.values() for v in _leaves(col))
+    n_tensors = sum(t.numel() for k, t in model.state_dict().items()
+                    if not k.endswith("num_batches_tracked"))
+    assert n_leaves == n_tensors
+    params = variables["params"]
+    assert sorted(k for k in params if k.startswith("deform_fuse")) == [
+        "deform_fuse_0", "deform_fuse_1", "deform_fuse_2"]
+    att = params["deform_fuse_2"]["transformer"]["layer0_cross_attn"]
+    np.testing.assert_array_equal(
+        model.fuse_modules[2].transformer.layer0_cross_attn.value_proj.weight.numpy(),
+        att["value_proj"]["kernel"].T)
+    lstm = params["temporal_fusion"]["sync_lstm"]
+    cell = model.temporal_fusion.sync_lstm.lstmcell
+    assert lstm["lstmcell"]["b_f"].shape == (1, 100, 352, 64)
+    assert cell.b_f.shape == (1, 64, 100, 352)
+    np.testing.assert_array_equal(cell.b_f.detach().numpy(),
+                                  lstm["lstmcell"]["b_f"].transpose(0, 3, 1, 2))
+    np.testing.assert_array_equal(
+        model.temporal_fusion.sync_lstm.init_c.detach().numpy(),
+        lstm["init_c"].transpose(2, 0, 1))
+    np.testing.assert_array_equal(
+        cell.v_o.conv7_1.weight.detach().numpy(),
+        lstm["lstmcell"]["v_o"]["conv7_1"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        model.backbone.stages[2].blocks[0].down_conv.weight.detach().numpy(),
+        params["backbone"]["stages_2"]["BasicBlock_0"]["Conv_2"]["kernel"]
+        .transpose(3, 2, 0, 1))
+
+
+def _scope_full_width():
+    return build_model(load_yaml(SCOPE), device="cpu")
+
+
+def test_cast_weights_keeps_the_scope_f32_parts():
+    """Under the bf16 serving cast the LSTM's raw biases and initial cell
+    state stay f32 (the JAX package adds them in f32), as do the
+    BatchNorms (eps 1e-5 in the LSTM, 1e-3 in the backbone) and the
+    deformable attention's LayerNorms; the convolutions and Linears go
+    bf16."""
+    model = cast_weights_(_scope_full_width(), torch.bfloat16)
+    sync = model.temporal_fusion.sync_lstm
+    for t in (sync.init_c, sync.lstmcell.b_i, sync.lstmcell.b_o,
+              sync.bn_pre_1.weight, sync.lstmcell.u_c.bn8_2.running_var,
+              model.backbone.stages[0].blocks[0].bn0.weight,
+              model.fuse_modules[0].transformer.layer0_ca_norm.weight):
+        assert t.dtype == torch.float32
+    for t in (sync.conv_pre_1.weight, sync.lstmcell.v_f.conv2_2.weight,
+              model.fuse_modules[1].transformer.layer0_cross_attn.output_proj.weight,
+              model.backbone.stages[1].blocks[2].conv1.weight,
+              model.cls_head.weight):
+        assert t.dtype == torch.bfloat16
+    assert sync.bn_pre_1.eps == 1e-5 and sync.lstmcell.u_i.bn1_1.eps == 1e-5
+    assert model.backbone.stages[0].blocks[0].bn0.eps == 1e-3
+
+
+@pytest.mark.parametrize("init", [init_flax_like_, init_random_],
+                         ids=["flax_like", "random"])
+def test_initialisers_cover_the_scope_leaves(init):
+    """Both initialisers reach the LSTM's raw parameters as flax initialises
+    them: the biases zero, the initial cell state U[0, 1); repeatable from
+    their seed."""
+    model = init(_scope_full_width(), seed=4)
+    sync = model.temporal_fusion.sync_lstm
+    for g in "ifco":
+        assert (getattr(sync.lstmcell, f"b_{g}") == 0).all()
+    c = sync.init_c
+    assert 0 <= float(c.min()) and float(c.max()) < 1
+    assert abs(float(c.mean()) - 0.5) < 0.01
+    again = init(_scope_full_width(), seed=4)
+    assert torch.equal(again.temporal_fusion.sync_lstm.init_c, c)
 
 
 def _leaves(tree):

@@ -802,3 +802,42 @@ def test_sttf_warp_full_width_on_card_matches_cpu(cuda):
         assert got.dtype == want.dtype == torch.float32
         assert torch.equal(got[:, 0], x[:, 0].float())
         torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("resnet", [True, False], ids=["resnet", "plain"])
+def test_tiny_scope_model_on_card_matches_cpu(cuda, resnet):
+    """The tiny SCOPE model (``chip_smoke.TINY_SCOPE_ARGS``) with seeded
+    random weights on two distinct frames with perturbed history and
+    ego-row poses, f32, TF32 off, deterministic cuDNN: the card's outputs
+    within 1e-4 x (1 + scale) of the CPU's, its comm masks and query cells
+    equal; K1 once per frame, no K4."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    smoke = _chip_smoke()
+    hypes = smoke.tiny_scope_hypes(resnet)
+    scene = smoke.tiny_scope_batch(hypes)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for d in ("cpu", "cuda"):
+            model = init_random_(build_model(hypes, device=d),
+                                 seed=smoke.TINY_SCOPE_SEED)
+            kernels.reset_launch_counts()
+            runs[d] = smoke.scope_margins(model, batch_to_torch(scene, d))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert kernels.LAUNCHES["pillar_encode"] == 2
+    assert kernels.LAUNCHES["conv3x3"] == 0
+    margins, caught, want = runs["cpu"]
+    assert min(margins.values()) > smoke.SCOPE_MARGIN, margins
+    _, got_caught, got = runs["cuda"]
+    same = smoke.scope_same_decisions({"caught": got_caught}, {"caught": caught})
+    assert same == {"comm masks equal": True, "query cells differing": 0}
+    for k in ("psm", "rm", "psm_single_v", "rm_single_i"):
+        w, g = want[k].double(), got[k].cpu().double()
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert scale > 0 and err <= 1e-4 * (1 + scale), (k, err, scale)

@@ -24,13 +24,15 @@ SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/where2comm.yaml")
 CAMERA = os.path.join(REPO, "hypes_yaml/airv2x/camera/det/where2comm.yaml")
 V2XVIT = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/v2xvit.yaml")
 V2XVIT_SEG = os.path.join(REPO, "hypes_yaml/airv2x/lidar/seg/v2xvit.yaml")
+SCOPE = os.path.join(REPO, "hypes_yaml/opv2v/opv2v_scope.yaml")
 
 
 
 def load_chip_smoke():
     """chip_smoke.py as a module (its top level imports only numpy and
-    torch): it holds the one copy of the tiny V2X-ViT transformer, which its
-    phase 4d, the card tests and the CPU tests all run."""
+    torch): it holds the one copy of the tiny V2X-ViT transformer and of the
+    tiny SCOPE config and its scene builder, which its phases 4d / 4e, the
+    card tests and the CPU tests all run."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -41,7 +43,8 @@ def load_chip_smoke():
 # the tiny V2X-ViT transformer: tests/test_model_zoo.py's airv2x_v2xvit
 # block with three windows and split attention (or, ``windows=2``, the zoo's
 # own two windows and naive mean), at the tiny backbone's feature stride 2
-TINY_V2XVIT_ENCODER = load_chip_smoke().TINY_V2XVIT_ENCODER
+CHIP_SMOKE = load_chip_smoke()
+TINY_V2XVIT_ENCODER = CHIP_SMOKE.TINY_V2XVIT_ENCODER
 TINY_PWINDOW = {
     3: {k: TINY_V2XVIT_ENCODER["pwindow_att_config"][k]
         for k in ("heads", "dim_head", "window_size", "fusion_method")},
