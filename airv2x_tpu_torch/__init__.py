@@ -12,8 +12,13 @@ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use
 (``kernels.py``). Each kernel's wrapper launches it for a CUDA tensor and
 runs its plain PyTorch version (same module) for a CPU tensor.
 
-The package imports ``torch``, ``numpy`` and ``yaml`` only: nothing of JAX and
-nothing of ``airv2x_tpu``. Module docstrings name their JAX counterparts.
+It reads the AirV2X dataset from disk (``data/``), trains on it, and scores a
+model with the evaluation CLIs (``tools/inference*.py``: AP, multiclass mAP,
+BEV mIoU; ``tools/chip_ap_gate.py`` holds the card's AP table to the CPU's).
+
+The package imports ``torch``, ``numpy`` and ``yaml`` (and ``PIL`` inside the
+seg-label reader) only: nothing of JAX and nothing of ``airv2x_tpu``. Module
+docstrings name their JAX counterparts.
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,7 @@ for the workloads that use them.
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Callable
 
@@ -90,8 +91,14 @@ PARSER_REGISTRY: dict[str, Callable[[dict], dict]] = {
 }
 
 
-def load_yaml(file_path: str) -> dict:
-    """Load an experiment config and apply its ``yaml_parser``."""
+def load_yaml(file_path: str | None, model_dir: str | None = None) -> dict:
+    """Load an experiment config and apply its ``yaml_parser``; when
+    ``model_dir`` holds a ``config.yaml`` snapshot (a run dir), that
+    snapshot is read in place of ``file_path``."""
+    if model_dir is not None:
+        snapshot = os.path.join(model_dir, "config.yaml")
+        if os.path.isfile(snapshot):
+            file_path = snapshot
     with open(file_path, "r") as f:
         params = yaml.load(f, Loader=_Loader)
 

@@ -324,7 +324,10 @@ __global__ void __launch_bounds__(kThreads)
       }
       const float pa = __fmul_rn(suma, sgn_a);
       const float pb = __fmul_rn(sumb, sgn_b);
-      const float inter = 0.5f * fabsf(__fadd_rn(pa, pb));
+      // a quad of area within tol2 of zero has no reliable half-planes:
+      // its intersection is 0 (ops/quad_iou.py:quad_iou_plain)
+      const float inter = (aa <= tol2 || ab <= tol2)
+                              ? 0.0f : 0.5f * fabsf(__fadd_rn(pa, pb));
       const float uni = aa + ab - inter;
       out[static_cast<long long>(row0 + p / kTile) * M + col0 + p % kTile] =
           inter / max_nan(uni, kEps);

@@ -14,6 +14,11 @@ intersection area: each directed edge of one quad is clipped to the other
 quad's four half-planes and contributes 1/2 * cross(p, q) * dt; pieces
 collinear with a boundary get weight 1/2, so identical quads give exactly 1
 and edge-sharing quads exactly 0. Pairs are centred at A's first corner.
+A quad whose area is within the tolerance tol2 of zero (a box of zero
+width, as random weights decode) has no reliable half-planes: the clip
+would weigh every edge of the other quad as collinear and report an IoU
+near 1 with any quad, so its intersection is taken as 0, which moves the
+IoU by at most tol2 / union.
 """
 
 from __future__ import annotations
@@ -139,6 +144,7 @@ def quad_iou_plain(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
         _pieces(xa, ya, xb, yb, sgn_b, tol2) * sgn_a
         + _pieces(xb, yb, xa, ya, sgn_a, tol2) * sgn_b
     ).abs()
+    inter = torch.where((aa <= tol2) | (ab <= tol2), 0.0, inter)
     union = aa + ab - inter
     return inter / union.clamp_min(_EPS)
 

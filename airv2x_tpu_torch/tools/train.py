@@ -2,18 +2,20 @@
 
     python -m airv2x_tpu_torch.tools.train --hypes_yaml <cfg>
         [--model_dir <run dir to resume>] [--epochs N] [--steps_per_epoch N]
-        [--batch_size N] [--grad_accum N] [--seed N] [--device cuda|cpu]
+        [--batch_size N] [--grad_accum N] [--seed N] [--num_workers N]
+        [--synthetic] [--device cuda|cpu]
 
-Trains the configured model on synthetic anchor-labelled LiDAR scenes
-(``data/synthetic.py:make_batch``), one optimizer update per batch, with the
-reference's run-dir layout: ``<log_dir>/<name>__<stamp>/config.yaml``, a
-checkpoint ``net_epoch{N}`` per saved epoch, ``train_loss.txt`` and
-``validation_loss.txt``. ``--model_dir`` resumes from the last checkpoint of
-that run dir, with its ``config.yaml``.
-
-The real dataset loaders are not ported: when the config's ``root_dir``
-exists on disk the CLI raises instead of training on synthetic scenes there.
-Radar and camera configs raise too (the synthetic batches are LiDAR only).
+When the config's ``root_dir`` exists on disk it trains on that AirV2X
+split (``data/airv2x_dataset.py`` through ``data/loader.py``: prefetch
+workers, the config's wild settings, anchor labels on the device) and
+computes the validation loss on ``validate_dir`` (the train split, in
+order, when that is absent); otherwise, or with ``--synthetic``, on
+synthetic anchor-labelled LiDAR scenes (``data/synthetic.py:make_batch``).
+One optimizer update per batch, with the reference's run-dir layout:
+``<log_dir>/<name>__<stamp>/config.yaml``, a checkpoint ``net_epoch{N}``
+per saved epoch, ``train_loss.txt`` and ``validation_loss.txt``.
+``--model_dir`` resumes from the last checkpoint of that run dir, with its
+``config.yaml``. Radar and camera configs raise.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from itertools import islice
 
 import numpy as np
 
 from airv2x_tpu_torch.config import load_yaml
+from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset, WildSettings
+from airv2x_tpu_torch.data.loader import RealDataLoader
 from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_batch
 from airv2x_tpu_torch.loss import build_loss
 from airv2x_tpu_torch.models import build_model
@@ -52,6 +57,10 @@ def parse_args(argv=None):
         "--grad_accum", type=int, default=0,
         help="microbatches per optimizer step; 0 = auto: microbatches of 2 "
         "whenever the batch is an even number > 2 (resolve_grad_accum)")
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="prefetch workers of the real-data loader")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic scenes even where root_dir exists")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -62,6 +71,37 @@ def resolve_grad_accum(flag: int, batch_size: int) -> int:
     if flag:
         return flag
     return batch_size // 2 if batch_size > 2 and batch_size % 2 == 0 else 1
+
+
+def build_real_loaders(hypes, opt, batch_size, device):
+    """(train loader, validation loader or None) over the config's
+    ``root_dir`` and ``validate_dir``, or None when ``root_dir`` is absent,
+    empty or ``--synthetic`` is set."""
+    root = hypes.get("root_dir") or ""
+    if opt.synthetic or not os.path.isdir(root):
+        return None
+    wild_cfg = hypes.get("wild_setting", {}) or {}
+    wild = WildSettings(
+        async_mode=bool(wild_cfg.get("async", False)),
+        async_overhead_ms=float(wild_cfg.get("async_overhead", 100)),
+        loc_error=bool(wild_cfg.get("loc_err", False)),
+        xyz_std=float(wild_cfg.get("xyz_std", 0.2)),
+        ryp_std=float(wild_cfg.get("ryp_std", 0.2)),
+    )
+    train_ds = AirV2XDataset(hypes, root, train=True, wild=wild, seed=opt.seed)
+    if len(train_ds) == 0:
+        return None
+    kw = dict(seed=opt.seed, num_workers=opt.num_workers, device=device)
+    train_loader = RealDataLoader(train_ds, hypes, batch_size, train=True, **kw)
+    val_loader = None
+    vdir = hypes.get("validate_dir") or ""
+    if os.path.isdir(vdir):
+        val_ds = AirV2XDataset(hypes, vdir, train=False, seed=opt.seed)
+        if len(val_ds):
+            val_loader = RealDataLoader(val_ds, hypes, batch_size, train=False,
+                                        drop_last=len(val_ds) >= batch_size,
+                                        **kw)
+    return train_loader, val_loader
 
 
 def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
@@ -97,21 +137,25 @@ def main(argv=None) -> str:
     """Run the training loop; returns the run dir."""
     opt = parse_args(argv)
     dev = resolve_device(opt.device)
-    snapshot = os.path.join(opt.model_dir, "config.yaml") if opt.model_dir else ""
-    hypes = load_yaml(snapshot if os.path.isfile(snapshot) else opt.hypes_yaml)
-    root = hypes.get("root_dir") or ""
-    if os.path.isdir(root):
-        raise NotImplementedError(
-            f"root_dir {root!r} exists, but the real AirV2X loaders are not "
-            "ported; move it away to train on synthetic scenes")
+    hypes = load_yaml(opt.hypes_yaml, opt.model_dir or None)
     tp = hypes["train_params"]
     epochs = opt.epochs or int(tp["epoches"])
     batch_size = opt.batch_size or int(tp["batch_size"])
     accum = resolve_grad_accum(opt.grad_accum, batch_size)
-    steps_per_epoch = opt.steps_per_epoch or int(tp.get("steps_per_epoch", 50))
     save_freq = int(tp.get("save_freq", 1))
     eval_freq = int(tp.get("eval_freq", 2))
-    print(f"training on synthetic scenes on {dev}; grad_accum {accum}")
+    loaders = build_real_loaders(hypes, opt, batch_size, dev)
+    if loaders is not None:
+        train_loader, val_loader = loaders
+        steps_per_epoch = opt.steps_per_epoch or len(train_loader)
+        print(f"training on the dataset at {hypes['root_dir']} on {dev}: "
+              f"{len(train_loader.dataset)} train samples, "
+              + (f"{len(val_loader.dataset)} val samples" if val_loader
+                 else "no validate_dir") + f"; grad_accum {accum}")
+    else:
+        train_loader = val_loader = None
+        steps_per_epoch = opt.steps_per_epoch or int(tp.get("steps_per_epoch", 50))
+        print(f"training on synthetic scenes on {dev}; grad_accum {accum}")
 
     model = init_flax_like_(build_model(hypes, device=dev, train=True), opt.seed)
     layout = SlotLayout.from_args(hypes["model"]["args"])
@@ -137,10 +181,15 @@ def main(argv=None) -> str:
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         losses = []
-        for batch in synthetic_batches(hypes, layout, batch_size,
-                                       steps_per_epoch, opt.seed + epoch + 1,
-                                       device=dev):
-            parts = train_step(state, batch_to_torch(batch, dev))
+        if train_loader is not None:
+            # --steps_per_epoch also cut the schedule to this length
+            epoch_iter = islice(train_loader.batches(epoch=epoch), steps_per_epoch)
+        else:
+            epoch_iter = (batch_to_torch(b, dev) for b in synthetic_batches(
+                hypes, layout, batch_size, steps_per_epoch, opt.seed + epoch + 1,
+                device=dev))
+        for batch in epoch_iter:
+            parts = train_step(state, batch)
             losses.append({k: float(v) for k, v in parts.items()})
         means = {k: float(np.mean([p[k] for p in losses])) for k in losses[0]}
         msg = (f"epoch {epoch + 1}/{epochs} "
@@ -154,10 +203,15 @@ def main(argv=None) -> str:
             save_checkpoint(run_dir, epoch + 1, state)
 
         if (epoch + 1) % eval_freq == 0:
-            val = [float(eval_step(model, batch_to_torch(b, dev))[1])
-                   for b in synthetic_batches(hypes, layout, batch_size,
-                                              max(steps_per_epoch // 5, 1),
-                                              777, device=dev)]
+            if val_loader is not None:
+                val_iter = val_loader.batches(epoch=0)
+            elif train_loader is not None:  # no validate_dir: the train split
+                val_iter = train_loader.batches(epoch=0)
+            else:
+                val_iter = (batch_to_torch(b, dev) for b in synthetic_batches(
+                    hypes, layout, batch_size, max(steps_per_epoch // 5, 1), 777,
+                    device=dev))
+            val = [float(eval_step(model, b)[1]) for b in val_iter]
             line = f"epoch: {epoch + 1}, loss: {float(np.mean(val)):.4f}"
             print("val", line)
             with open(os.path.join(run_dir, "validation_loss.txt"), "a") as f:

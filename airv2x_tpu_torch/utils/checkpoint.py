@@ -5,6 +5,8 @@ A run dir ``<base>/<name>__<stamp>/`` holds a ``config.yaml`` snapshot and
 one checkpoint per saved epoch, ``net_epoch{N}``: the model's
 ``state_dict``, the optimizer's and the count of updates made, so that a
 resumed run continues the schedule and the Adam moments where they were.
+``find_best_epoch`` picks the epoch of least validation loss for the
+evaluation tools.
 """
 
 from __future__ import annotations
@@ -53,10 +55,38 @@ def find_last_epoch(run_dir: str) -> int:
 def load_checkpoint(run_dir: str, epoch: int, state):
     """Restore epoch ``epoch`` into ``state`` (model, optimizer, step) in
     place, onto the model's device; returns ``state``."""
-    dev = next(state.model.parameters()).device
-    ckpt = torch.load(_ckpt_path(run_dir, epoch), map_location=dev,
-                      weights_only=True)
+    ckpt = _read(run_dir, epoch, state.model)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     return state
+
+
+def load_model_weights(run_dir: str, epoch: int, model):
+    """Restore only the model of epoch ``epoch`` (for evaluation), onto the
+    model's device, in place; returns ``model``."""
+    model.load_state_dict(_read(run_dir, epoch, model)["model"])
+    return model
+
+
+def _read(run_dir: str, epoch: int, model) -> dict:
+    dev = next(model.parameters()).device
+    return torch.load(_ckpt_path(run_dir, epoch), map_location=dev,
+                      weights_only=True)
+
+
+def find_best_epoch(run_dir: str) -> int:
+    """The epoch of least loss in the run dir's ``validation_loss.txt``
+    among those with a checkpoint, else the latest saved epoch (0 if none)."""
+    path = os.path.join(run_dir, "validation_loss.txt")
+    if not os.path.isfile(path):
+        return find_last_epoch(run_dir)
+    best, best_loss = None, float("inf")
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"epoch[: ]+(\d+).*loss[: ]+([0-9.eE+-]+)", line.strip())
+            if m:
+                e, v = int(m.group(1)), float(m.group(2))
+                if v < best_loss and os.path.isfile(_ckpt_path(run_dir, e)):
+                    best, best_loss = e, v
+    return best if best is not None else find_last_epoch(run_dir)

@@ -118,7 +118,34 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      through the f32 model on the card and on the CPU (psm, rm and the
      late-fused map within TINY_TOL x (1 + scale), comm masks and query
      cells equal); a ``scope`` JSON line;
-  4b. (run after phase 12, like the other training phases) one train step of
+  13. (run after phase 12) the evaluation entry points at full width: an
+     on-disk AirV2X scenario (``write_scenario``: 8 timestamps, 3 vehicles,
+     2 RSUs and 1 drone in range, ``make_scene`` clouds of 20,000 points
+     asked per agent, 12 objects, the seg maps) read by the port's
+     ``AirV2XDataset`` (host ms per ``__getitem__``); one batch loaded by
+     ``RealDataLoader`` for the card against the CPU's (every array equal,
+     the anchor targets within BATCH_TARGET_TOL); phase 5's seeded random
+     weights saved as a run dir (the cut det and seg configs in bf16), then
+     the port's ``inference_multi_scenario`` and ``inference_airv2x`` (det)
+     and ``inference_airv2x_seg`` (seg) on the card in ``auto`` and in
+     ``pallas``, each after a warm-up run: ms/scene (load + forward +
+     decode + metrics, host clock), the AP / mAP / mIoU table (finite), and
+     the launches per scene (K1 3, K4a 32 in ``pallas``, K2 at least 2 per
+     det scene: NMS and AP, asserted); K2 on the (det, gt) corners the AP
+     received in the counted det runs, with a zero-width and a point quad
+     on a gt appended to the dets, against its plain version (K2_TOL; the
+     two degenerate rows exactly 0 on both sides); a profile window of 3 det scenes
+     split into load, forward + decode and AP; then 3 steps of the train
+     CLI on the scenario (``RealDataLoader``, 2 workers, batch 2), finite;
+  14. the port's AP gate (``tools/chip_ap_gate.py``) at its default recipe:
+     the tiny config trained 20 epochs x 20 steps on the card, 16 synthetic
+     eval scenes; the card's f32 COMBINED AP table must equal the CPU's
+     within 5e-3 (the gate), and every AP of the two, per scenario and
+     COMBINED, must be equal (this phase: at this recipe's AP the 5e-3
+     cannot fail), as must the same weights' f32 table in ``pallas`` mode
+     (K4); the bf16 table is printed beside them; an ``eval`` JSON line
+     with phases 13 and 14;
+  4b. (run after phase 14, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
      TF32 off and deterministic cuDNN; max|card - CPU| of the loss parts,
@@ -140,9 +167,9 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      no decode check.
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11 and 12) and read just after; the ``kernels`` line sums them over those
-runs. Its K4 times are per scene: the 32 launches of one scene at their
-stages, in
+11 and 12) and each counted CLI run of phase 13, and read just after; the
+``kernels`` line sums them over those runs. Its K4 times are per scene: the
+32 launches of one scene at their stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
 row adds the prefilter's survivor share and the scene input's numbers.
 Phases 8 and 9 print the card's name and power limit on every line of
@@ -463,6 +490,10 @@ K3_TOL = 1e-4  # relative, the sums: only the order of the atomic adds
 K4_TOL = 1e-4  # x (1 + scale), f32: sums in another order, no TF32
 K4_TOL_BF16 = 2e-2  # abs + rel, as tests/test_pallas_conv.py
 TINY_TOL = 1e-4  # whole-model outputs through ~40 conv layers, f32
+# phase 13, one loaded batch card against CPU: the anchor targets are logs
+# and quotients of boxes whose corners come from sin / cos, which the card's
+# math library may round apart from the CPU's in the last bit
+BATCH_TARGET_TOL = 1e-6
 # phase 4b, card against CPU, f32: the port's f32 gradients lie within
 # 1.1e-5 of a leaf's scale (its largest |g|) from float64 on the CPU tests;
 # the bound allows 2e-3 of the leaf's scale plus 2e-4 of the step's largest
@@ -842,6 +873,50 @@ def phase_k2_scene(run, scene):
     torch.cuda.synchronize()
     (q,) = caught
     return k2_check("phase 5 K2 on scene 0's NMS input", q)
+
+
+def degenerate_quads(g):
+    """A zero-width quad (two coincident corner pairs, 4 m long) and a
+    point quad, both at the centre of the quad ``g`` (4, 2)."""
+    c = g.mean(0)
+    ends = torch.stack([c - g.new_tensor([2.0, 0.0]), c + g.new_tensor([2.0, 0.0])])
+    return torch.stack([ends[[0, 1, 1, 0]], c.expand(4, 2)])
+
+
+def phase_ap_k2(label, caught):
+    """K2 on the (det, gt) corners ``eval/ap.py`` handed ``quad_iou`` in
+    phase 13's counted runs (kept dets x valid gts: rectangular, ragged
+    against the tile), each with a zero-width and a point quad on its first
+    gt appended to the dets, against its plain version: within K2_TOL, and
+    those two rows exactly 0 on both sides. Then the kernel's and the plain
+    version's times at the largest pair."""
+    from airv2x_tpu_torch.ops.quad_iou import quad_iou, quad_iou_plain
+
+    if not caught:
+        raise AssertionError(f"{label}: the AP handed K2 nothing")
+    err = 0.0
+    for det, gt in caught:
+        d = torch.cat([det, degenerate_quads(gt[0])]).contiguous()
+        got, ref = quad_iou(d, gt), quad_iou_plain(d, gt)
+        err = max(err, float((got - ref).abs().max()))
+        if (got[-2:] != 0).any() or (ref[-2:] != 0).any():
+            raise AssertionError(f"{label}: a degenerate quad overlaps a gt: "
+                                 f"kernel {got[-2:]}, plain {ref[-2:]}")
+    rows = [d.shape[0] for d, _ in caught]
+    cols = [g.shape[0] for _, g in caught]
+    det, gt = max(caught, key=lambda p: p[0].shape[0] * p[1].shape[0])
+    ms = cuda_ms(lambda: quad_iou(det, gt), 50)
+    plain_ms = cuda_ms(lambda: quad_iou_plain(det, gt), 10)
+    print(f"{label}: {len(caught)} (det, gt) pairs, dets {min(rows)}-{max(rows)}, "
+          f"gts {min(cols)}-{max(cols)}, each with 2 degenerate dets (rows 0 "
+          f"on both sides); max|kernel - plain| {err:.3e} (tol {K2_TOL}); at "
+          f"the largest, {det.shape[0]} x {gt.shape[0]}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    if not err <= K2_TOL:
+        raise AssertionError(f"{label}: K2 disagrees with its plain version: "
+                             f"{err}")
+    return dict(pairs=len(caught), err=err, largest=[det.shape[0], gt.shape[0]],
+                ms=ms, plain_ms=plain_ms)
 
 
 def phase_k3():
@@ -2287,6 +2362,381 @@ def scope_f32_vs_cpu(card, hypes):
             "margins": margins, "same": same, "cpu_s": secs["cpu"]}
 
 
+# Phase 13's on-disk scenario, in the layout tests/fixture_utils.py:make_fixture
+# writes: carriers' world poses and the lidar mount as the AirV2X metadata
+# gives them (x, y, z in m; roll, yaw, pitch in degrees)
+SCENARIO_EGO_POSE = (100.0, 50.0, 0.0, 0.0, 30.0, 0.0)
+SCENARIO_MOUNT = (0.0, 0.0, 1.9, 0.0, 0.0, 0.0)
+SCENARIO_HEIGHT = {"vehicle": 0.0, "rsu": 4.0, "drone": 60.0}
+SCENARIO_NAME = "2025_01_02_00_00_00"
+SCENARIO_STAMPS = 8
+
+
+def _write_seg_layers(adir, files, label):
+    """One PNG mask per layer, such that ``data/camera.py:load_seg_labels``
+    reads ``label`` back (it transposes, flips the columns and lets the last
+    layer win)."""
+    from PIL import Image
+
+    img = np.ascontiguousarray(label[:, ::-1].T)
+    for k, name in enumerate(files):
+        Image.fromarray(np.where(img == k, 255, 0).astype(np.uint8)).save(
+            os.path.join(adir, name))
+
+
+def write_scenario(root, layout, lidar_range, *, stamps=SCENARIO_STAMPS,
+                   num_agents=NUM_AGENTS, points_per_agent=POINTS_PER_AGENT,
+                   num_objects=12, seg_hw=0, seg_res=0.25, seed=0):
+    """Write one AirV2X scenario under ``root``: ``stamps`` timestamps of
+    the agents of ``num_agents`` (ids 1, 2, ...: vehicles, RSUs, drones; the
+    ego is agent 1), each with ``metadata.pkl`` and ``lidar.pcd``, and an
+    ``objects.pkl`` per timestamp. Each timestamp is one ``make_scene`` draw
+    (``points_per_agent`` points per agent, ``num_objects`` objects, in the
+    ego-lidar frame), placed in the world at the ego's pose; every other
+    agent stands within 67 m of the ego with a random yaw and gets its
+    slot's cloud in its own lidar frame. With ``seg_hw``, every agent dir
+    also holds the 7 dynamic layers (the objects rasterized at ``seg_res``
+    m/px) and the 3 static ones (lanes and a road band) as PNGs. Returns
+    ``root``."""
+    import pickle
+
+    from airv2x_tpu_torch.data.camera import DYNAMIC_SEG_FILES, STATIC_SEG_FILES
+    from airv2x_tpu_torch.data.pcd import write_pcd
+    from airv2x_tpu_torch.data.synthetic import make_scene, rasterize_seg_labels
+    from airv2x_tpu_torch.models.base import AGENT_TYPES
+    from airv2x_tpu_torch.utils.transforms import pose_a_to_b, pose_to_world
+
+    rng = np.random.default_rng(seed)
+    types = [t for t in AGENT_TYPES for _ in range(num_agents.get(t, 0))]
+    c, s = np.cos(np.radians(SCENARIO_EGO_POSE[4])), np.sin(
+        np.radians(SCENARIO_EGO_POSE[4]))
+    poses = [list(SCENARIO_EGO_POSE)]
+    for t in types[1:]:
+        dx, dy = rng.uniform(-60, 60), rng.uniform(-30, 30)
+        poses.append([SCENARIO_EGO_POSE[0] + c * dx - s * dy,
+                      SCENARIO_EGO_POSE[1] + s * dx + c * dy,
+                      SCENARIO_HEIGHT[t], 0.0, float(rng.uniform(-180, 180)), 0.0])
+    lidar = [[p + m for p, m in zip(pose, SCENARIO_MOUNT)] for pose in poses]
+    world_from_ego = pose_to_world(lidar[0])
+    # each agent's slot: its index among the agents of its type
+    slots = [layout.slots(t).start + types[:i].count(t) for i, t in enumerate(types)]
+    static = np.zeros((seg_hw, seg_hw), np.int32)
+    static[np.arange(seg_hw) % 32 < 2] = 1  # lanes
+    static[:, seg_hw * 3 // 8:seg_hw * 5 // 8] = 2  # a road band
+    for ts in range(stamps):
+        batch, gt = make_scene(rng, layout, num_objects=num_objects,
+                               num_agents=num_agents,
+                               points_per_agent=points_per_agent,
+                               lidar_range=lidar_range, pts_per_box=100)
+        tdir = os.path.join(root, SCENARIO_NAME, f"timestamp_{ts:06d}")
+        if seg_hw:
+            dynamic = rasterize_seg_labels(gt["boxes"], gt["mask"],
+                                           gt["classes"], seg_hw, seg_res)
+        for aid, (t, pose, slot) in enumerate(zip(types, poses, slots), 1):
+            adir = os.path.join(tdir, f"agent_{aid:06d}")
+            os.makedirs(adir, exist_ok=True)
+            meta = {"agent_type": t,
+                    "odometry": {"ego_pos": pose,
+                                 "ego_speed": 0.0 if t == "rsu" else 10.0},
+                    "lidar": {"lidar_pose": list(SCENARIO_MOUNT)}}
+            with open(os.path.join(adir, "metadata.pkl"), "wb") as f:
+                pickle.dump(meta, f)
+            agent_from_ego = np.linalg.inv(pose_a_to_b(lidar[aid - 1], lidar[0]))
+            pts = batch["points"][slot][batch["points_mask"][slot]].astype(np.float64)
+            pts[:, :3] = pts[:, :3] @ agent_from_ego[:3, :3].T + agent_from_ego[:3, 3]
+            write_pcd(os.path.join(adir, "lidar.pcd"), pts)
+            if seg_hw:
+                _write_seg_layers(adir, DYNAMIC_SEG_FILES, dynamic)
+                _write_seg_layers(adir, STATIC_SEG_FILES, static)
+        objects = {}
+        for i in np.nonzero(gt["mask"])[0]:
+            x, y, z, h, w, l, yaw = gt["boxes"][i].astype(np.float64)
+            wx, wy, wz = world_from_ego[:3, :3] @ [x, y, z] + world_from_ego[:3, 3]
+            objects[1000 + int(i)] = {
+                "class": int(gt["classes"][i]),
+                "location": [wx, wy, wz, 0.0, lidar[0][4] + np.degrees(yaw), 0.0],
+                "center": [0.0, 0.0, 0.0], "extent": [l / 2, w / 2, h / 2]}
+        with open(os.path.join(tdir, "objects.pkl"), "wb") as f:
+            pickle.dump(objects, f)
+    return root
+
+
+def eval_run_dir(path, root, work):
+    """A run dir under ``work`` for the config at ``path``, cut as phase 5,
+    computing in bf16 and reading the scenario at ``root`` (its train and
+    test dir), holding phase 5's seeded random weights as epoch 1."""
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.parallel.train import TrainState
+    from airv2x_tpu_torch.utils.checkpoint import save_checkpoint, setup_train_dir
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    hypes = cut_hypes(path)
+    hypes["model"]["args"]["dtype"] = "bf16"
+    hypes["root_dir"] = hypes["test_dir"] = root
+    hypes["validate_dir"] = ""
+    run_dir = setup_train_dir(hypes, work)
+    model = init_random_(build_model(hypes, device="cuda"), seed=0)
+    save_checkpoint(run_dir, 1, TrainState(
+        model, torch.optim.SGD(model.parameters(), lr=0.0)))
+    return hypes, run_dir
+
+
+def same_batch(card, cpu):
+    """{key: max |card - CPU|} over every tensor of two loader batches (the
+    labels' too); the shapes and dtypes must agree."""
+    out = {}
+    for k, v in card.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": d for kk, d in same_batch(v, cpu[k]).items()})
+            continue
+        w = cpu[k]
+        if v.shape != w.shape or v.dtype != w.dtype:
+            raise AssertionError(f"phase 13 batch {k}: {v.shape} {v.dtype} on "
+                                 f"the card, {w.shape} {w.dtype} on the CPU")
+        out[k] = float((v.cpu().double() - w.double()).abs().max()) if v.numel() else 0.0
+    return out
+
+
+def _numbers(obj):
+    """Every number in a nested dict / list of a CLI's result."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            yield from _numbers(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _numbers(v)
+    elif isinstance(obj, (int, float)):
+        yield obj
+
+
+def eval_table(name, out):
+    """The headline numbers of an evaluation CLI's result: the COMBINED AP
+    row (det), the mAP row (multiclass), the mIoUs (seg)."""
+    if name == "det":
+        return out["COMBINED"]
+    if name == "multiclass":
+        return {k: out[k] for k in ("map_30", "map_50", "map_70", "comm_rate")}
+    return {"combined_miou": out["combined_miou"],
+            "dynamic_miou": out["dynamic"]["mean_iou"],
+            "static_miou": out["static"]["mean_iou"], "comm_rate": out["comm_rate"]}
+
+
+def eval_train(card, hypes, work):
+    """3 steps of the train CLI on ``hypes``' ``root_dir`` (a config of
+    ``eval_run_dir``: the cut flagship det config in bf16), through
+    ``RealDataLoader`` with 2 workers, batch 2; the loss parts must be
+    finite."""
+    import re
+
+    from airv2x_tpu_torch.config import save_yaml
+    from airv2x_tpu_torch.tools import train
+
+    cfg = os.path.join(work, "train.yaml")
+    save_yaml(hypes, cfg)
+    t0 = time.perf_counter()
+    run_dir = train.main(["--hypes_yaml", cfg, "--log_dir", work, "--epochs", "1",
+                          "--steps_per_epoch", "3", "--batch_size", "2",
+                          "--num_workers", "2", "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "train_loss.txt")) as f:
+        line = f.read().splitlines()[-1]
+    parts = {k: float(v) for k, v in re.findall(r"(\w+): (\S+)", line)}
+    print(f"phase 13 train CLI on the scenario [{card}]: 3 steps of batch 2 in "
+          f"{seconds:.2f} s (model build and workers included): {line}")
+    if not parts or not all(np.isfinite(list(parts.values()))):
+        raise AssertionError(f"phase 13 training: a non-finite loss: {line}")
+    return {"seconds": seconds, "loss_parts": parts}
+
+
+def scratch_dir(prefix):
+    """A fresh directory under the checkout's git-ignored ``logs/``."""
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "logs"), exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=os.path.join(REPO, "logs"))
+
+
+def phase_ap_gate(card):
+    """Phase 14: ``tools/chip_ap_gate.py`` at its default recipe (the tiny
+    config trained 20 epochs x 20 steps on the card, 16 synthetic eval
+    scenes). The gate requires the card's f32 AP table to equal the CPU's
+    within 5e-3; at this recipe's AP (0.0005-0.02) that tolerance cannot
+    fail, so this phase requires every AP of the two tables, per scenario
+    and COMBINED, to be equal, and the same weights' f32 table in ``pallas``
+    mode (K4, the rest at the gate's pinned precision) to equal the card's
+    ``auto`` table. The bf16 table is printed, not checked."""
+    import shutil
+
+    from airv2x_tpu_torch.tools import chip_ap_gate
+
+    work = scratch_dir("chip_smoke_gate_")
+    try:
+        t0 = time.perf_counter()
+        art = chip_ap_gate.main(["--log_dir", work])
+        seconds = time.perf_counter() - t0
+        opt = chip_ap_gate.parse_args([])
+        with conv_mode("pallas"), chip_ap_gate.pinned_precision():
+            pallas = chip_ap_gate.infer(art["run_dir"], opt.num_scenes,
+                                        opt.eval_seed, "cuda")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    auto = dict(art["per_scenario_card"], COMBINED=art["ap_card"])
+    pallas_equal = chip_ap_gate.ap_rows(pallas) == chip_ap_gate.ap_rows(auto)
+    print(f"phase 14 AP gate [{card}] in {seconds:.1f} s: card f32 "
+          f"{art['ap_card']}, CPU f32 {art['ap_cpu']}, |diff| {art['abs_diff']} "
+          f"(tol {art['tol']}): {art['gate']}; every AP equal: "
+          f"{art['identical']}; card bf16, not checked, {art['ap_card_bf16']}")
+    print(f"phase 14 [{card}] the same weights in pallas mode (K4), f32: "
+          f"{pallas['COMBINED']}; every AP equal to auto's: {pallas_equal}")
+    if art["gate"] != "PASS" or not art["identical"]:
+        raise AssertionError(f"phase 14: the card's AP table differs from the "
+                             f"CPU's: {art}")
+    if not pallas_equal:
+        raise AssertionError(f"phase 14: the pallas table differs from auto's: "
+                             f"{pallas} against {auto}")
+    return dict({k: art[k] for k in ("ap_card", "ap_cpu", "abs_diff", "identical",
+                                     "ap_card_bf16", "tol", "gate")},
+                pallas_f32=pallas["COMBINED"], seconds=seconds)
+
+
+def phase_eval(card):
+    """Phase 13: the evaluation entry points at full width on an on-disk
+    scenario (``write_scenario``): the dataset's host ms per sample, one
+    batch loaded for the card against the CPU's, the port's
+    ``inference_multi_scenario`` and ``inference_airv2x`` (det, ``auto`` and
+    ``pallas``) and ``inference_airv2x_seg`` (seg, both modes) on the card
+    from phase 5's seeded random weights, each run after a warm-up run with
+    its launches counted (K1 3, K4a 32 in ``pallas``, K2 at least 2 per det
+    scene: NMS and AP) and the AP's (det, gt) corners caught for
+    ``phase_ap_k2``, a profile window of 3 det scenes (load, forward +
+    decode, AP), then 3 steps of the train CLI on the scenario."""
+    import shutil
+
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.eval import ap
+    from airv2x_tpu_torch.eval.ap import accumulate_scene, new_result_stat
+    from airv2x_tpu_torch.ops.quad_iou import quad_iou
+    from airv2x_tpu_torch.models.base import SlotLayout
+    from airv2x_tpu_torch.tools import (
+        inference, inference_airv2x, inference_airv2x_seg,
+        inference_multi_scenario)
+
+    work = scratch_dir("chip_smoke_eval_")
+    try:
+        root = os.path.join(work, "test")
+        hypes, det_dir = eval_run_dir(FLAGSHIP, root, work)
+        seg_hypes, seg_dir = eval_run_dir(SEG, root, work)
+        t0 = time.perf_counter()
+        write_scenario(root, SlotLayout.from_args(hypes["model"]["args"]),
+                       hypes["preprocess"]["cav_lidar_range"],
+                       seg_hw=int(seg_hypes["seg_hw"]),
+                       seg_res=float(seg_hypes["seg_res"]))
+        print(f"phase 13 [{card}]: scenario of {SCENARIO_STAMPS} timestamps, "
+              f"{sum(NUM_AGENTS.values())} agents x {POINTS_PER_AGENT} points, "
+              f"seg maps {seg_hypes['seg_hw']}^2, written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        ds = AirV2XDataset(hypes, root, train=False)
+        load_ms = []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            batch, gt = ds[i]
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = batch["points_mask"].sum(1).tolist()
+        print(f"phase 13 [{card}] dataset: {len(ds)} samples, host ms per "
+              f"__getitem__ {[round(v, 3) for v in load_ms]} (median "
+              f"{statistics.median(load_ms):.3f}); points per slot of the "
+              f"last sample {counts} of {batch['points'].shape[1]}, "
+              f"{int(gt['mask'].sum())} objects")
+        loaded = {dev: next(RealDataLoader(ds, hypes, 1, train=False, num_workers=1,
+                                           device=dev).batches())
+                  for dev in ("cuda", "cpu")}
+        batch_err = same_batch(loaded["cuda"], loaded["cpu"])
+        print(f"phase 13 [{card}] one loaded batch, card against CPU, max abs "
+              "err per key: " + json.dumps(batch_err))
+        bad = {k: v for k, v in batch_err.items()
+               if v > (BATCH_TARGET_TOL if k == "labels.targets" else 0.0)}
+        if bad:
+            raise AssertionError(f"phase 13: the card's batch differs: {bad}")
+
+        res = {"getitem_ms": load_ms, "batch_card_vs_cpu": batch_err}
+        n = len(ds)
+        runs = (("det", inference_multi_scenario, det_dir),
+                ("multiclass", inference_airv2x, det_dir),
+                ("seg", inference_airv2x_seg, seg_dir))
+        total = dict.fromkeys(kernels.LAUNCHES, 0)
+        caught = []  # the AP's (det, gt) corners in the counted runs
+
+        def catch(det, gt, **kw):
+            caught.append((det.clone(), gt.clone()))
+            return quad_iou(det, gt, **kw)
+
+        for mode in ("auto", "pallas"):
+            for name, cli, run_dir in runs:
+                label = f"phase 13 {name} {mode} [{card}]"
+                argv = ["--model_dir", run_dir, "--device", "cuda"]
+                with conv_mode(mode):
+                    cli.main(argv)  # warm-up: allocator, cuDNN's choices
+                    kernels.reset_launch_counts()
+                    ap.quad_iou = catch
+                    try:
+                        out = cli.main(argv)
+                    finally:
+                        ap.quad_iou = quad_iou
+                    torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                per = {k: v / n for k, v in launches.items()}
+                print(f"{label}: {out['ms_per_scene']:.3f} ms/scene, launches "
+                      f"per scene {per}")
+                k4 = 32 if mode == "pallas" else 0
+                ok = (launches["pillar_encode"] == 3 * n
+                      and launches["conv3x3"] == k4 * n
+                      and launches["conv3x3_allmaps"] == launches["pillar_reduce"] == 0
+                      and (launches["quad_iou"] >= 2 * n if name != "seg"
+                           else launches["quad_iou"] == 0))
+                if not ok:
+                    raise AssertionError(f"{label}: launches {launches} over {n} "
+                                         "scenes")
+                if not all(np.isfinite(list(_numbers(out)))):
+                    raise AssertionError(f"{label}: a non-finite metric: {out}")
+                for k, v in launches.items():
+                    total[k] += v
+                res.setdefault(name, {})[mode] = dict(
+                    table=eval_table(name, out), ms_per_scene=out["ms_per_scene"],
+                    launches_per_scene=per)
+
+        res["ap_k2"] = phase_ap_k2(f"phase 13 K2 on the AP's input [{card}]",
+                                   caught)
+        del caught
+
+        # the device's share of one det scene: load, forward + decode, AP
+        _, model, _ = inference.load_run(det_dir, "cuda")
+        step = inference.det_step(hypes, model, "cuda")
+        stat = new_result_stat()
+
+        def run(i, mark):
+            scene, gt = ds[i]
+            mark("load")
+            d = step(scene, gt)
+            mark("forward + decode")
+            accumulate_scene(d.corners, d.scores, d.gt_corners, stat)
+            mark("AP")
+
+        for mode in ("auto", "pallas"):
+            with conv_mode(mode):
+                res["det"][mode]["profile"] = phase_profile(
+                    f"phase 13 det {mode} [{card}]", run, list(range(n)), top=8)
+        del model, step
+
+        res["train"] = eval_train(card, hypes, work)
+        res["launches"] = total
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 class RangeMarks:
     """The ``mark`` of a profiled run: each stage runs inside a profiler
     range named ``stage <i>`` (its index in the scene), and ``names`` maps
@@ -2730,6 +3180,11 @@ def main() -> int:
         {k: ({kk: vv for kk, vv in v.items() if kk != "launches"}
              if k in ("auto", "pallas") else v) for k, v in scope.items()},
         tiny_card_vs_cpu=tiny_scope)}))
+    ev = phase_eval(card)
+    gate = phase_ap_gate(card)
+    print(json.dumps({"eval": {"card": card, **{k: v for k, v in ev.items()
+                                               if k != "launches"},
+                               "ap_gate": gate}}))
     # the training phases run after every serving phase, so that nothing
     # they leave on the card shows in the serving paths' peak memory
     tiny_train = phase_tiny_train(card)
@@ -2746,10 +3201,11 @@ def main() -> int:
         for mode, r in res.items():
             print(f"launches in the timed {path} {mode} runs: {r['launches']}")
     launches = {k: sum(r["launches"][k] for res in runs.values()
-                       for r in res.values())
+                       for r in res.values()) + ev["launches"][k]
                 for k in det["auto"]["launches"]}
-    print("launches over the timed main-path runs (phases 5, 7, 10, 11 and 12): "
-          f"{launches}")
+    print(f"launches in the counted phase 13 runs: {ev['launches']}")
+    print("launches over the timed main-path runs (phases 5, 7, 10, 11 and 12) "
+          f"and the counted phase 13 runs: {launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",

@@ -28,7 +28,9 @@ from airv2x_tpu_torch.utils.weights import (
     cast_weights_, init_flax_like_, init_random_, load_flax_variables)
 from tests.torch_port_helpers import (
     CAMERA, CHIP_SMOKE, FLAGSHIP, REPO, SCOPE, SEG, TINY, V2XVIT, V2XVIT_SEG,
-    random_variables)
+    one_torch_thread, random_variables)
+
+
 
 CONFIGS = [TINY, FLAGSHIP, SEG, CAMERA, V2XVIT, V2XVIT_SEG, SCOPE]
 IDS = ["tiny", "flagship", "seg", "camera", "v2xvit", "v2xvit_seg", "scope"]
@@ -403,7 +405,13 @@ def test_port_imports_no_jax():
     for module in ("ops/conv3x3.py", "ops/pillar_reduce.py", "ops/warp.py",
                    "models/heads.py", "models/nn.py", "models/camera/lss.py",
                    "models/camera/trunks.py", "models/fusion/v2xvit.py",
-                   "models/v2xvit_model.py"):
+                   "models/v2xvit_model.py", "data/airv2x_dataset.py",
+                   "data/augment.py", "data/camera.py", "data/loader.py",
+                   "data/pcd.py", "data/prefetch.py", "eval/ap.py",
+                   "eval/seg_metrics.py", "tools/chip_ap_gate.py",
+                   "tools/inference.py", "tools/inference_airv2x.py",
+                   "tools/inference_airv2x_seg.py",
+                   "tools/inference_multi_scenario.py", "utils/transforms.py"):
         assert os.path.join("airv2x_tpu_torch", module) in names, module
     for path in files:
         for name in _imports(path):

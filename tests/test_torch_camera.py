@@ -34,7 +34,10 @@ from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
 from airv2x_tpu_torch.utils.weights import cast_weights_, load_flax_variables
 from tests.torch_port_helpers import (
-    TINY, assert_close, nchw_to_nhwc, nhwc_to_nchw, random_variables)
+    TINY, assert_close, nchw_to_nhwc, nhwc_to_nchw, one_torch_thread,
+    random_variables)
+
+
 
 TOL = 1e-5  # f32 module tests, x (1 + scale)
 TOL_MODEL = 1e-4  # whole-model outputs, x (1 + scale)

@@ -262,6 +262,27 @@ def test_k2_separated_never_rejects_nan_or_degenerate_rows():
     assert bool(sep.any())  # the rest are spread over the range
 
 
+def test_k2_degenerate_quads_have_iou_zero():
+    """A quad of (nearly) zero area: zero-width boxes, as random weights
+    decode them, a point and a sliver. The clip would weigh every edge of
+    the other quad as collinear and report an IoU near 1 with any quad; the
+    plain version gives 0. (The JAX package's XLA IoU is no reference
+    there: it returns up to ~1e9 for the point.) The other pairs still
+    match the Pallas kernel."""
+    rng = np.random.default_rng(17)
+    q = _rand_quads(rng, 24)
+    q[0, 2], q[0, 3] = q[0, 1], q[0, 0]  # zero width, four distinct points
+    q[1] = q[1, :1]  # a point
+    q[2, 3], q[2, 2] = q[2, 0] + 3e-6, q[2, 1] + 3e-6  # a 3e-6 m sliver
+    q[3] = q[0] + np.float32(5.0)  # a zero-width box far from the first
+    got = quad_iou_plain(torch.from_numpy(q), torch.from_numpy(q)).numpy()
+    want = np.asarray(pairwise_quad_iou_interpret(
+        jnp.asarray(q), jnp.asarray(q), tile_i=8, tile_j=8))
+    for r in range(4):
+        assert (got[r] == 0).all() and (got[:, r] == 0).all(), got[r]
+    assert_close(got[4:, 4:], want[4:, 4:], IOU_TOL, 0, "the other quads")
+
+
 @pytest.mark.parametrize("n,m", [(512, 512), (300, 200), (200, 300), (1, 1),
                                  (33, 65), (64, 64), (31, 1)])
 @pytest.mark.parametrize("triangular", [False, True], ids=["full", "tri"])

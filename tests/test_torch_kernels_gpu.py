@@ -7,6 +7,7 @@ nor ``airv2x_tpu``, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 """
 
+import copy
 import importlib.util
 import os
 
@@ -250,6 +251,72 @@ def test_quad_iou_kernel_exact_cases(cuda):
     assert iou[3, 4] == pytest.approx(1.0, abs=1e-6)
     assert abs(iou[0, 2]) <= 1e-6 and abs(iou[1, 2]) <= 1e-6
     np.testing.assert_allclose(np.diag(iou), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m", [(512, 300), (37, 300), (129, 5), (1, 7)])
+def test_quad_iou_kernel_ap_shapes(cuda, n, m):
+    """The full (rectangular) mode at the AP's shapes: kept detections x
+    ground truth, ragged against the tile, with degenerate detections (a
+    zero-width box, a point, a sliver), whose IoU is 0."""
+    rng = np.random.default_rng(5)
+    gt = _quads(rng, m)
+    det = gt[rng.integers(0, m, n)] + rng.normal(0, 0.3, (n, 1, 2)).astype(np.float32)
+    det[(n + 1) // 2:] = _quads(rng, n - (n + 1) // 2)
+    if n > 3:
+        det[0, 2], det[0, 3] = det[0, 1], det[0, 0]
+        det[1] = det[1, :1]
+        det[2, 3], det[2, 2] = det[2, 0] + 3e-6, det[2, 1] + 3e-6
+    a, b = torch.from_numpy(det).to(cuda), torch.from_numpy(gt).to(cuda)
+    before = kernels.LAUNCHES["quad_iou"]
+    got = quad_iou(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quad_iou"] == before + 1
+    ref = quad_iou_plain(a, b)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+    if n > 3:
+        assert bool((got[:3] == 0).all())
+    assert float((ref > 0.3).float().mean()) > 0  # matches exist
+
+
+def test_dataset_batch_through_tiny_model_on_card_matches_cpu(cuda, tmp_path):
+    """One batch of an on-disk scenario (chip_smoke.py's writer) loaded for
+    the card and for the CPU (the same arrays; the anchor targets within
+    one f32 rounding of the card's math library), then through the tiny
+    model in f32 on both (TF32 off, pinned cuDNN)."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    cs = _chip_smoke()
+    hypes = load_yaml(os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml"))
+    model = init_random_(build_model(hypes, device="cpu"), seed=3)
+    cs.write_scenario(str(tmp_path), model.layout,
+                      hypes["preprocess"]["cav_lidar_range"], stamps=2,
+                      num_agents={"vehicle": 2, "rsu": 1, "drone": 1},
+                      points_per_agent=2048)
+    ds = AirV2XDataset(hypes, str(tmp_path), train=False)
+    batches = {d: next(RealDataLoader(ds, hypes, 2, train=False, num_workers=1,
+                                      device=d).batches()) for d in ("cpu", cuda)}
+    errs = cs.same_batch(batches[cuda], batches["cpu"])
+    assert all(v <= (cs.BATCH_TARGET_TOL if k == "labels.targets" else 0.0)
+               for k, v in errs.items()), errs
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        outs = {}
+        for d, m in (("cpu", model), (cuda, copy.deepcopy(model).to(cuda))):
+            batch = {k: v for k, v in batches[d].items() if k != "labels"}
+            with torch.inference_mode():
+                outs[d] = m(batch)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    for k in ("psm", "rm", "obj"):
+        scale = float(outs["cpu"][k].abs().max())
+        torch.testing.assert_close(outs[cuda][k].cpu(), outs["cpu"][k],
+                                   atol=1e-4 * (1 + scale), rtol=0)
 
 
 def test_tiny_model_on_card_matches_cpu(cuda):

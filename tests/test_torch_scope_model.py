@@ -33,7 +33,9 @@ from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
 from airv2x_tpu_torch.utils.weights import (
     cast_weights_, init_random_, load_flax_variables)
 from tests.torch_port_helpers import (
-    CHIP_SMOKE, assert_close, jnp_tree, random_variables)
+    CHIP_SMOKE, assert_close, jnp_tree, one_torch_thread, random_variables)
+
+
 
 TOL_MODEL = 1e-4  # whole-model outputs, f32, x (1 + scale)
 MARGIN = 1e-4  # comm threshold, query cut and NMS threshold

@@ -6,6 +6,7 @@ training, the eval fold cache and the bf16 eval model."""
 
 import math
 import os
+import shutil
 
 import flax.linen as fnn
 import jax
@@ -39,13 +40,15 @@ from airv2x_tpu_torch.tools import train as train_cli
 from airv2x_tpu_torch.utils.checkpoint import find_last_epoch
 from airv2x_tpu_torch.utils.weights import cast_weights_, load_flax_variables
 from tests.torch_port_helpers import (
-    TINY, assert_close, jnp_tree, nchw_to_nhwc, nhwc_to_nchw, random_variables,
-    tiny_seg)
+    TINY, assert_close, jnp_tree, nchw_to_nhwc, nhwc_to_nchw, one_torch_thread,
+    random_variables, tiny_seg)
 
 LR = 0.002  # the tiny config's base learning rate
 
 
+
 # --- train-mode norms -------------------------------------------------------
+
 
 def test_masked_batchnorm_train_matches_flax():
     """Outputs, the updated running statistics and the gradients of x, scale
@@ -580,8 +583,14 @@ def _cli(tmp_path, *extra):
                            "--steps_per_epoch", "2", *extra])
 
 
-def test_cli_one_epoch(tmp_path):
-    run_dir = _cli(tmp_path, "--epochs", "1")
+@pytest.fixture(scope="module")
+def one_epoch_run(tmp_path_factory):
+    """One epoch of the CLI, shared by the two tests that need it."""
+    return _cli(tmp_path_factory.mktemp("one_epoch"), "--epochs", "1")
+
+
+def test_cli_one_epoch(one_epoch_run):
+    run_dir = one_epoch_run
     assert find_last_epoch(run_dir) == 1
     with open(os.path.join(run_dir, "train_loss.txt")) as f:
         line = f.read()
@@ -592,11 +601,12 @@ def test_cli_one_epoch(tmp_path):
         assert yaml.safe_load(f)["name"] == "tiny_where2comm"
 
 
-def test_checkpoint_resume_equals_uninterrupted_run(tmp_path):
+def test_checkpoint_resume_equals_uninterrupted_run(tmp_path, one_epoch_run):
     """Two epochs in one run against one epoch, then a resume from its
-    checkpoint (model, AdamW moments, step count): the same weights."""
+    checkpoint (model, AdamW moments, step count): the same weights. The
+    resume runs in a copy of the shared one-epoch run dir."""
     whole = _cli(tmp_path / "a", "--epochs", "2")
-    part = _cli(tmp_path / "b", "--epochs", "1")
+    part = str(shutil.copytree(one_epoch_run, tmp_path / "b"))
     _cli(tmp_path / "b", "--epochs", "2", "--model_dir", part)
     a = torch.load(os.path.join(whole, "net_epoch2"), weights_only=True)
     b = torch.load(os.path.join(part, "net_epoch2"), weights_only=True)
@@ -614,6 +624,9 @@ def test_cli_refuses_real_root_dir_and_missing_card(tmp_path):
     root = tmp_path / "dataset"
     root.mkdir()
     hypes["root_dir"] = str(root)
+    # the real-data loader reads LiDAR only: a camera config over an
+    # existing root_dir is refused (tests/test_torch_data.py trains on one)
+    hypes["model"]["args"]["vehicle"]["modalities"] = ["lidar", "cam"]
     cfg = tmp_path / "cfg.yaml"
     with open(cfg, "w") as f:
         yaml.safe_dump(jax.tree.map(lambda v: v.tolist() if hasattr(v, "tolist")

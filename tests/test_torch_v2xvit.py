@@ -38,7 +38,10 @@ from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
 from airv2x_tpu_torch.utils.weights import cast_weights_, load_flax_variables
 from tests.torch_port_helpers import (
     TINY, TINY_PWINDOW, assert_close, jnp_tree, load_chip_smoke,
-    random_variables, tiny_seg, tiny_v2xvit, tiny_v2xvit_encoder)
+    one_torch_thread, random_variables, tiny_seg, tiny_v2xvit,
+    tiny_v2xvit_encoder)
+
+
 
 TOL = 1e-5  # modules and the warp, x (1 + scale): f32 sums in another order
 TOL_MODEL = 1e-4  # whole-model outputs through ~20 conv layers and the

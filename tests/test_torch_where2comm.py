@@ -23,7 +23,10 @@ from airv2x_tpu_torch.models.fusion.where2comm import gaussian_smooth
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
 from airv2x_tpu_torch.utils.weights import load_flax_variables
-from tests.torch_port_helpers import TINY, assert_close, jnp_tree, random_variables
+from tests.torch_port_helpers import (
+    TINY, assert_close, jnp_tree, one_torch_thread, random_variables)
+
+
 
 # whole-model outputs pass through ~40 conv layers: f32 sums in another order
 TOL = 1e-4

@@ -15,6 +15,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,6 +54,22 @@ TINY_PWINDOW = {
 }
 
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread in every test of a module that imports this
+    fixture (it is autouse). Under the parallel test run every worker's
+    thread pool competes for the cores, and a train step of many small ops
+    then waits on descheduled pool threads far longer than one thread
+    takes; module-wide, every run a module compares for equality uses the
+    same thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def random_variables(module, *args, seed: int = 0, **kwargs):
