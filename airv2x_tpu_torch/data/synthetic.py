@@ -281,11 +281,14 @@ def perturb_poses(batch: dict, rng: np.random.Generator) -> dict:
     and an xy translation of up to ``PERTURB_MAX_SHIFT`` metres,
     ``prior_encoding[..., 1]`` an integer delay in [0, PERTURB_MAX_DELAY].
     Slot 0, the ego, keeps the identity and delay 0; the points stay as
-    they are.
+    they are. Where the batch has ``pairwise_t_full``, each pair [i, j]
+    becomes ``pairwise_t[i]^-1 pairwise_t[j]`` (agent j into agent i's
+    frame), as ``AirV2XDataset`` builds it without ``proj_first``; no
+    random number is drawn for it.
 
     ``make_scene``'s identity poses and zero delays leave the V2X-ViT
-    warp, its ROI mask and its temporal encoding untried; this exercises
-    them."""
+    warp, its ROI mask and its temporal encoding, and the pairwise warps of
+    V2VNet and When2com, untried; this exercises them."""
     pt = batch["pairwise_t"]
     prior = batch["prior_encoding"]
     lead, l = pt.shape[:-3], pt.shape[-3]
@@ -298,6 +301,11 @@ def perturb_poses(batch: dict, rng: np.random.Generator) -> dict:
             m[:2, 3] = rng.uniform(-PERTURB_MAX_SHIFT, PERTURB_MAX_SHIFT, 2)
             pt[idx + (slot,)] = m
             prior[idx + (slot, 1)] = rng.integers(0, PERTURB_MAX_DELAY + 1)
+    if "pairwise_t_full" in batch:
+        shape = lead + (l, l, 4, 4)
+        batch["pairwise_t_full"][...] = np.linalg.solve(
+            np.broadcast_to(pt[..., :, None, :, :], shape),
+            np.broadcast_to(pt[..., None, :, :, :], shape))
     return batch
 
 

@@ -195,7 +195,8 @@ class SyncLSTM(nn.Module):
 
     def flax_init_(self, g: torch.Generator) -> None:
         """flax's ``uniform(1.0)``: U[0, 1)."""
-        self.init_c.copy_(torch.rand(self.init_c.shape, generator=g))
+        self.init_c.copy_(torch.rand(self.init_c.shape, generator=g,
+                                     device=g.device))
 
     def _cbr(self, name, x):
         return _cbr(getattr(self, f"conv_{name}"), getattr(self, f"bn_{name}"), x)

@@ -177,9 +177,10 @@ class HGTCavAttention(nn.Module):
     @torch.no_grad()
     def flax_init_(self, g: torch.Generator | None = None) -> None:
         """flax's ``xavier_uniform`` relation tensors, drawn from ``g``."""
+        dev = g.device if g is not None else "cpu"
         for p in (self.relation_att, self.relation_msg):
             lim = relation_init_limit(p.shape)
-            t = torch.empty(p.shape, dtype=torch.float32)
+            t = torch.empty(p.shape, dtype=torch.float32, device=dev)
             p.copy_(t.uniform_(-lim, lim, generator=g))
 
     @property
@@ -255,7 +256,8 @@ class BaseWindowAttention(nn.Module):
     @torch.no_grad()
     def flax_init_(self, g: torch.Generator | None = None) -> None:
         """flax's standard normal ``pos_embedding``, drawn from ``g``."""
-        t = torch.empty(self.pos_embedding.shape, dtype=torch.float32)
+        dev = g.device if g is not None else "cpu"
+        t = torch.empty(self.pos_embedding.shape, dtype=torch.float32, device=dev)
         self.pos_embedding.copy_(t.normal_(0.0, 1.0, generator=g))
 
     def forward(self, x):

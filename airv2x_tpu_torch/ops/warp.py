@@ -16,11 +16,12 @@ from __future__ import annotations
 import torch
 
 
-def grid_sample_bilinear(src, grid_x, grid_y):
+def grid_sample_bilinear(src, grid_x, grid_y, src_index=None):
     """Bilinear sample of ``src`` (..., H, W, C) at pixel coordinates
     ``grid_x`` / ``grid_y`` (out_h, out_w) -> (..., out_h, out_w, C); or,
     with one grid per map, of ``src`` (N, H, W, C) at ``grid_x`` / ``grid_y``
-    (N, out_h, out_w) -> (N, out_h, out_w, C).
+    (K, out_h, out_w) -> (K, out_h, out_w, C), grid k sampling map
+    ``src_index[k]`` (by default map k).
 
     Four clamped gathers; a tap outside the source contributes zero (torch
     ``padding_mode='zeros'``). The weights keep the grid's dtype, so a bf16
@@ -35,7 +36,8 @@ def grid_sample_bilinear(src, grid_x, grid_y):
     y0i = y0.to(torch.int64)
     per_map = grid_x.dim() == 3
     if per_map:
-        n = torch.arange(src.shape[0], device=src.device)[:, None, None]
+        n = (torch.arange(src.shape[0], device=src.device)
+             if src_index is None else src_index)[:, None, None]
 
     def tap(yi, xi):
         inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
@@ -148,14 +150,18 @@ def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=like.device)
 
 
-def warp_affine_normalized(src, M):
+def warp_affine_normalized(src, M, src_index=None):
     """Warp (..., H, W, C) by the (..., 2, 3) affine ``M`` given in
     normalized coordinates: it maps each dst pixel's normalized coordinates
     in [-1, 1], -1 and 1 on the outer pixel edges (``F.affine_grid``'s
     convention with ``align_corners=False``, SCOPE's), straight to the
-    src's, then samples bilinearly with zero padding."""
+    src's, then samples bilinearly with zero padding.
+
+    With ``src_index`` (K,), ``src`` is (N, H, W, C), ``M`` (K, 2, 3) and
+    affine k warps map ``src_index[k]``: (K, H, W, C), each map sampled as
+    it would be warped alone, without K copies of the sources."""
     h, w = src.shape[-3], src.shape[-2]
-    lead = src.shape[:-3]
+    lead = src.shape[:-3] if src_index is None else M.shape[:-2]
     ms = M.reshape(-1, 2, 3).to(torch.float32)
     srcs = src.reshape((-1,) + src.shape[-3:])
     ys, xs = torch.meshgrid(
@@ -172,7 +178,7 @@ def warp_affine_normalized(src, M):
     syn = per(ms[:, 1, 0]) * gx + per(ms[:, 1, 1]) * gy + per(ms[:, 1, 2])
     sx = ((sxn + 1.0) * w - 1.0) * 0.5
     sy = ((syn + 1.0) * h - 1.0) * 0.5
-    out = grid_sample_bilinear(srcs, sx, sy)
+    out = grid_sample_bilinear(srcs, sx, sy, src_index)
     return out.reshape(lead + (h, w, src.shape[-1]))
 
 

@@ -127,19 +127,27 @@ def _walk(module, scope: tuple, prefix: str, v: _Variables, out: dict):
             _walk(child, scope + (flax_name,), f"{prefix}{name}.", v, out)
 
 
-def load_flax_variables(model: nn.Module, variables: dict) -> None:
-    """Fill ``model`` from a flax ``{"params": ..., "batch_stats": ...}``
-    tree of (nested dicts of) arrays.
-
-    Raises on a flax leaf it did not consume and, through
-    ``load_state_dict(strict=True)``, on a torch tensor it did not fill.
-    """
+def flax_state_dict(model: nn.Module, variables: dict) -> dict:
+    """The bridge's ``{torch name: numpy array}`` for ``model`` from a flax
+    ``{"params": ..., "batch_stats": ...}`` tree of (nested dicts of)
+    arrays, each a view of its flax leaf in the torch layout. Raises on a
+    flax leaf it did not consume."""
     v = _Variables(variables)
     sd: dict = {}
     _walk(model, (), "", v, sd)
     left = v.unused()
     if left:
         raise ValueError(f"flax leaves not consumed by the bridge: {left}")
+    return sd
+
+
+def load_flax_variables(model: nn.Module, variables: dict) -> None:
+    """Fill ``model`` from a flax variables tree (``flax_state_dict``).
+
+    Raises on a flax leaf it did not consume and, through
+    ``load_state_dict(strict=True)``, on a torch tensor it did not fill.
+    """
+    sd = flax_state_dict(model, variables)
     model.load_state_dict(
         {k: torch.from_numpy(np.array(t)) for k, t in sd.items()},
         strict=True,
@@ -224,17 +232,21 @@ def _init_own_leaves_(mod: nn.Module, g: torch.Generator) -> None:
             mod.flax_init_(g)
 
 
-def init_random_(model: nn.Module, seed: int) -> nn.Module:
+def init_random_(model: nn.Module, seed: int, device="cpu") -> nn.Module:
     """Seeded random weights for a run without a checkpoint: He-normal conv
     and dense weights, small biases, BN affines and statistics around the
     identity with some negative scales (so the pillar encoder's flipped
     channels are exercised); LayerNorms and a module's own raw parameters
-    as flax initialises them (``_init_own_leaves_``)."""
-    g = torch.Generator().manual_seed(seed)
+    as flax initialises them (``_init_own_leaves_``).
+
+    The draws come from a generator on ``device``: the same seed gives
+    other values on the card than on the CPU, and drawing a large model's
+    weights on the card spares the host (When2com's 288 M MLP weights)."""
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def draw(t, fn):
         with torch.no_grad():
-            t.copy_(fn(torch.empty(t.shape, dtype=torch.float32)))
+            t.copy_(fn(torch.empty(t.shape, dtype=torch.float32, device=device)))
 
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):

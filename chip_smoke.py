@@ -48,6 +48,14 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      off, pinned cuDNN, in ``auto`` and ``pallas``, on a scene with
      perturbed poses (up to 5 degrees and 3 m) and delays (0-3), with the
      ROI samples' smallest distance from the 0.5 threshold;
+  4f. the tiny intermediate-family configs (``TINY_FAMILY``: the tiny
+     config with tests/test_model_zoo.py's fusion blocks), det for all six
+     registered names and seg for CoBEVT / V2VNet / When2com, on the card
+     against the same weights on the CPU, f32, TF32 off, pinned cuDNN, in
+     ``auto`` and ``pallas``, on a scene with an absent agent and perturbed
+     ``pairwise_t_full``: outputs within TINY_TOL x (1 + scale), equal keep
+     sets, K1 3 / K4a 3 (``pallas``) / K2 1 (det) launches, the V2VNet ROI
+     and NMS margins bounded;
   4e. the tiny SCOPE config (tests/test_temporal.py's fusion block over the
      tiny point-pillar config, ``TINY_SCOPE_ARGS``), ResNet and plain
      backbone, on the card against the same weights on the CPU, f32, TF32
@@ -118,7 +126,25 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      through the f32 model on the card and on the CPU (psm, rm and the
      late-fused map within TINY_TOL x (1 + scale), comm masks and query
      cells equal); a ``scope`` JSON line;
-  13. (run after phase 12) the evaluation entry points at full width: an
+  15. (run after phase 12) the intermediate family at full width
+     (``hypes_yaml/airv2x/lidar/det/{att_fusion,max_fusion,cobevt,v2vnet,
+     when2com}.yaml`` and ``seg/{cobevt,v2vnet,when2com}.yaml``, cut and
+     scened as phase 5, bf16, seeded random weights drawn on the card;
+     ``intermediate.yaml`` only built: the class of att_fusion), each path
+     in ``auto`` and ``pallas``, FAMILY_RUNS timed runs after a warm-up:
+     the fusion's operations per scene from the configuration's shapes
+     (``family_ops``: the work its function needs and the work the code
+     executes) at the dense bf16 peak and its weights' bytes; ms/scene,
+     stage times (encoder, backbone + shrink, fusion, heads, decode), peak
+     memory, launch counts (K1 3, K2 1 per det scene, K4a 16 in ``pallas``),
+     a ``pallas`` profile window with the busy by stage and the idle share,
+     kept detections or class histograms; one perturbed det scene per
+     fusion kind (cobevt, v2vnet, when2com) through the f32 model on the
+     card and on the CPU (TINY_TOL x (1 + scale), V2VNet's ROI mask card == CPU); and
+     phase 13's on-disk scenario scored once by the V2VNet det model
+     through ``inference_multi_scenario`` in ``pallas`` (a finite AP table,
+     K1 3, K4a 16, K2 at least 2 launches per scene); a ``family`` JSON line;
+  13. (run after phase 15) the evaluation entry points at full width: an
      on-disk AirV2X scenario (``write_scenario``: 8 timestamps, 3 vehicles,
      2 RSUs and 1 drone in range, ``make_scene`` clouds of 20,000 points
      asked per agent, 12 objects, the seg maps) read by the port's
@@ -167,8 +193,12 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      no decode check.
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11 and 12) and each counted CLI run of phase 13, and read just after; the
-``kernels`` line sums them over those runs. Its K4 times are per scene: the
+11, 12 and 15) and each counted CLI run of phases 13 and 15, and read just
+after; the ``kernels`` line sums them over those runs. Every profile window
+gives each kernel, copy and memset PyTorch launched to the one stage whose
+host range holds its launch (``launch_ranges``), counts the port's own
+kernels (K1 / K2 / K4, launched through ctypes) apart, and requires the
+two together to stay within the window's device busy time. Its K4 times are per scene: the
 32 launches of one scene at their stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
 row adds the prefilter's survivor share and the scene input's numbers.
@@ -180,6 +210,7 @@ Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import copy
 import itertools
@@ -212,6 +243,7 @@ DET_STAGES = ("encoder", "backbone+shrink+psm head", "fusion+heads",
 SEG_STAGES = ("encoder", "backbone+shrink+crop", "fusion+seg head",
               "decode")
 V2XVIT_STAGES = ("encoder", "backbone+shrink", "transformer", "heads")
+FAMILY_STAGES = ("encoder", "backbone+shrink", "fusion", "heads")
 # a camera frustum point this close to a cell boundary (in cell widths)
 # could fall in another cell on the card than on the CPU
 CELL_MARGIN = 1e-4
@@ -270,6 +302,39 @@ TINY_SCOPE_ARGS = {
         "temporal_fusion": {"channel": 32, "height": 32, "width": 32}},
 }
 TINY_SCOPE_RANGE = [-12.8, -12.8, -3, 12.8, 12.8, 1]
+
+# the intermediate-fusion family's tiny fusion blocks, patched into the tiny
+# config: tests/test_model_zoo.py's variants (48 x 48 maps at 64 channels).
+# The one copy: tests/test_torch_intermediate.py and phase 4f load it.
+TINY_FAMILY = {
+    "airv2x_attfusion": {},
+    "airv2x_intermediate": {},
+    "airv2x_maxfusion": {},
+    "airv2x_cobevt": {"fax_fusion": {
+        "input_dim": 64, "mlp_dim": 64, "window_size": 4, "dim_head": 16,
+        "drop_out": 0.0, "depth": 1, "mask": True}},
+    "airv2x_v2vnet": {"v2vfusion": {
+        "voxel_size": [0.4, 0.4, 4], "downsample_rate": 4, "num_iteration": 1,
+        "in_channels": 64, "gru_flag": True, "agg_operator": "avg",
+        "conv_gru": {"H": 48, "W": 48, "kernel_size": [3, 3],
+                     "num_layers": 1}}},
+    "airv2x_when2com": {"when2com_fusion": {
+        "voxel_size": [0.4, 0.4, 4], "downsample_rate": 4, "num_iteration": 2,
+        "in_channels": 64, "query_size": 8, "key_size": 32, "mode": "softmax",
+        "H": 48, "W": 48}},
+}
+# the family members with a seg config
+FAMILY_SEG = ("airv2x_cobevt", "airv2x_v2vnet", "airv2x_when2com")
+
+
+def tiny_family_hypes(hypes: dict, name: str, task: str = "det") -> dict:
+    """The tiny config (``hypes``, loaded by either package) as the family
+    model ``name`` (TINY_FAMILY) for ``task``, det or seg."""
+    hypes = copy.deepcopy(hypes)
+    hypes["model"]["core_method"] = name
+    hypes["model"]["args"].update(copy.deepcopy(TINY_FAMILY[name]))
+    hypes["task"] = hypes["model"]["args"]["task"] = task
+    return hypes
 
 
 def tiny_scope_hypes(resnet: bool = True, mode: str = "Deform") -> dict:
@@ -481,6 +546,9 @@ K4_STAGES = ((6, 100, 352, 64), (6, 50, 176, 128), (6, 25, 88, 256))
 
 # csrc/pillar_encode.cu's kernels, by name in a profile
 K1_KERNELS = ("k1_leader_kernel", "k1_scatter_kernel", "k1_epilogue_kernel")
+# the port's kernels on the serving paths (K1, K2, K4), launched through
+# ctypes: by name in a profile
+PORT_KERNELS = K1_KERNELS + ("quad_iou_kernel", "conv3x3_wgmma_kernel")
 K1_TOL = 1e-4  # f32: only the order of the atomic residual sums differs
 # bf16 output, absolute plus relative: one bf16 rounding (2^-8 relative)
 # of values that agree in f32 to K1_TOL
@@ -1222,8 +1290,8 @@ def no_mark(name):
     """The ``mark`` of an untimed run."""
 
 
-def time_path(label, step, scenes, want):
-    """Warm-up, then ``N_RUNS`` timed runs over ``scenes``. ``step(batch,
+def time_path(label, step, scenes, want, runs=N_RUNS):
+    """Warm-up, then ``runs`` timed runs over ``scenes``. ``step(batch,
     mark)`` runs one scene and calls ``mark`` at its stage boundaries.
     Launch counts are reset just before the timed runs and must equal
     ``want`` (per scene) times the scenes run."""
@@ -1236,7 +1304,7 @@ def time_path(label, step, scenes, want):
     torch.cuda.reset_peak_memory_stats()
     marks, run_ms = [], []
     kernels.reset_launch_counts()
-    for r in range(N_RUNS):
+    for r in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = []
@@ -1255,7 +1323,7 @@ def time_path(label, step, scenes, want):
     host_ms = {s: statistics.median(p[1][s] for p in per) for s in per[0][1]}
     ms = statistics.median(run_ms)
     print(f"{label}: {ms:.3f} ms/scene, {1e3 / ms:.3f} scenes/s "
-          f"(median of {N_RUNS} runs of {len(scenes)} scenes; ms/scene of each "
+          f"(median of {runs} runs of {len(scenes)} scenes; ms/scene of each "
           f"run {[round(r, 3) for r in run_ms]})")
     print(f"{label} stage ms/scene, median of {len(marks)} scenes, device clock: "
           + json.dumps({k: round(v, 4) for k, v in stage_ms.items()}))
@@ -1263,7 +1331,7 @@ def time_path(label, step, scenes, want):
           + json.dumps({k: round(v, 4) for k, v in host_ms.items()}))
     print(f"{label} peak memory {peak / 2**20:.1f} MiB")
     print(f"{label} launches during the timed runs: {launches}")
-    n = N_RUNS * len(scenes)
+    n = runs * len(scenes)
     expect = {k: want.get(k, 0) * n for k in launches}
     if launches != expect:
         raise AssertionError(f"{label}: launch counts {launches}, expected "
@@ -1754,10 +1822,11 @@ def phase_camera(card, convs_per_scene):
                  "flop_floor_ms": total / BF16_OPS_PER_S * 1e3}
 
 
-def v2xvit_step(hypes, model):
-    """One V2X-ViT scene, det (decode and rotated NMS) or seg (class maps),
-    with its stages marked: encoder, backbone + shrink, transformer, heads,
-    decode."""
+def staged_step(hypes, model, stages=V2XVIT_STAGES):
+    """One scene of a model with the stage methods ``encode`` / ``backbone``
+    / ``fuse`` / ``heads`` (V2X-ViT, the intermediate family), det (decode
+    and rotated NMS) or seg (class maps), with its stages marked by
+    ``stages`` (encoder, backbone + shrink, fusion, heads) and decode."""
     from airv2x_tpu_torch.data.postprocess import decode_segmentation
 
     if model.task == "det":
@@ -1771,13 +1840,13 @@ def v2xvit_step(hypes, model):
     def run(batch, mark):
         with torch.inference_mode():
             x = model.encode(batch, mark)
-            mark(V2XVIT_STAGES[0])
+            mark(stages[0])
             feats = model.backbone(x)
-            mark(V2XVIT_STAGES[1])
+            mark(stages[1])
             fused = model.fuse(feats, batch)
-            mark(V2XVIT_STAGES[2])
+            mark(stages[2])
             out = model.heads(fused)
-            mark(V2XVIT_STAGES[3])
+            mark(stages[3])
             res = decode(out)
             mark(last)
         return out, res
@@ -1849,14 +1918,118 @@ def transformer_ops(enc, batch, hw, needed):
     return parts
 
 
+def family_ops(hypes, batch, shape, needed):
+    """Operations (2 per multiply-add) of an intermediate-family fusion on
+    one batch, by part, from the configuration (``hypes``), the batch's
+    agents and poses and the agents' map ``shape`` (C, H, W).
+
+    ``needed``: the work the function needs. Only present agents' maps are
+    read (as V2VNet senders, When2com keys and summands, CoBEVT keys under
+    ``mask``, max and attention summands); V2VNet's last round needs only
+    the ego receiver, each of its messages only where the ROI keeps the
+    pixel, and its GRU, run from a zero hidden state, only the input half of
+    each conv; When2com's query only the ego. Otherwise, the work the port
+    (and the JAX package) executes: every slot, receiver and pixel, and both
+    halves of each GRU conv. The warps, softmax, LayerNorm, BatchNorm and
+    the elementwise passes are not counted by either."""
+    from airv2x_tpu_torch.ops.warp import (
+        normalized_pairwise_affine, warp_affine_normalized)
+
+    args = hypes["model"]["args"]
+    name = hypes["model"]["core_method"]
+    c, h, w = shape
+    p = h * w
+    agents = batch["agent_mask"].cpu()
+    b, l = agents.shape
+    present = [int(n) for n in agents.sum(1)] if needed else [l] * b
+    parts = {}
+
+    def add(part, ops):
+        parts[part] = parts.get(part, 0) + int(ops)
+
+    if name in ("airv2x_attfusion", "airv2x_intermediate"):
+        for n in present:  # the ego's scores and the weighted sum
+            add("ego attention", 2 * 2 * n * p * c)
+    elif name == "airv2x_maxfusion":
+        for n in present:
+            add("max", n * p * c)
+    elif name == "airv2x_cobevt":
+        fax = args["fax_fusion"]
+        mlp, ws, dh = int(fax["mlp_dim"]), int(fax["window_size"]), int(fax["dim_head"])
+        heads, tokens = c // dh, l * p
+        for i in range(b):
+            keys = present[i] if fax.get("mask") else l
+            for _ in range(2 * int(fax["depth"])):  # window and grid passes
+                add("window Linears", 2 * tokens * 4 * c * c)
+                add("feed-forward Linears", 2 * 2 * tokens * c * mlp)
+                # per window: (L ws^2 queries) x (keys ws^2) scores, then
+                # the weighted values
+                add("window attention", 2 * 2 * (p // (ws * ws)) * heads
+                    * (l * ws * ws) * (keys * ws * ws) * dh)
+            add("output Linear", 2 * p * c * c)
+    elif name == "airv2x_v2vnet":
+        v2v = args["v2vfusion"]
+        iters = int(v2v["num_iteration"])
+        ks = v2v["conv_gru"]["kernel_size"]
+        ks = ks[0] if isinstance(ks[0], (list, tuple)) else ks
+        taps = int(ks[0]) * int(ks[1])
+        gru = bool(v2v.get("gru_flag", True))
+        pix = torch.full((b, l, l), p, dtype=torch.int64)  # per (i, j) pair
+        if needed:
+            aff = normalized_pairwise_affine(
+                batch["pairwise_t_full"].cpu(), h, w, v2v["voxel_size"][0],
+                v2v["downsample_rate"]).reshape(-1, 2, 3)
+            ones = torch.ones((1, h, w, 1))
+            roi = warp_affine_normalized(ones, aff, torch.zeros(
+                len(aff), dtype=torch.int64)) > 0.5
+            pix = roi.reshape(b, l, l, -1).sum(-1) * agents[:, None, :]
+        for r in range(iters):
+            last = r == iters - 1
+            for i in range(b):
+                if not needed:
+                    receivers = range(l)
+                else:  # present receivers, only the ego in the last round
+                    receivers = [0] if last else [
+                        k for k in range(l) if agents[i, k]]
+                for k in receivers:
+                    add("message conv", 2 * int(pix[i, k].sum()) * 2 * c * c * 9)
+                    if gru:
+                        cin = 2 * c if needed else 3 * c
+                        add("GRU convs", 2 * p * cin * 3 * c * taps)
+        add("output Linear", 2 * b * p * c * c)
+    elif name == "airv2x_when2com":
+        from airv2x_tpu_torch.models.fusion.when2com import POLICY_PLAN
+
+        wc = args["when2com_fusion"]
+        key, query = int(wc["key_size"]), int(wc["query_size"])
+        hh, ww, cin, conv = h, w, c, 0
+        for filters, stride in POLICY_PLAN:
+            hh, ww = _down((hh, ww), stride)
+            conv += _conv_ops(1, (hh, ww), cin, filters, 3)
+            cin = filters
+        flat = hh * ww * cin
+
+        def mlp(out):
+            return 2 * (flat * 256 + 256 * 128 + 128 * out)
+
+        for n in present:
+            add("policy convs", n * conv)
+            add("key and query MLPs", n * mlp(key) + mlp(query) + 2 * query * key)
+            add("agent attention", 2 * n * key + 2 * n * p * c)
+    else:
+        raise ValueError(f"no operation count for {name}")
+    return parts
+
+
 def transformer_busy(model, run, scenes, n=3):
     """Device ms per scene of the V2X-ViT transformer's parts over a
     profile window of ``n`` scenes: each part's forward runs inside a
     profiler range opened and closed by module hooks, and a range's device
     time is that of the kernels launched inside it. What no part holds
     (the ROI mask, the GELU and the FFN's residual add, the permutes at the
-    transformer's entry and exit) is the transformer stage's rest."""
-    from torch.autograd import DeviceType
+    transformer's entry and exit) is the transformer stage's rest; each
+    kernel goes to the innermost range around its launch
+    (``launch_ranges``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from airv2x_tpu_torch.models.fusion.v2xvit import (
@@ -1895,17 +2068,12 @@ def transformer_busy(model, run, scenes, n=3):
     finally:
         for h in handles:
             h.remove()
-    busy, stage = {}, 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU:
-            continue
-        us = _device_us(e)
-        if e.name.startswith("v2xvit "):
-            key = e.name.removeprefix("v2xvit ")
-            busy[key] = busy.get(key, 0.0) + us / 1e3 / n
-        elif e.name == f"stage {V2XVIT_STAGES.index('transformer')}":
-            stage += us / 1e3 / n
-    busy["rest"] = stage - sum(busy.values())
+    busy = {}
+    stage = f"stage {V2XVIT_STAGES.index('transformer')}"
+    for key, us in launch_ranges(prof, ("v2xvit ", "stage ")).items():
+        if key.startswith("v2xvit ") or key == stage:
+            part = key.removeprefix("v2xvit ") if key != stage else "rest"
+            busy[part] = busy.get(part, 0.0) + us / 1e3 / n
     return {k: round(v, 4) for k, v in busy.items()}
 
 
@@ -1934,7 +2102,7 @@ def phase_v2xvit(card):
     per_pass = sum(hypes["model"]["args"]["modality_fusion"][
         "base_bev_backbone"]["layer_nums"])
     assert per_pass == 16, per_pass
-    run = v2xvit_step(hypes, model)
+    run = staged_step(hypes, model)
     enc = hypes["model"]["args"]["transformer"]["encoder"]
     ops = {kind: transformer_ops(enc, scenes[0], det_decoder(hypes)[1],
                                  needed=kind == "needed")
@@ -1959,7 +2127,7 @@ def phase_v2xvit(card):
     for task, path in (("det", V2XVIT), ("seg", V2XVIT_SEG)):
         if task == "seg":  # the det model went before the f32 check
             hypes, model = v2xvit_model(path)
-            run = v2xvit_step(hypes, model)
+            run = staged_step(hypes, model)
         res = {}
         # both modes' timed runs before the profile windows, as phase 10
         for mode in ("auto", "pallas"):
@@ -2362,6 +2530,344 @@ def scope_f32_vs_cpu(card, hypes):
             "margins": margins, "same": same, "cpu_s": secs["cpu"]}
 
 
+# phase 15's configurations: (task, YAML name) under hypes_yaml/airv2x/lidar;
+# intermediate.yaml names the class of att_fusion.yaml and is only built
+FAMILY_DIR = os.path.join(REPO, "hypes_yaml/airv2x/lidar")
+FAMILY_PATHS = (("det", "att_fusion"), ("det", "max_fusion"), ("det", "cobevt"),
+                ("det", "v2vnet"), ("det", "when2com"), ("seg", "cobevt"),
+                ("seg", "v2vnet"), ("seg", "when2com"))
+FAMILY_RUNS = 2  # timed runs per path and mode, after a warm-up
+# phase 4f: the poses seed of the tiny family's scene, the first from 1 up
+# whose V2VNet ROI samples lie more than ROI_MARGIN from 0.5 (1: 1.49e-5),
+# and init_random_'s seed of its models, the first from 3 up whose decoded
+# IoUs on the CPU lie more than ROI_MARGIN from the NMS threshold in every
+# det model and conv mode
+TINY_FAMILY_SEED = 3
+TINY_FAMILY_POSES = 2
+
+
+def family_path(task, name):
+    return os.path.join(FAMILY_DIR, task, f"{name}.yaml")
+
+
+def tiny_family_scene(hypes):
+    """Phase 4f's scene (numpy, batch 1): the tiny config's ``make_scene``
+    with its drone slot absent, perturbed poses and ``pairwise_t_full``."""
+    from airv2x_tpu_torch.data.synthetic import make_scene, perturb_poses
+    from airv2x_tpu_torch.models.base import SlotLayout
+
+    b, _ = make_scene(np.random.default_rng(2),
+                      SlotLayout.from_args(hypes["model"]["args"]),
+                      num_objects=6, points_per_agent=2048, pts_per_box=60,
+                      lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                      num_agents={"vehicle": 2, "rsu": 1, "drone": 0})
+    return perturb_poses(with_lead(b), np.random.default_rng(TINY_FAMILY_POSES))
+
+
+def v2vnet_roi_samples(hypes, pairwise_t_full):
+    """V2VNet's ROI samples (the ones canvas warped by every (receiver,
+    sender) affine, which its mask thresholds at 0.5) on
+    ``pairwise_t_full``'s device, at the agents' map size (the config's
+    ``conv_gru`` H x W)."""
+    from airv2x_tpu_torch.ops.warp import (
+        normalized_pairwise_affine, warp_affine_normalized)
+
+    v2v = hypes["model"]["args"]["v2vfusion"]
+    hw = int(v2v["conv_gru"]["H"]), int(v2v["conv_gru"]["W"])
+    aff = normalized_pairwise_affine(pairwise_t_full, hw[0], hw[1],
+                                     v2v["voxel_size"][0],
+                                     v2v["downsample_rate"]).reshape(-1, 2, 3)
+    ones = torch.ones((1,) + tuple(hw) + (1,), device=aff.device)
+    idx = torch.zeros(len(aff), dtype=torch.int64, device=aff.device)
+    return warp_affine_normalized(ones, aff, idx)
+
+
+def v2vnet_roi_margin(hypes, pairwise_t_full):
+    """The ROI samples' smallest distance from 0.5."""
+    return float((v2vnet_roi_samples(hypes, pairwise_t_full) - 0.5).abs().min())
+
+
+def phase_tiny_family():
+    """Phase 4f: the tiny intermediate-family models (TINY_FAMILY), det for
+    every registered name and seg for FAMILY_SEG, on the card against the
+    same weights on the CPU, f32 with TF32 off and pinned cuDNN, in ``auto``
+    and ``pallas``, on a scene with an absent agent and perturbed
+    ``pairwise_t_full``: outputs within TINY_TOL x (1 + scale), equal keep
+    sets, K1 3 / K4a 3 (``pallas``; the tiny backbone's 3 layers) / K2 1
+    (det) launches asserted, and the ROI and NMS margins bounded."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    base = load_yaml(TINY)
+    scene = tiny_family_scene(base)
+    batch = {d: batch_to_torch(scene, d) for d in ("cpu", "cuda")}
+    per_pass = sum(base["model"]["args"]["modality_fusion"][
+        "base_bev_backbone"]["layer_nums"])
+    out = {}
+    try:
+        for name, task in ([(n, "det") for n in TINY_FAMILY]
+                           + [(n, "seg") for n in FAMILY_SEG]):
+            hypes = tiny_family_hypes(base, name, task)
+            det = task == "det"
+            keys = (("psm", "rm", "obj") if det
+                    else ("dynamic_seg", "static_seg")) + ("comm_rate",)
+            models = {d: init_random_(build_model(hypes, device=d),
+                                      seed=TINY_FAMILY_SEED)
+                      for d in ("cpu", "cuda")}
+            for mode in ("auto", "pallas"):
+                res = {}
+                for d, model in models.items():
+                    decode, _ = det_decoder(hypes, d, TINY_SCOPE_TOP_K)
+                    kernels.reset_launch_counts()
+                    with conv_mode(mode), torch.inference_mode():
+                        o = model(batch[d])
+                        dets = decode(o) if det else None
+                    if d == "cuda":
+                        torch.cuda.synchronize()
+                    res[d] = (o, dets, dict(kernels.LAUNCHES))
+                n = res["cuda"][2]
+                want = {"pillar_encode": 3, "quad_iou": int(det),
+                        "conv3x3": per_pass if mode == "pallas" else 0}
+                if n != {k: want.get(k, 0) for k in n}:
+                    raise AssertionError(f"tiny {name} {task} {mode}: {n}")
+                margins = {}
+                if det:
+                    margins["nms"] = nms_margin(res["cpu"][1],
+                                                hypes["postprocess"]["nms_thresh"])
+                if name == "airv2x_v2vnet":
+                    margins["roi"] = v2vnet_roi_margin(
+                        hypes, batch["cpu"]["pairwise_t_full"])
+                label = (f"phase 4f tiny {name} {task} {mode} card vs CPU "
+                         f"({n['pillar_encode']} K1, {n['conv3x3']} K4a, "
+                         f"{n['quad_iou']} K2 launches; margins "
+                         + json.dumps({k: float(f"{v:.3e}") for k, v in margins.items()})
+                         + f", limit {ROI_MARGIN})")
+                compare(label, res["cuda"][0], res["cpu"][0], keys)
+                kept = None
+                if det:
+                    same = bool(torch.equal(res["cuda"][1].mask.cpu(),
+                                            res["cpu"][1].mask))
+                    kept = int(res["cpu"][1].mask.sum())
+                    print(f"phase 4f tiny {name} {mode}: keep sets card == CPU "
+                          f"{same}, {kept} kept")
+                    if not same or not kept:
+                        raise AssertionError(f"tiny {name} {mode}: keep sets "
+                                             f"{same}, {kept} kept")
+                if margins and min(margins.values()) <= ROI_MARGIN:
+                    raise AssertionError(f"tiny {name} {task}: margins {margins}")
+                out[f"{name} {task} {mode}"] = {"margins": margins, "kept": kept}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    return out
+
+
+def family_model(path, device="cuda"):
+    """The cut config at ``path`` and its f32 model with phase 15's seeded
+    random weights (``init_random_`` seed 0, drawn on ``device``)."""
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    hypes = cut_hypes(path)
+    model = build_model(hypes, device=device)
+    return hypes, init_random_(model, seed=0, device=device)
+
+
+def phase_family(card):
+    """Phase 15: the intermediate family at full width (FAMILY_PATHS, cut
+    and scened as phase 5, bf16, seeded random weights drawn on the card),
+    each path in ``auto`` and ``pallas``, FAMILY_RUNS timed runs after a
+    warm-up: the fusion's operations per scene (the work its function
+    needs and the work the code executes, from the configuration's shapes,
+    ``family_ops``) and their time at the dense bf16 peak; ms/scene, stage
+    times (encoder, backbone + shrink, fusion, heads, decode), peak memory,
+    launch counts (K1 3, K2 1 per det scene, K4a 16 in ``pallas``,
+    asserted), a ``pallas`` profile window with the device busy per stage
+    and the idle share, kept detections or class histograms; then one
+    perturbed det scene per fusion kind (cobevt, v2vnet, when2com) through
+    the f32 model on the card and on the CPU, and V2VNet scoring phase 13's
+    on-disk scenario through ``inference_multi_scenario`` in ``pallas``."""
+    from airv2x_tpu_torch.models.intermediate_models import Airv2xAttFusion
+    from airv2x_tpu_torch.utils.weights import cast_weights_
+
+    hypes, model = family_model(family_path("det", "intermediate"))
+    if type(model) is not Airv2xAttFusion:
+        raise AssertionError(f"intermediate.yaml built {type(model)}")
+    per_pass = sum(hypes["model"]["args"]["modality_fusion"][
+        "base_bev_backbone"]["layer_nums"])
+    scenes, _ = lidar_scenes(hypes, model.layout)
+    del model
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = True, False
+    out = {"card": card}
+    for task, name in FAMILY_PATHS:
+        hypes, model = family_model(family_path(task, name))
+        cast_weights_(model, torch.bfloat16)
+        label = f"phase 15 {task}/{name}"
+        with torch.inference_mode():
+            shape = tuple(model.backbone(model.encode(scenes[0])).shape[2:])
+        ops = {kind: family_ops(hypes, scenes[0], shape, needed=kind == "needed")
+               for kind in ("needed", "executed")}
+        at_peak = {kind: sum(o.values()) / BF16_OPS_PER_S * 1e3
+                   for kind, o in ops.items()}
+        for kind, o in ops.items():
+            print(f"{label} [{card}] fusion operations per scene, {kind}: "
+                  f"{sum(o.values()) / 1e12:.4f} T ("
+                  + json.dumps({k: round(v / 1e12, 4) for k, v in o.items()})
+                  + f"); at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s of dense bf16 "
+                  f"{at_peak[kind]:.4f} ms")
+        weights = sum(p.numel() * p.element_size()
+                      for p in (model.fusion_net or torch.nn.Module()).parameters())
+        print(f"{label} [{card}] fusion weights {weights / 1e6:.1f} MB, read "
+              f"once per scene: {weights / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        run = staged_step(hypes, model, FAMILY_STAGES)
+        res = {}
+        for mode in ("auto", "pallas"):
+            want = {"pillar_encode": 3}
+            if task == "det":
+                want["quad_iou"] = 1
+            if mode == "pallas":
+                want["conv3x3"] = per_pass
+            with conv_mode(mode):
+                res[mode] = time_path(f"{label} {mode} [{card}]", run, scenes,
+                                      want, runs=FAMILY_RUNS)
+            res[mode]["launches_per_scene"] = want
+        with conv_mode("pallas"):
+            res["pallas"]["profile"] = phase_profile(
+                f"{label} pallas [{card}]", run, scenes, top=10)
+        for mode in ("auto", "pallas"):
+            results = res[mode].pop("results")
+            if task == "det":
+                res[mode]["kept"] = check_det(f"{label} {mode}", results,
+                                              det_decoder(hypes)[1])
+            else:
+                res[mode]["class_hist"] = check_seg(f"{label} {mode}", results,
+                                                    hypes["model"]["args"])
+        res["fusion_tflop"] = {kind: {k: v / 1e12 for k, v in o.items()}
+                               for kind, o in ops.items()}
+        res["fusion_floor_ms"] = at_peak["needed"]
+        res["fusion_weight_mb"] = weights / 1e6
+        res["fusion_executed_ms_at_peak"] = at_peak["executed"]
+        out[f"{task}/{name}"] = res
+        del model, run
+        torch.cuda.empty_cache()
+    del scenes
+    torch.cuda.empty_cache()
+    out["perturbed_f32_card_vs_cpu"] = {
+        name: family_f32_vs_cpu(card, name) for name in ("cobevt", "v2vnet",
+                                                         "when2com")}
+    out["on_disk_v2vnet"] = family_on_disk(card)
+    return out
+
+
+def family_f32_vs_cpu(card, name):
+    """One perturbed det scene (``perturbed_scene``: perturbed poses and
+    ``pairwise_t_full``) through the full-width f32 ``name`` model (phase
+    15's weights, copied to the CPU; TF32 off, pinned cuDNN, ``auto``) on
+    the card and on the CPU: the fused ego map and psm / rm / obj within
+    TINY_TOL x (1 + scale); V2VNet's ROI mask on the card equal to the
+    CPU's (at full width some of its 1.27 M samples lie within 1e-5 of 0.5,
+    or on it: the two compute the sample coordinates bit for bit)."""
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+
+    hypes, card_model = family_model(family_path("det", name))
+    models = {"cpu": build_model(hypes, device="cpu"), "cuda": card_model}
+    models["cpu"].load_state_dict(card_model.state_dict())
+    scene = perturbed_scene(hypes, card_model.layout)
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    outs, secs, roi = {}, {}, {}
+    try:
+        for d, model in models.items():
+            batch = batch_to_torch(scene, d)
+            t0 = time.perf_counter()
+            with conv_mode("auto"), torch.inference_mode():
+                fused = model.fuse(model.backbone(model.encode(batch)), batch)
+                outs[d] = dict(model.heads(fused), fused=fused)
+            torch.cuda.synchronize()
+            secs[d] = time.perf_counter() - t0
+            if name == "v2vnet":
+                roi[d] = v2vnet_roi_samples(hypes, batch["pairwise_t_full"]).cpu()
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    keys = ("fused", "psm", "rm", "obj")
+    errs = {k: float((outs["cuda"][k].cpu().double()
+                      - outs["cpu"][k].double()).abs().max()) for k in keys}
+    scales = {k: float(outs["cpu"][k].abs().max()) for k in keys}
+    note, margin = "", None
+    if roi:
+        margin = float((roi["cpu"] - 0.5).abs().min())
+        same = bool(torch.equal(roi["cuda"] > 0.5, roi["cpu"] > 0.5))
+        note = (f"; ROI mask card == CPU: {same}, samples' smallest distance "
+                f"from 0.5 {margin:.3e}, max|card - CPU| "
+                f"{float((roi['cuda'] - roi['cpu']).abs().max())}")
+        if not same:
+            raise AssertionError(f"phase 15 {name}: the ROI mask differs on "
+                                 "the card")
+    compare(f"phase 15 {name} perturbed det scene, f32, card vs CPU [{card}] "
+            f"(CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s{note})",
+            outs["cuda"], outs["cpu"], keys)
+    del models, card_model, outs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "scale": scales, "tol": TINY_TOL,
+            "cpu_s": secs["cpu"], "roi_margin": margin}
+
+
+def family_on_disk(card):
+    """Phase 13's on-disk scenario (``write_scenario``) scored once by the
+    V2VNet det model (phase 5's cut, bf16, ``eval_run_dir``'s seeded
+    weights) through ``inference_multi_scenario`` in ``pallas``: a finite
+    AP table, and K1 3, K4a 16 and K2 at least 2 (NMS and the AP) launches
+    per scene."""
+    import shutil
+
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.models.base import SlotLayout
+    from airv2x_tpu_torch.tools import inference_multi_scenario
+
+    work = scratch_dir("chip_smoke_family_")
+    try:
+        root = os.path.join(work, "test")
+        hypes, run_dir = eval_run_dir(family_path("det", "v2vnet"), root, work)
+        args = hypes["model"]["args"]
+        write_scenario(root, SlotLayout.from_args(args),
+                       hypes["preprocess"]["cav_lidar_range"],
+                       seg_hw=int(args["seg_hw"]), seg_res=float(args["seg_res"]))
+        n = SCENARIO_STAMPS
+        with conv_mode("pallas"):
+            kernels.reset_launch_counts()
+            res = inference_multi_scenario.main(
+                ["--model_dir", run_dir, "--device", "cuda"])
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        per = {k: v / n for k, v in launches.items()}
+        label = f"phase 15 v2vnet on disk, pallas [{card}]"
+        print(f"{label}: {res['ms_per_scene']:.3f} ms/scene (load + forward + "
+              f"decode + AP, one run, cold), launches per scene {per}; "
+              + json.dumps(eval_table("det", res)))
+        if not (launches["pillar_encode"] == 3 * n and launches["conv3x3"] == 16 * n
+                and launches["quad_iou"] >= 2 * n):
+            raise AssertionError(f"{label}: launches {launches} over {n} scenes")
+        if not all(np.isfinite(list(_numbers(res)))):
+            raise AssertionError(f"{label}: a non-finite metric: {res}")
+        return {"table": eval_table("det", res), "ms_per_scene": res["ms_per_scene"],
+                "launches": launches, "launches_per_scene": per}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # Phase 13's on-disk scenario, in the layout tests/fixture_utils.py:make_fixture
 # writes: carriers' world poses and the lidar mount as the AirV2X metadata
 # gives them (x, y, z in m; roll, yaw, pitch in degrees)
@@ -2759,12 +3265,48 @@ class RangeMarks:
         self.range.__exit__(None, None, None)
 
 
-def _device_us(event):
-    """A profiler range's device microseconds (the attribute's name differs
-    between releases)."""
-    if hasattr(event, "device_time_total"):
-        return event.device_time_total
-    return event.cuda_time_total
+def port_kernel(name: str) -> bool:
+    return any(k in name for k in PORT_KERNELS)
+
+
+def launch_ranges(prof, prefixes):
+    """Device microseconds by profiler range: every kernel, copy and memset
+    that PyTorch launched goes to the one range, among those whose name
+    starts with one of ``prefixes``, that holds its launch: the innermost
+    range open at the runtime call (cudaLaunchKernel, cudaMemsetAsync, ...)
+    whose correlation id the device event carries. Read from the profiler's
+    raw events, each device event once. The ranges' own spans on the
+    device's timeline and the port's kernels (PORT_KERNELS, launched
+    through ctypes) are left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    ranges, launches = [], {}
+    for e in events:
+        if e.device_type() != DeviceType.CPU:
+            continue
+        if e.name().startswith(prefixes):
+            ranges.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.linked_correlation_id() > 0:  # a runtime call: its own
+            launches[e.correlation_id()] = e.start_ns()  # id is its launch's
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    out = {}
+    for d in events:
+        if (d.device_type() != DeviceType.CUDA or d.name().startswith(prefixes)
+                or port_kernel(d.name())
+                or d.correlation_id() not in launches):
+            continue
+        t = launches[d.correlation_id()]
+        # the latest-opened range still open at t: the innermost (the
+        # ranges of one thread nest)
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and ranges[i][1] < t:
+            i -= 1
+        if i >= 0:
+            name = ranges[i][2]
+            out[name] = out.get(name, 0.0) + (d.end_ns() - d.start_ns()) / 1e3
+    return out
 
 
 def phase_profile(label, run, scenes, top=15, unit="scene"):
@@ -2786,16 +3328,11 @@ def phase_profile(label, run, scenes, top=15, unit="scene"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     stage_busy = {}
-    for e in prof.events():
-        # the host-side ranges: their device time is that of the kernels
-        # launched inside them (the ranges' own spans on the device's
-        # timeline are no kernels and are left out)
-        if e.name.startswith("stage ") and e.device_type == DeviceType.CPU:
-            i = int(e.name.split()[1])
-            if i < len(marks.names):
-                us = _device_us(e)
-                name = marks.names[i]
-                stage_busy[name] = stage_busy.get(name, 0.0) + us / 1e3 / n
+    for key, us in launch_ranges(prof, ("stage ",)).items():
+        i = int(key.split()[1])
+        if i < len(marks.names):
+            name = marks.names[i]
+            stage_busy[name] = stage_busy.get(name, 0.0) + us / 1e3 / n
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key.startswith("stage "):
@@ -2813,12 +3350,17 @@ def phase_profile(label, run, scenes, top=15, unit="scene"):
           f"of {wall_ms / n:.3f} ms/{unit} wall under the profiler, idle share "
           f"{1 - busy / (wall_ms / n):.3f}; "
           f"{sum(r[1] for r in rows):.0f} kernels, copies and memsets/{unit}")
+    port_ms = sum(r[0] for r in rows if port_kernel(r[2]))
     if stage_busy:
         print(f"{label} device busy ms/{unit} by stage (the kernels PyTorch "
-              "launched in it; the port's own kernels, launched through ctypes, "
-              f"are in no stage; {sum(stage_busy.values()):.3f} in all): "
-              + json.dumps(
+              f"launched in it; {sum(stage_busy.values()):.3f} in all, and "
+              f"{port_ms:.3f} of the port's own kernels, K1 / K2 / K4, "
+              "launched through ctypes, counted apart): " + json.dumps(
                   {k: round(v, 4) for k, v in stage_busy.items()}))
+    if sum(stage_busy.values()) + port_ms > busy * (1 + 1e-6) + 1e-6:
+        raise AssertionError(
+            f"{label}: the stages' busy {sum(stage_busy.values())} and the "
+            f"port's kernels' {port_ms} exceed the window's {busy} ms")
     k1 = [r for r in rows if any(k in r[2] for k in K1_KERNELS)]
     print(f"{label} K1 kernels: {sum(r[0] for r in k1):.4f} ms/{unit} over "
           f"{sum(r[1] for r in k1):.1f} launches/{unit} (its table memset "
@@ -2827,7 +3369,8 @@ def phase_profile(label, run, scenes, top=15, unit="scene"):
         print(f"  {ms:8.4f} ms/{unit} {count:6.1f}x/{unit}  {name[:100]}")
     print(f"{label} clocks.sm, power.draw: {smi('clocks.sm,power.draw')}")
     return dict(busy_ms=busy, idle_share=1 - busy / (wall_ms / n),
-                device_ops=sum(r[1] for r in rows), stage_busy_ms=stage_busy)
+                device_ops=sum(r[1] for r in rows), stage_busy_ms=stage_busy,
+                port_kernels_ms=port_ms)
 
 
 def comm_cut_gaps(model, batch):
@@ -3147,6 +3690,7 @@ def main() -> int:
     phase_tiny_camera()
     phase_tiny_v2xvit()
     tiny_scope = phase_tiny_scope()
+    tiny_family = phase_tiny_family()
     n_f32 = phase_f32_pallas(model, scenes[0])
     if n_f32 != convs:
         raise AssertionError(f"f32 pallas scene ran {n_f32} conv3x3 launches")
@@ -3180,6 +3724,7 @@ def main() -> int:
         {k: ({kk: vv for kk, vv in v.items() if kk != "launches"}
              if k in ("auto", "pallas") else v) for k, v in scope.items()},
         tiny_card_vs_cpu=tiny_scope)}))
+    family = phase_family(card)
     ev = phase_eval(card)
     gate = phase_ap_gate(card)
     print(json.dumps({"eval": {"card": card, **{k: v for k, v in ev.items()
@@ -3194,18 +3739,24 @@ def main() -> int:
         "card": card, "tiny_card_vs_cpu": tiny_train,
         "det": {k: v for k, v in train_det.items() if k != "losses"},
         "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
+    print(json.dumps({"family": dict(family, tiny_card_vs_cpu=tiny_family)}))
     runs = {"det": det, "seg": seg, "camera": cam, "v2xvit det": v2x["det"],
             "v2xvit seg": v2x["seg"],
             "scope": {mode: scope[mode] for mode in ("auto", "pallas")}}
+    runs.update({f"family {path}": {mode: family[path][mode]
+                                    for mode in ("auto", "pallas")}
+                 for path in (f"{t}/{n}" for t, n in FAMILY_PATHS)})
     for path, res in runs.items():
         for mode, r in res.items():
             print(f"launches in the timed {path} {mode} runs: {r['launches']}")
+    disk = family["on_disk_v2vnet"]["launches"]
     launches = {k: sum(r["launches"][k] for res in runs.values()
-                       for r in res.values()) + ev["launches"][k]
+                       for r in res.values()) + ev["launches"][k] + disk[k]
                 for k in det["auto"]["launches"]}
-    print(f"launches in the counted phase 13 runs: {ev['launches']}")
-    print("launches over the timed main-path runs (phases 5, 7, 10, 11 and 12) "
-          f"and the counted phase 13 runs: {launches}")
+    print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
+          f"15's on-disk V2VNet run: {disk}")
+    print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12 and "
+          f"15) and the counted phase 13 and 15 CLI runs: {launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",

@@ -19,13 +19,15 @@ from airv2x_tpu.models.base import SlotLayout as JaxSlotLayout
 from airv2x_tpu.ops.anchors import generate_anchor_grid as jax_anchor_grid
 from airv2x_tpu_torch.config import load_yaml
 from airv2x_tpu_torch.data.synthetic import (
-    add_camera_inputs, batch_to_torch, make_scene)
+    add_camera_inputs, batch_to_torch, make_scene, perturb_poses)
 from airv2x_tpu_torch.models import build_model
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
 from airv2x_tpu_torch.models.nn import MaskedBatchNorm
+from airv2x_tpu_torch.models.registry import MODEL_REGISTRY
 from airv2x_tpu_torch.utils.weights import (
-    cast_weights_, init_flax_like_, init_random_, load_flax_variables)
+    cast_weights_, flax_state_dict, init_flax_like_, init_random_,
+    load_flax_variables)
 from tests.torch_port_helpers import (
     CAMERA, CHIP_SMOKE, FLAGSHIP, REPO, SCOPE, SEG, TINY, V2XVIT, V2XVIT_SEG,
     one_torch_thread, random_variables)
@@ -103,6 +105,31 @@ def test_add_camera_inputs_bit_identical(with_depth):
         for k in g:
             assert g[k].dtype == w[k].dtype, k
             np.testing.assert_array_equal(g[k], w[k], err_msg=f"{t} {k}")
+
+
+def test_perturb_poses_composes_pairwise_t_full():
+    """``pairwise_t_full[i, j]`` is ``pairwise_t[i]^-1 pairwise_t[j]``: its
+    ego row is ``pairwise_t``, its diagonal the identity, and its pairs
+    compose; the poses and delays are those drawn without it."""
+    scene, _ = make_scene(np.random.default_rng(3), SlotLayout((2, 2, 1)),
+                          points_per_agent=16, pts_per_box=4)
+    batch = {k: np.stack([v, v]) for k, v in scene.items()}
+    plain = {k: batch[k].copy() for k in ("pairwise_t", "prior_encoding")}
+    perturb_poses(batch, np.random.default_rng(4))
+    perturb_poses(plain, np.random.default_rng(4))
+    for k in plain:
+        np.testing.assert_array_equal(batch[k], plain[k])
+    full, pt = batch["pairwise_t_full"], batch["pairwise_t"]
+    assert full.shape == (2, 5, 5, 4, 4) and full.dtype == np.float32
+    assert np.abs(pt[:, 1:] - np.eye(4)).max() > 0.05
+    np.testing.assert_allclose(full[:, 0], pt, rtol=0, atol=1e-6)
+    for i in range(5):
+        np.testing.assert_allclose(full[:, i, i], np.broadcast_to(np.eye(4), (2, 4, 4)),
+                                   rtol=0, atol=1e-6)
+        for j in range(5):
+            for k in range(5):
+                np.testing.assert_allclose(full[:, i, j] @ full[:, j, k],
+                                           full[:, i, k], rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
@@ -363,6 +390,210 @@ def test_initialisers_cover_the_scope_leaves(init):
     assert torch.equal(again.temporal_fusion.sync_lstm.init_c, c)
 
 
+FAMILY_CONFIGS = [os.path.join(REPO, f"hypes_yaml/airv2x/lidar/{p}.yaml")
+                  for p in ("det/att_fusion", "det/intermediate",
+                            "det/max_fusion", "det/cobevt", "det/v2vnet",
+                            "seg/cobevt", "seg/v2vnet")]
+FAMILY_IDS = [p.split("lidar/")[1][:-5] for p in FAMILY_CONFIGS]
+
+
+def _batch_shapes(hypes):
+    """The abstract batch of a small ``make_scene`` call (batch 1)."""
+    import jax
+
+    layout = JaxSlotLayout.from_args(hypes["model"]["args"])
+    b, _ = jax_make_scene(np.random.default_rng(0), layout, points_per_agent=64,
+                          pts_per_box=8)
+    return jax.tree.map(lambda v: jax.ShapeDtypeStruct((1,) + v.shape, v.dtype), b)
+
+
+def _n_tensors(model):
+    return sum(t.numel() for k, t in model.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+
+
+@pytest.mark.parametrize("cfg", FAMILY_CONFIGS, ids=FAMILY_IDS)
+def test_bridge_fills_the_family_model(cfg):
+    """The full-width intermediate-family models other than When2com (15
+    slots): every flax leaf (encoder, backbone, shrink, the fusion's
+    auto-named scopes, heads) fills one tensor, strict. The flax variables'
+    shapes come from an abstract init, no forward runs."""
+    hypes = jax_load_yaml(cfg)
+    variables = random_variables(jax_build_model(hypes), _batch_shapes(hypes),
+                                 seed=6, train=False)
+    model = build_model(load_yaml(cfg), device="cpu")
+    load_flax_variables(model, variables)  # raises on any leftover
+    n_leaves = sum(len(v) for col in variables.values() for v in _leaves(col))
+    assert n_leaves == _n_tensors(model)
+    params = variables["params"]
+    method = hypes["model"]["core_method"]
+    if method == "airv2x_cobevt":
+        fax = params["fusion_net"]
+        assert sorted(fax) == ["Dense_0", "LayerNorm_0", "SwapFusionBlock_0",
+                               "SwapFusionBlock_1"]
+        blk = fax["SwapFusionBlock_1"]
+        assert sorted(blk) == [
+            "LayerNorm_0", "LayerNorm_1", "LayerNorm_2", "LayerNorm_3",
+            "WindowedAgentAttention_0", "WindowedAgentAttention_1",
+            "_FeedForward_0", "_FeedForward_1"]
+        tblk = model.fusion_net.blocks[1]
+        att = blk["WindowedAgentAttention_1"]
+        assert att["relative_position_bias"].shape == (29 * 7 * 7, 8)
+        np.testing.assert_array_equal(
+            tblk.attn[1].relative_position_bias.detach().numpy(),
+            att["relative_position_bias"])
+        np.testing.assert_array_equal(tblk.attn[1].to_out.weight.detach().numpy(),
+                                      att["Dense_1"]["kernel"].T)
+        np.testing.assert_array_equal(tblk.norms[2].weight.detach().numpy(),
+                                      blk["LayerNorm_2"]["scale"])
+        np.testing.assert_array_equal(tblk.ffn[0].down.bias.detach().numpy(),
+                                      blk["_FeedForward_0"]["Dense_1"]["bias"])
+    elif method == "airv2x_v2vnet":
+        v2v = params["fusion_net"]
+        assert set(v2v) == {"Conv_0", "ConvGRUCell_0", "Dense_0"}
+        np.testing.assert_array_equal(
+            model.fusion_net.gru.conv_can.weight.detach().numpy(),
+            v2v["ConvGRUCell_0"]["Conv_1"]["kernel"].transpose(3, 2, 0, 1))
+        assert model.fusion_net.gru.conv_gates.weight.shape == (512, 768, 3, 3)
+        np.testing.assert_array_equal(model.fusion_net.out.weight.detach().numpy(),
+                                      v2v["Dense_0"]["kernel"].T)
+    else:
+        assert "fusion_net" not in params and model.fusion_net is None
+
+
+def _cut_when2com(hypes, nx, ny):
+    """A When2com config (from either package's loader) with its BEV grid
+    cut to nx x ny cells of 0.4 m, and its fusion's map size to match."""
+    hypes["preprocess"]["cav_lidar_range"] = [-0.2 * nx, -0.2 * ny, -3.0,
+                                              0.2 * nx, 0.2 * ny, 1.0]
+    hypes["model"]["args"]["when2com_fusion"].update(H=ny // 2, W=nx // 2)
+    return hypes
+
+
+@pytest.mark.parametrize("task", ["det", "seg"])
+def test_bridge_names_and_shapes_of_the_when2com_model(task):
+    """The full-width When2com model (its two 563,200 -> 256 MLP inputs,
+    144 M weights each): the bridge's names and shapes equal the port's
+    state_dict, strict, from the abstract init and a model built on the meta
+    device, so no weight is materialised."""
+    import jax
+
+    path = os.path.join(REPO, f"hypes_yaml/airv2x/lidar/{task}/when2com.yaml")
+    hypes = jax_load_yaml(path)
+    jmodel = jax_build_model(hypes)
+    shapes = jax.eval_shape(
+        lambda b: jmodel.init({"params": jax.random.PRNGKey(0)}, b, train=False),
+        _batch_shapes(hypes))
+    zero = np.zeros((), np.float32)
+    views = jax.tree.map(lambda s: np.broadcast_to(zero, s.shape), shapes)
+    thypes = load_yaml(path)
+    args = dict(thypes["model"]["args"], preprocess=thypes["preprocess"],
+                postprocess=thypes["postprocess"])
+    with torch.device("meta"):
+        model = MODEL_REGISTRY["airv2x_when2com"](args)
+    sd = flax_state_dict(model, views)
+    want = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in sd.items()} == want
+    assert want["fusion_net.key_net.fc.0.weight"] == (256, 25 * 88 * 256)
+    assert want["fusion_net.query_net.fc.2.weight"] == (32, 128)
+    assert shapes["params"]["fusion_net"]["key_net"]["Dense_0"]["kernel"].shape == (
+        563200, 256)
+
+
+def test_bridge_fills_the_when2com_model_at_a_reduced_map():
+    """The When2com det config with its grid cut to 64 x 32 cells (maps of
+    16 x 32): the value bridge fills every tensor, strict, the MLPs' first
+    Linear from the kernel of the channels-last flatten."""
+    path = os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/when2com.yaml")
+    thypes = _cut_when2com(load_yaml(path), 64, 32)
+    jhypes = _cut_when2com(jax_load_yaml(path), 64, 32)
+    variables = random_variables(jax_build_model(jhypes), _batch_shapes(jhypes),
+                                 seed=7, train=False)
+    model = build_model(thypes, device="cpu")
+    load_flax_variables(model, variables)
+    n_leaves = sum(len(v) for col in variables.values() for v in _leaves(col))
+    assert n_leaves == _n_tensors(model)
+    w2c = variables["params"]["fusion_net"]
+    assert sorted(w2c) == ["Dense_0", "PolicyNet_0", "key_net", "query_net"]
+    kernel = w2c["key_net"]["Dense_0"]["kernel"]
+    assert kernel.shape == (4 * 8 * 256, 256)
+    np.testing.assert_array_equal(
+        model.fusion_net.key_net.fc[0].weight.detach().numpy(), kernel.T)
+    np.testing.assert_array_equal(
+        model.fusion_net.policy.blocks[4].bn.running_var.numpy(),
+        variables["batch_stats"]["fusion_net"]["PolicyNet_0"]["_ConvBNRelu_4"][
+            "BatchNorm_0"]["var"])
+
+
+def _family_small(name):
+    """A family model on the tiny config (its fusion at 64 channels), for
+    the cast and initialiser tests."""
+    hypes = CHIP_SMOKE.tiny_family_hypes(load_yaml(TINY), name)
+    return build_model(hypes, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["airv2x_cobevt", "airv2x_v2vnet",
+                                  "airv2x_when2com"])
+def test_cast_weights_keeps_the_family_f32_parts(name):
+    """Under the bf16 serving cast every BatchNorm (When2com's policy CNN
+    included) and LayerNorm (CoBEVT's) stays f32; the convs, Linears, GRU
+    and the relative position bias tables go bf16."""
+    model = cast_weights_(_family_small(name), torch.bfloat16)
+    keep = [m for m in model.modules() if isinstance(
+        m, (torch.nn.LayerNorm, torch.nn.BatchNorm2d, MaskedBatchNorm))]
+    for m in keep:
+        for t in list(m.parameters()) + list(m.buffers()):
+            if t.is_floating_point():
+                assert t.dtype == torch.float32, m
+    fusion = model.fusion_net
+    if name == "airv2x_cobevt":
+        assert sum(isinstance(m, torch.nn.LayerNorm) for m in keep) == 4 + 1
+        low = [fusion.blocks[0].attn[1].relative_position_bias,
+               fusion.blocks[0].attn[0].to_qkv.weight, fusion.blocks[0].ffn[1].up.bias,
+               fusion.out.weight]
+    elif name == "airv2x_v2vnet":
+        low = [fusion.msg_cnn.weight, fusion.gru.conv_gates.bias,
+               fusion.gru.conv_can.weight, fusion.out.weight]
+    else:
+        assert sum(isinstance(m, torch.nn.BatchNorm2d)
+                   for m in fusion.modules()) == 5
+        low = [fusion.policy.blocks[0].conv.weight, fusion.key_net.fc[0].weight,
+               fusion.query_net.fc[2].bias, fusion.query_proj.weight]
+    for t in low:
+        assert t.dtype == torch.bfloat16
+    assert model.det_heads.cls_head.weight.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("init", [init_flax_like_, init_random_],
+                         ids=["flax_like", "random"])
+@pytest.mark.parametrize("name", ["airv2x_cobevt", "airv2x_v2vnet",
+                                  "airv2x_when2com"])
+def test_initialisers_cover_the_family_leaves(init, name):
+    """Both initialisers reach every tensor of the fusion (none keeps the
+    NaN it was filled with): LayerNorms 1 / 0, the relative position bias
+    tables normal(0.02), convs and Linears by their rule; and they are
+    repeatable from their seed."""
+    model = _family_small(name)
+    with torch.no_grad():
+        for t in model.fusion_net.state_dict().values():
+            if t.is_floating_point():
+                t.fill_(float("nan"))
+    init(model, seed=5)
+    for k, t in model.fusion_net.state_dict().items():
+        assert not torch.isnan(t).any(), k
+    if name == "airv2x_cobevt":
+        for blk in model.fusion_net.blocks:
+            for att in blk.attn:
+                bias = att.relative_position_bias
+                assert 0.015 < float(bias.std()) < 0.025
+                assert abs(float(bias.mean())) < 0.005
+            for norm in blk.norms:
+                assert (norm.weight == 1).all() and (norm.bias == 0).all()
+    again = init(_family_small(name), seed=5)
+    for (k, a), b in zip(model.state_dict().items(), again.state_dict().values()):
+        assert torch.equal(a, b), k
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -405,7 +636,9 @@ def test_port_imports_no_jax():
     for module in ("ops/conv3x3.py", "ops/pillar_reduce.py", "ops/warp.py",
                    "models/heads.py", "models/nn.py", "models/camera/lss.py",
                    "models/camera/trunks.py", "models/fusion/v2xvit.py",
-                   "models/v2xvit_model.py", "data/airv2x_dataset.py",
+                   "models/v2xvit_model.py", "models/intermediate_models.py",
+                   "models/fusion/cobevt.py", "models/fusion/v2vnet.py",
+                   "models/fusion/when2com.py", "data/airv2x_dataset.py",
                    "data/augment.py", "data/camera.py", "data/loader.py",
                    "data/pcd.py", "data/prefetch.py", "eval/ap.py",
                    "eval/seg_metrics.py", "tools/chip_ap_gate.py",
