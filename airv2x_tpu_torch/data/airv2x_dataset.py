@@ -1,5 +1,5 @@
 """The AirV2X on-disk dataset -> fixed-shape samples (counterpart of
-airv2x_tpu/data/airv2x_dataset.py, LiDAR only).
+airv2x_tpu/data/airv2x_dataset.py).
 
   * directory walk ``root/<scenario>/timestamp_*/agent_*/`` with
     ``metadata.pkl`` / ``objects.pkl`` pickles and lidar ``.pcd`` files;
@@ -14,10 +14,13 @@ airv2x_tpu/data/airv2x_dataset.py, LiDAR only).
     range-cropped and padded to the static ``SlotLayout``;
   * objects deduped by id (``objects.pkl`` is global), converted to
     ego-frame hwl boxes and padded to ``max_num``;
+  * for each agent type with the ``cam`` modality, every chosen agent's
+    cameras loaded and augmented (``data/camera.py``) and stacked per type
+    into ``cam_<type>`` blocks over all slots;
   * for the seg task, the ego's dynamic and static BEV label maps.
 
-A config with a camera modality raises: the camera loader is not ported
-(ROADMAP §1 item 3).
+A BM2CP config raises: its lidar-depth projection is not ported (ROADMAP
+§1 item 5).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from airv2x_tpu_torch.data.camera import load_seg_labels
+from airv2x_tpu_torch.data.camera import (
+    load_agent_cam_inputs, load_seg_labels, stack_cam_slots)
 from airv2x_tpu_torch.data.pcd import load_pcd_into
 from airv2x_tpu_torch.models.base import AGENT_TYPES, SlotLayout
 from airv2x_tpu_torch.utils import transforms as tf
@@ -121,12 +125,20 @@ class AirV2XDataset:
         margs = hypes["model"]["args"]
         core = hypes["model"]["core_method"].lower()
         fusion = hypes.get("fusion", {})
-        if "bm2cp" in str(fusion.get("core_method", "")).lower() + core or any(
-                isinstance(margs.get(t), dict)
-                and "cam" in margs[t].get("modalities", []) for t in AGENT_TYPES):
+        if "bm2cp" in str(fusion.get("core_method", "")).lower() + core:
             raise NotImplementedError(
-                "camera inputs: the port's dataset loads LiDAR only (the "
-                "camera loader is ROADMAP §1 item 3)")
+                "BM2CP samples: the lidar-depth projection into the cameras "
+                "is not ported (ROADMAP §1 item 5)")
+        # the types that consume images: their LSS augmentation confs and
+        # whether their images carry the depth channel
+        self.cam_confs, self.cam_depth = {}, {}
+        for t in AGENT_TYPES:
+            tcfg = margs.get(t)
+            if isinstance(tcfg, dict) and "cam" in tcfg.get("modalities", []):
+                cam = tcfg["cam"]
+                self.cam_confs[t] = cam["data_aug_conf"]
+                self.cam_depth[t] = bool(cam.get("use_depth_gt")
+                                         or cam.get("depth_supervision"))
         self.layout = SlotLayout.from_args(margs)
         self.lidar_range = hypes["preprocess"]["cav_lidar_range"]
         self.max_points = int(hypes["preprocess"].get("max_points", 60000))
@@ -253,6 +265,7 @@ class AirV2XDataset:
         prior = np.zeros((L, 3), np.float32)
         pairwise = np.tile(np.eye(4, dtype=np.float32), (L, 1, 1))
         lidar_range = np.asarray(self.lidar_range, np.float32)
+        cam_slots = {tname: {} for tname in self.cam_confs}
         ego_dir = None
         for tname in AGENT_TYPES:
             sl = self.layout.slots(tname)
@@ -283,6 +296,12 @@ class AirV2XDataset:
                         # point at the grid centre
                         points[slot, 0] = 0.0
                         points_mask[slot, 0] = True
+                if tname in self.cam_confs:
+                    cam = load_agent_cam_inputs(
+                        a["path"], a["meta"], tname, self.cam_confs[tname],
+                        self.train, rng, with_depth=self.cam_depth[tname])
+                    if cam is not None:
+                        cam_slots[tname][slot] = cam
 
         eye = np.eye(4, dtype=np.float32)
         pairwise_batch = np.tile(eye, (L, 1, 1)) if self.proj_first else pairwise
@@ -308,6 +327,10 @@ class AirV2XDataset:
         batch = {"points": points, "points_mask": points_mask,
                  "agent_mask": agent_mask, "pairwise_t": pairwise_batch,
                  "pairwise_t_full": pairwise_full, "prior_encoding": prior}
+        # per type (L, Ncam, fH, fW, C) blocks, zero outside its agents' slots
+        for tname, slots_data in cam_slots.items():
+            if slots_data:
+                batch[f"cam_{tname}"] = stack_cam_slots(slots_data, L)
         if self.load_seg and ego_dir is not None:
             dyn, sta = load_seg_labels(ego_dir)
             if dyn is not None:

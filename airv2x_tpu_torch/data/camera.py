@@ -1,9 +1,22 @@
-"""The seg task's BEV label readers (counterpart of the label half of
-airv2x_tpu/data/camera.py: ``_binary_label_map`` and ``load_seg_labels``).
+"""Host-side camera inputs and the seg task's BEV label readers
+(counterpart of airv2x_tpu/data/camera.py, numpy and PIL only).
 
-Each agent dir of the AirV2X dataset holds 7 dynamic and 3 static BEV
-layer masks as PNGs. The camera image loader of the JAX module is not
-ported (ROADMAP §1 item 3).
+  * per-agent-type camera keys: the metadata keys in the reference's
+    order, each file stem the key without ``_camera``;
+  * ue4 -> LSS extrinsic conversion and its inverse;
+  * the CARLA 24-bit depth decode (metres) and its encoder;
+  * the LSS image augmentation: resize / crop / flip / rotate with the
+    post_rot / post_tran homography, drawn in the JAX package's order;
+  * imagenet normalization;
+  * ``load_agent_cam_inputs`` (one agent's cameras) and ``stack_cam_slots``
+    (the fixed per-slot blocks of one agent type);
+  * the 7 dynamic and 3 static BEV layer masks as class-id maps.
+
+Outputs are channel-last numpy arrays, the contract of
+``data.synthetic.add_camera_inputs``: imgs (Ncam, H, W, 3[+1]) float32,
+intrinsics (Ncam, 3, 3), rots / trans of the cam -> lidar matrix in LSS
+axes, post_rots / post_trans (3 x 3 / 3). The BM2CP lidar-depth projection
+and the OPV2V camera loader are not ported (ROADMAP §1 items 4-5).
 """
 
 from __future__ import annotations
@@ -12,12 +25,243 @@ import os
 
 import numpy as np
 
+# camera order per agent type: the metadata keys in the reference's order
+CAM_KEYS = {
+    "vehicle": (
+        "front_camera",
+        "front_left_camera",
+        "front_right_camera",
+        "rear_camera",
+        "rear_left_camera",
+        "rear_right_camera",
+    ),
+    "rsu": ("back_camera", "front_camera", "left_camera", "right_camera"),
+    "drone": ("bev_camera",),
+}
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
 DYNAMIC_SEG_FILES = tuple(f"map_dynamic_bev_layer_{i}.png" for i in range(7))
 STATIC_SEG_FILES = (
     "map_static_background.png",
     "map_static_lane.png",
     "map_static_road.png",
 )
+
+_UE4_TO_LSS_R = np.array(
+    [[0, 0, 1], [1, 0, 0], [0, -1, 0]], dtype=np.float32
+)  # x_new = y_old, y_new = -z_old, z_new = x_old
+
+# the aug keys ``sample_augmentation`` reads besides final_dim
+AUG_KEYS = ("H", "W", "resize_lim", "bot_pct_lim", "rot_lim")
+
+
+def ue4_to_lss(camera_to_lidar_matrix: np.ndarray) -> np.ndarray:
+    """UE4-convention extrinsic -> cam -> lidar matrix in LSS camera axes:
+    the inverse, right-multiplied by the axis swap, in float64, then f32."""
+    m = np.linalg.inv(np.asarray(camera_to_lidar_matrix, np.float64))
+    t = np.eye(4, dtype=np.float64)
+    t[:3, :3] = _UE4_TO_LSS_R
+    return (m @ t).astype(np.float32)
+
+
+def lss_to_ue4(cam_to_lidar_lss: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`ue4_to_lss` (scenario writers use it)."""
+    t = np.eye(4, dtype=np.float64)
+    t[:3, :3] = _UE4_TO_LSS_R
+    return np.linalg.inv(
+        np.asarray(cam_to_lidar_lss, np.float64) @ np.linalg.inv(t)
+    ).astype(np.float32)
+
+
+def decode_depth_carla(path: str) -> np.ndarray:
+    """CARLA RGB-encoded depth PNG -> metres (H, W) float32."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        rgb = np.asarray(img.convert("RGB"), np.uint32)
+    raw = rgb[..., 0] + rgb[..., 1] * 256 + rgb[..., 2] * 256 * 256
+    return (raw.astype(np.float64) / (256**3 - 1) * 1000.0).astype(np.float32)
+
+
+def encode_depth_carla(depth_m: np.ndarray) -> np.ndarray:
+    """Metres -> CARLA RGB uint8 encoding (scenario writers use it)."""
+    raw = np.clip(
+        np.round(depth_m.astype(np.float64) / 1000.0 * (256**3 - 1)), 0, 256**3 - 1
+    ).astype(np.uint32)
+    return np.stack(
+        [raw % 256, (raw // 256) % 256, (raw // 65536) % 256], axis=-1
+    ).astype(np.uint8)
+
+
+def sample_augmentation(conf: dict, train: bool, rng=None):
+    """The LSS augmentation of one camera -> (resize, resize_dims, crop,
+    flip, rotate_deg). Training draws resize, bottom crop, horizontal crop,
+    flip and rotation from ``rng`` in that order; eval takes the resize that
+    covers ``final_dim``, the mean bottom crop and the centred horizontal
+    crop. The crop's top may lie above the image (a negative ``crop_h``).
+    Raises KeyError naming the missing keys when ``conf`` lacks one of
+    AUG_KEYS, as the JAX package raises on the first."""
+    missing = [k for k in AUG_KEYS if k not in conf]
+    if missing:
+        raise KeyError(f"data_aug_conf lacks {missing}: the camera "
+                       "augmentation needs H, W, resize_lim, bot_pct_lim and "
+                       "rot_lim besides final_dim")
+    h, w = conf["H"], conf["W"]
+    fh, fw = conf["final_dim"]
+    if train:
+        rng = rng or np.random.default_rng()
+        resize = rng.uniform(*conf["resize_lim"])
+        resize_dims = (int(w * resize), int(h * resize))
+        new_w, new_h = resize_dims
+        crop_h = int((1 - rng.uniform(*conf["bot_pct_lim"])) * new_h) - fh
+        crop_w = int(rng.uniform(0, max(0, new_w - fw)))
+        flip = bool(conf.get("rand_flip")) and bool(rng.integers(0, 2))
+        rotate = float(rng.uniform(*conf["rot_lim"]))
+    else:
+        resize = max(fh / h, fw / w)
+        resize_dims = (int(w * resize), int(h * resize))
+        new_w, new_h = resize_dims
+        crop_h = int((1 - np.mean(conf["bot_pct_lim"])) * new_h) - fh
+        crop_w = int(max(0, new_w - fw) / 2)
+        flip, rotate = False, 0.0
+    crop = (crop_w, crop_h, crop_w + fw, crop_h + fh)
+    return resize, resize_dims, crop, flip, rotate
+
+
+def _rot2(deg: float) -> np.ndarray:
+    h = np.radians(deg)
+    return np.array(
+        [[np.cos(h), np.sin(h)], [-np.sin(h), np.cos(h)]], np.float32
+    )
+
+
+def img_transform(pil_imgs, resize, resize_dims, crop, flip, rotate):
+    """Apply one sampled augmentation to PIL images (PIL's default resize
+    filter, ``crop``, which fills a box outside the image with zeros,
+    ``FLIP_LEFT_RIGHT``, ``rotate``) -> (images, post_rot2, post_tran2), the
+    homography from original to augmented pixel coordinates."""
+    from PIL import Image
+
+    out = []
+    for img in pil_imgs:
+        img = img.resize(resize_dims)
+        img = img.crop(crop)
+        if flip:
+            img = img.transpose(method=Image.FLIP_LEFT_RIGHT)
+        img = img.rotate(rotate)
+        out.append(img)
+
+    post_rot = np.eye(2, dtype=np.float32) * resize
+    post_tran = -np.asarray(crop[:2], np.float32)
+    if flip:
+        a = np.array([[-1, 0], [0, 1]], np.float32)
+        b = np.array([crop[2] - crop[0], 0], np.float32)
+        post_rot = a @ post_rot
+        post_tran = a @ post_tran + b
+    a = _rot2(rotate)
+    b = np.array([crop[2] - crop[0], crop[3] - crop[1]], np.float32) / 2
+    b = a @ (-b) + b
+    return out, a @ post_rot, a @ post_tran + b
+
+
+def normalize_img(pil_img) -> np.ndarray:
+    """PIL RGB -> imagenet-normalized (H, W, 3) float32."""
+    arr = np.asarray(pil_img.convert("RGB"), np.float32) / 255.0
+    return (arr - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def load_agent_cam_inputs(agent_dir: str, meta: dict, agent_type: str,
+                          data_aug_conf: dict, train: bool, rng=None,
+                          with_depth: bool = True):
+    """Load and augment the cameras of one agent -> a dict of numpy arrays,
+    or None when none of its cameras is on disk (a missing camera is
+    skipped): imgs (N, fH, fW, 3[+1]), intrinsics (N, 3, 3), rots (N, 3, 3)
+    / trans (N, 3) of the LSS-axes cam -> lidar matrix, post_rots (N, 3, 3),
+    post_trans (N, 3). With ``with_depth`` the images always have 4
+    channels: the depth in metres (through a 16-bit PIL image, so that it
+    is cropped and resized with the rgb) or zeros where the depth PNG is
+    absent. One augmentation is drawn per camera, in camera order."""
+    from PIL import Image
+
+    imgs, intrins, rots, trans, post_rots, post_trans = [], [], [], [], [], []
+    for key in CAM_KEYS[agent_type]:
+        cam_path = os.path.join(agent_dir, key + ".png")
+        if not os.path.isfile(cam_path):
+            continue
+        depth_path = os.path.join(agent_dir, key.replace("camera", "depth") + ".png")
+        entry = meta[key]
+        intrin = np.asarray(entry["intrinsic"], np.float32).reshape(3, 3)
+        cam_to_lidar = ue4_to_lss(
+            np.asarray(entry["extrinsic"], np.float32).reshape(4, 4))
+
+        with Image.open(cam_path) as img:
+            img.load()
+            pil_list = [img]
+        has_depth = with_depth and os.path.isfile(depth_path)
+        if has_depth:
+            depth_m = decode_depth_carla(depth_path)
+            scaled = np.clip(depth_m * 65535.0 / 1000.0, 0, 65535).astype(
+                np.uint16)
+            pil_list.append(Image.fromarray(scaled))  # uint16 -> mode I;16
+
+        aug = sample_augmentation(data_aug_conf, train, rng)
+        pil_list, post_rot2, post_tran2 = img_transform(pil_list, *aug)
+
+        rgb = normalize_img(pil_list[0])
+        if has_depth:
+            d = np.asarray(pil_list[1], np.float32) * 1000.0 / 65535.0
+            img = np.concatenate([rgb, d[..., None]], axis=-1)
+        elif with_depth:
+            img = np.concatenate(
+                [rgb, np.zeros(rgb.shape[:2] + (1,), np.float32)], axis=-1)
+        else:
+            img = rgb
+        post_rot = np.eye(3, dtype=np.float32)
+        post_tran = np.zeros(3, np.float32)
+        post_rot[:2, :2] = post_rot2
+        post_tran[:2] = post_tran2
+
+        imgs.append(img)
+        intrins.append(intrin)
+        rots.append(cam_to_lidar[:3, :3])
+        trans.append(cam_to_lidar[:3, 3])
+        post_rots.append(post_rot)
+        post_trans.append(post_tran)
+
+    if not imgs:
+        return None
+    return {
+        "imgs": np.stack(imgs).astype(np.float32),
+        "intrinsics": np.stack(intrins),
+        "rots": np.stack(rots),
+        "trans": np.stack(trans),
+        "post_rots": np.stack(post_rots),
+        "post_trans": np.stack(post_trans),
+    }
+
+
+def stack_cam_slots(cam_slots: dict, num_slots: int) -> dict:
+    """{slot: one agent's camera dict} -> fixed (num_slots, ...) arrays,
+    zero outside the populated slots, the identity in ``post_rots``,
+    ``intrinsics`` and ``rots`` (which must stay invertible). Raises when
+    two agents carry different camera counts."""
+    first = next(iter(cam_slots.values()))
+    stacked = {}
+    for key, arr in first.items():
+        full = np.zeros((num_slots,) + arr.shape, arr.dtype)
+        if key in ("post_rots", "intrinsics", "rots"):
+            full[...] = np.eye(3, dtype=arr.dtype)
+        for slot, cam in cam_slots.items():
+            if cam[key].shape != arr.shape:
+                raise ValueError(
+                    f"camera block '{key}' shape {cam[key].shape} differs "
+                    f"from slot 0's {arr.shape} — agents of one type must "
+                    "carry the same number of cameras")
+            full[slot] = cam[key]
+        stacked[key] = full
+    return stacked
 
 
 def _binary_label_map(agent_dir: str, filenames) -> np.ndarray | None:

@@ -26,6 +26,14 @@ from airv2x_tpu_torch.utils.device import resolve_device
 SEG_KEYS = ("dynamic_seg_label", "static_seg_label")
 
 
+def stack(values):
+    """Stack one key's per-sample values: arrays into one array, nested
+    dicts (the ``cam_<type>`` blocks) leaf by leaf."""
+    if isinstance(values[0], dict):
+        return {k: np.stack([v[k] for v in values]) for k in values[0]}
+    return np.stack(values)
+
+
 class RealDataLoader:
     """Batches (a dict with ``labels``) from an on-disk dataset."""
 
@@ -86,7 +94,7 @@ class RealDataLoader:
                 "collate: dropping keys missing in some samples: %s",
                 sorted(dropped))
         batch = batch_to_torch(
-            {k: np.stack([b[k] for b in batches])
+            {k: stack([b[k] for b in batches])
              for k in sorted(common) if k not in SEG_KEYS}, self.device)
         gt = {k: np.stack([g[k] for g in gts]) for k in gts[0]}
 

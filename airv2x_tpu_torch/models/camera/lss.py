@@ -5,8 +5,9 @@ airv2x_tpu/models/camera/lss.py).
   * geometry: undo the augmentation (post_rots / post_trans), unproject
     through the intrinsics, rotate and translate into the agent frame, in
     f32 without matrix products (so TF32 never enters);
-  * ``CamEncoder``: the EfficientNet-b0 trunk, the Up fusion of its
-    reduction_5/4/3 endpoints, and 1x1 context and depth heads; the depth
+  * ``CamEncoder``: the EfficientNet-b0 trunk and the Up fusion of its
+    reduction_5/4/3 endpoints (or the truncated resnet101), and 1x1 context
+    and depth heads; the depth
     distribution is the softmax of the depth head or the one-hot binning of
     the image's 4th (metric depth) channel (``use_depth_gt``); their outer
     product lifts the context into the frustum;
@@ -30,6 +31,7 @@ from torch import nn
 from airv2x_tpu_torch.models.camera.trunks import (
     TORCH_BN_EPS,
     EfficientNetB0Features,
+    ResNet101Trunk,
     TorchBasicBlock,
     UpBlock,
     upsample_align_corners,
@@ -151,29 +153,43 @@ def voxel_pooling(geom, feats, dx, lo, nx):
 
 
 class CamEncoder(nn.Module):
-    """Trunk -> depth distribution x context (lss_submodule.CamEncode). The
-    depth head exists only without ``use_gt_depth``, as in the flax
+    """Trunk -> depth distribution x context (lss_submodule.CamEncode and
+    CamEncode_Resnet101): the EfficientNet-b0 trunk with its Up fusion, or
+    ``Resnet101``'s truncated resnet (512 channels at /8, no Up blocks).
+    The depth head exists only without ``use_gt_depth``, as in the flax
     module."""
 
     def __init__(self, depth_bins: int, context_c: int, downsample: int,
                  encoder_type: str = "EfficientNet", use_gt_depth: bool = False):
         super().__init__()
-        if encoder_type != "EfficientNet":
+        self.up1 = self.up2 = None
+        if encoder_type == "Resnet101":
+            self.trunk = ResNet101Trunk()
+            feat_c = 512
+        elif encoder_type == "EfficientNet":
+            self.trunk = EfficientNetB0Features()
+            self.up1 = UpBlock(320 + 112, 256, scale=2)
+            if downsample == 8:
+                self.up2 = UpBlock(256 + 40, 256, scale=2)
+            feat_c = 256
+        else:
             raise NotImplementedError(
-                f"camera_encoder {encoder_type!r}: only EfficientNet is ported")
-        self.trunk = EfficientNetB0Features()
-        self.up1 = UpBlock(320 + 112, 256, scale=2)
-        self.up2 = UpBlock(256 + 40, 256, scale=2) if downsample == 8 else None
-        self.image_head = nn.Conv2d(256, context_c, 1)
-        self.depth_head = None if use_gt_depth else nn.Conv2d(256, depth_bins, 1)
+                f"camera_encoder {encoder_type!r}: the reference supports "
+                "EfficientNet and Resnet101")
+        self.image_head = nn.Conv2d(feat_c, context_c, 1)
+        self.depth_head = (None if use_gt_depth
+                           else nn.Conv2d(feat_c, depth_bins, 1))
 
     def heads(self, imgs, gt_depth_onehot=None):
         """imgs (B*, 3, H, W) -> (depth (B*, fH, fW, D), context
         (B*, fH, fW, C), depth logits (B*, fH, fW, D) or None)."""
-        red3, red4, red5 = self.trunk(imgs)
-        feat = self.up1(red5, red4)
-        if self.up2 is not None:
-            feat = self.up2(feat, red3)
+        if self.up1 is None:
+            feat = self.trunk(imgs)
+        else:
+            red3, red4, red5 = self.trunk(imgs)
+            feat = self.up1(red5, red4)
+            if self.up2 is not None:
+                feat = self.up2(feat, red3)
         context = self.image_head(feat).permute(0, 2, 3, 1)
         if self.depth_head is None:
             return gt_depth_onehot.to(context.dtype), context, None

@@ -7,6 +7,9 @@ airv2x_tpu/models/camera/trunks.py).
     endpoints;
   * ``TorchBasicBlock``: the torchvision resnet BasicBlock of the BEV
     encoder;
+  * ``TorchBottleneck`` and ``ResNet101Trunk``: the torchvision Bottleneck
+    and resnet101 cut after layer2 (512 channels at /8), the trunk of
+    ``camera_encoder: Resnet101``;
   * ``UpBlock``: align-corners bilinear upsample, pad (or crop) to the skip,
     concat [skip, x], then (conv3x3, BN, ReLU) twice;
   * ``upsample_align_corners`` / ``pad_or_crop_to``: the two resize helpers.
@@ -16,8 +19,7 @@ it so). Children carry the flax scope names, which the weight bridge
 (``utils/weights.py``) follows. BatchNorm eps follows each torch source:
 1e-3 for EfficientNet, 1e-5 for the resnet and Up blocks. Drop-connect is a
 train-time regulariser and, as in the JAX package, not applied; the trunks'
-train mode (the torch momenta) is not ported. ``ResNet101Trunk`` is not
-ported: no config in the repo names it.
+train mode (the torch momenta) is not ported.
 """
 
 from __future__ import annotations
@@ -177,6 +179,65 @@ class TorchBasicBlock(nn.Module):
         y = self.bn2(self.conv2(y))
         identity = x if self.ds_conv is None else self.ds_bn(self.ds_conv(x))
         return torch.relu(y + identity)
+
+
+class TorchBottleneck(nn.Module):
+    """torchvision resnet Bottleneck (expansion 4, the stride on conv2, eps
+    1e-5); ``downsample`` adds the 1x1 strided projection of the
+    identity."""
+
+    def __init__(self, in_c: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_c, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * 4, eps=TORCH_BN_EPS)
+        if downsample:
+            self.ds_conv = nn.Conv2d(in_c, planes * 4, 1, stride=stride,
+                                     bias=False)
+            self.ds_bn = BatchNorm2d(planes * 4, eps=TORCH_BN_EPS)
+        else:
+            self.ds_conv = None
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        identity = x if self.ds_conv is None else self.ds_bn(self.ds_conv(x))
+        return torch.relu(y + identity)
+
+
+class ResNet101Trunk(nn.Module):
+    """resnet101 cut after layer2, which is resnet50's (lss_submodule's
+    CamEncode_Resnet101): conv1 7x7 / 2, BN, ReLU, 3x3 / 2 max pool, layer1
+    (3 Bottlenecks of 64) and layer2 (4 of 128, the first at stride 2) ->
+    512 channels at /8 of the input."""
+
+    LAYERS = tuple(f"layer1_{i}" for i in range(3)) + tuple(
+        f"layer2_{i}" for i in range(4))
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64, eps=TORCH_BN_EPS)
+        for i in range(3):
+            self.add_module(f"layer1_{i}", TorchBottleneck(
+                64 if i == 0 else 256, 64, downsample=i == 0))
+        for i in range(4):
+            self.add_module(f"layer2_{i}", TorchBottleneck(
+                256 if i == 0 else 512, 128, stride=2 if i == 0 else 1,
+                downsample=i == 0))
+
+    def forward(self, x):
+        x = torch.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for name in self.LAYERS:
+            x = self.get_submodule(name)(x)
+        return x
 
 
 class UpBlock(nn.Module):

@@ -1,9 +1,10 @@
 """Model registry (counterpart of airv2x_tpu/models/registry.py):
 ``airv2x_where2comm``, ``airv2x_v2xvit`` and the intermediate-fusion family
 (``airv2x_attfusion`` / ``airv2x_intermediate``, ``airv2x_maxfusion``,
-``airv2x_cobevt``, ``airv2x_v2vnet``, ``airv2x_when2com``), whose ``task``
-(det or seg) the config names, and OPV2V's ``point_pillar_scope`` (SCOPE
-temporal detection)."""
+``airv2x_cobevt``, ``airv2x_v2vnet``, ``airv2x_when2com``), the camera-only
+LSS baseline (``lift_splat_shoot_airv2x`` / ``lift_splat_shoot``), whose
+``task`` (det or seg) the config names, and OPV2V's ``point_pillar_scope``
+(SCOPE temporal detection)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from airv2x_tpu_torch.models.intermediate_models import (
     Airv2xAttFusion, Airv2xCoBEVT, Airv2xMaxFusion, Airv2xV2VNet,
     Airv2xWhen2com)
+from airv2x_tpu_torch.models.lss_model import LiftSplatShoot
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
 from airv2x_tpu_torch.models.where2comm_model import Airv2xWhere2comm
@@ -25,6 +27,8 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "airv2x_cobevt": Airv2xCoBEVT,
                   "airv2x_v2vnet": Airv2xV2VNet,
                   "airv2x_when2com": Airv2xWhen2com,
+                  "lift_splat_shoot_airv2x": LiftSplatShoot,
+                  "lift_splat_shoot": LiftSplatShoot,
                   "point_pillar_scope": PointPillarScope}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}

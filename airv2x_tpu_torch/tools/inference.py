@@ -79,7 +79,8 @@ def scenes(hypes, layout, test_dir: str, num_scenes: int, seed: int,
     """(source line, iterator of (scenario, batch, gt)): the samples of
     the AirV2X split at ``test_dir`` (at most ``max_samples``, 0 = all)
     when it exists, else ``num_scenes`` synthetic ``make_scene`` scenes in
-    four scenario buckets."""
+    four scenario buckets (LiDAR only, as the JAX CLIs' fallback: a camera
+    config needs the dataset)."""
     max_points = int(hypes["preprocess"].get("max_points", 8192))
     if test_dir and os.path.isdir(test_dir):
         ds = AirV2XDataset(hypes, test_dir, train=False)
@@ -104,8 +105,12 @@ def scenes(hypes, layout, test_dir: str, num_scenes: int, seed: int,
 
 
 def model_batch(scene: dict, device) -> dict:
-    """One numpy sample -> a batch of one on ``device`` (labels left out)."""
-    return batch_to_torch({k: v[None] for k, v in scene.items()
+    """One numpy sample -> a batch of one on ``device`` (labels left out;
+    the ``cam_<type>`` blocks leaf by leaf)."""
+    def lead(v):
+        return {k: x[None] for k, x in v.items()} if isinstance(v, dict) else v[None]
+
+    return batch_to_torch({k: lead(v) for k, v in scene.items()
                            if not k.endswith("_seg_label")}, device)
 
 

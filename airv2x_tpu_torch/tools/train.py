@@ -15,7 +15,8 @@ One optimizer update per batch, with the reference's run-dir layout:
 ``<log_dir>/<name>__<stamp>/config.yaml``, a checkpoint ``net_epoch{N}``
 per saved epoch, ``train_loss.txt`` and ``validation_loss.txt``.
 ``--model_dir`` resumes from the last checkpoint of that run dir, with its
-``config.yaml``. Radar and camera configs raise.
+``config.yaml``. Radar configs raise, and camera configs before any
+loader is built.
 """
 
 from __future__ import annotations
@@ -110,10 +111,6 @@ def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
     core = hypes["model"]["core_method"].lower()
     if any(k in core for k in ("l4dr", "lrf", "interf", "mdd")):
         raise NotImplementedError("radar configs are not ported")
-    margs = hypes["model"]["args"]
-    if any(isinstance(margs.get(t), dict)
-           and "cam" in margs[t].get("modalities", []) for t in AGENT_TYPES):
-        raise NotImplementedError("camera configs are not ported")
     anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
     standup = anchor_standup_boxes(anchors)
     rng = np.random.default_rng(seed)
@@ -138,6 +135,13 @@ def main(argv=None) -> str:
     opt = parse_args(argv)
     dev = resolve_device(opt.device)
     hypes = load_yaml(opt.hypes_yaml, opt.model_dir or None)
+    margs = hypes["model"]["args"]
+    if any(isinstance(margs.get(t), dict)
+           and "cam" in margs[t].get("modalities", []) for t in AGENT_TYPES):
+        # before any loader: the dataset reads cameras for evaluation
+        raise NotImplementedError(
+            "camera training (the depth loss, the trunks' train mode) is not "
+            "ported (ROADMAP §1 item 3)")
     tp = hypes["train_params"]
     epochs = opt.epochs or int(tp["epoches"])
     batch_size = opt.batch_size or int(tp["batch_size"])

@@ -171,7 +171,28 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      cannot fail), as must the same weights' f32 table in ``pallas`` mode
      (K4); the bf16 table is printed beside them; an ``eval`` JSON line
      with phases 13 and 14;
-  4b. (run after phase 14, like the other training phases) one train step of
+  16. (run after phase 14) the camera configs on disk at full width: an
+     on-disk scenario with cameras (``write_scenario`` with
+     ``camera_hw``: 3 timestamps, phase 5's agents, 6 / 4 / 1 smooth seeded
+     720 x 1280 PNGs per vehicle / RSU / drone, the bytes printed), the ten
+     camera YAMLs of ported models (``CAMERA_PATHS``) cut as phase 5 with
+     the AirV2X augmentation keys supplied (``camera_hypes``), the K4a bf16
+     plans at the LSS backbone's one map asserted to be instantiated; the
+     dataset's host ms per ``__getitem__``; one loaded batch card vs CPU
+     (every camera array equal); per config, bf16, seeded random weights
+     drawn on the card, in ``auto`` and ``pallas``: ms/scene, stage times,
+     peak memory, a profile window (busy, idle share, busy by stage), the
+     launches asserted per scene (K1 0; K4a the config's ConvBNReLU count x
+     its backbone passes in ``pallas``, 0 in ``auto``; K2 1 per det scene),
+     kept detections or class histograms; the tiny compositions
+     (``TINY_COMPOSITIONS``) card vs CPU, camera only in ``pallas`` and
+     LiDAR + camera in ``auto``, f32, TF32 off, pinned cuDNN, within
+     TINY_TOL x (1 + scale), keep sets equal, launches and margins
+     asserted; then the Where2comm det and seg configs through
+     ``inference_multi_scenario`` and ``inference_airv2x_seg`` on the
+     scenario in ``pallas`` (tables printed; K1 0, K4a 32, K2 at least 2
+     per det scene); a ``camera_disk`` JSON line and the phase's seconds;
+  4b. (run after phase 16, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
      TF32 off and deterministic cuDNN; max|card - CPU| of the loss parts,
@@ -193,8 +214,8 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      no decode check.
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11, 12 and 15) and each counted CLI run of phases 13 and 15, and read just
-after; the ``kernels`` line sums them over those runs. Every profile window
+11, 12, 15 and 16) and each counted CLI run of phases 13, 15 and 16, and
+read just after; the ``kernels`` line sums them over those runs. Every profile window
 gives each kernel, copy and memset PyTorch launched to the one stage whose
 host range holds its launch (``launch_ranges``), counts the port's own
 kernels (K1 / K2 / K4, launched through ctypes) apart, and requires the
@@ -1572,19 +1593,54 @@ def frustum_margin(model, batch):
     return margin
 
 
-def tiny_camera_hypes(kind):
-    """The tiny config with cameras, built as tests/test_camera.py builds
+def tiny_camera_hypes(kind, hypes=None):
+    """The tiny config (``hypes``, loaded by either package; by default the
+    port's load of TINY) with cameras, built as tests/test_camera.py builds
     it: ``lidar+cam`` gives the vehicles both modalities and gt depth;
     ``cam`` gives every type the camera alone, depth from the softmax
     head."""
     from airv2x_tpu_torch.config import load_yaml
 
-    hypes = copy.deepcopy(load_yaml(TINY))
+    hypes = copy.deepcopy(load_yaml(TINY) if hypes is None else hypes)
     args = hypes["model"]["args"]
     for t in (("vehicle", "rsu", "drone") if kind == "cam" else ("vehicle",)):
         args[t]["modalities"] = ["cam"] if kind == "cam" else ["lidar", "cam"]
         args[t]["cam"] = dict(TINY_CAM, use_depth_gt=kind != "cam")
     return hypes
+
+
+# the camera configurations of phase 16: (task, YAML name) under
+# hypes_yaml/airv2x/camera, and each one's model name
+CAMERA_DIR = os.path.join(REPO, "hypes_yaml/airv2x/camera")
+CAMERA_PATHS = (("det", "where2comm"), ("det", "v2xvit"), ("det", "cobevt"),
+                ("det", "when2com"), ("det", "lss"), ("seg", "where2comm"),
+                ("seg", "v2xvit"), ("seg", "cobevt"), ("seg", "v2vnet"),
+                ("seg", "when2com"))
+# the tiny compositions of phase 4g and the CPU tests: (model name, task),
+# every one that camera configs name besides phase 4c's Where2comm det
+TINY_COMPOSITIONS = (
+    ("airv2x_where2comm", "seg"), ("airv2x_v2xvit", "det"),
+    ("airv2x_v2xvit", "seg"), ("airv2x_cobevt", "det"), ("airv2x_cobevt", "seg"),
+    ("airv2x_when2com", "det"), ("airv2x_when2com", "seg"),
+    ("airv2x_v2vnet", "seg"), ("lift_splat_shoot_airv2x", "det"),
+    ("lift_splat_shoot_airv2x", "seg"))
+
+
+def tiny_composition_hypes(hypes, name, task, kind="cam"):
+    """The tiny config (``hypes``, loaded by either package) as the model
+    ``name`` for ``task`` (the family's fusion blocks of TINY_FAMILY, the
+    V2X-ViT transformer of TINY_V2XVIT_ENCODER), with cameras as
+    ``tiny_camera_hypes`` gives them for ``kind``."""
+    hypes = copy.deepcopy(hypes)
+    if name in TINY_FAMILY:
+        hypes = tiny_family_hypes(hypes, name, task)
+    else:
+        hypes["model"]["core_method"] = name
+        if name == "airv2x_v2xvit":
+            hypes["model"]["args"]["transformer"] = {
+                "encoder": copy.deepcopy(TINY_V2XVIT_ENCODER)}
+        hypes["task"] = hypes["model"]["args"]["task"] = task
+    return tiny_camera_hypes(kind, hypes)
 
 
 def phase_tiny_camera():
@@ -2890,9 +2946,88 @@ def _write_seg_layers(adir, files, label):
             os.path.join(adir, name))
 
 
+# each camera's yaw about the carrier's z axis (degrees; None: looking
+# straight down) and its mount (x, y, z in m from the lidar), by metadata key
+CAMERA_RIG = {
+    "front_camera": (0.0, (1.5, 0.0, 0.0)),
+    "front_left_camera": (55.0, (1.2, 0.8, 0.0)),
+    "front_right_camera": (-55.0, (1.2, -0.8, 0.0)),
+    "rear_camera": (180.0, (-1.8, 0.0, 0.0)),
+    "rear_left_camera": (110.0, (-1.0, 0.8, 0.0)),
+    "rear_right_camera": (-110.0, (-1.0, -0.8, 0.0)),
+    "back_camera": (180.0, (-0.3, 0.0, 0.0)),
+    "left_camera": (90.0, (0.0, 0.3, 0.0)),
+    "right_camera": (-90.0, (0.0, -0.3, 0.0)),
+    "bev_camera": (None, (0.0, 0.0, -0.5)),
+}
+CAMERA_HW = (720, 1280)  # the AirV2X camera images' H x W
+# the AirV2X camera augmentation values hypes_yaml/airv2x/lidar/det/bm2cp.yaml
+# records; the shipped camera YAMLs give data_aug_conf only final_dim
+AIRV2X_AUG = {"H": 720, "W": 1280, "resize_lim": [0.65, 0.7],
+              "bot_pct_lim": [0.0, 0.05], "rot_lim": [0, 0], "rand_flip": False}
+
+
+def camera_to_lidar(key):
+    """The LSS-axes camera -> lidar matrix of CAMERA_RIG[key] (x right, y
+    down, z along the view)."""
+    yaw, mount = CAMERA_RIG[key]
+    m = np.eye(4, dtype=np.float32)
+    if yaw is None:  # looking down, image up along the carrier's +x
+        m[:3, :3] = [[0, -1, 0], [-1, 0, 0], [0, 0, -1]]
+    else:
+        c, s = np.cos(np.radians(yaw)), np.sin(np.radians(yaw))
+        m[:3, :3] = [[s, 0, c], [-c, 0, s], [0, -1, 0]]
+    m[:3, 3] = mount
+    return m
+
+
+def smooth_image(rng, hw):
+    """A seeded (H, W, 3) uint8 image of two gradients and a few discs and
+    boxes: smooth, so that it compresses, and not constant."""
+    h, w = hw
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    a, b, c = (rng.uniform(0, 255, 3).astype(np.float32) for _ in range(3))
+    img = a + (b - a) * y + (c - a) * x * 0.5
+    yy, xx = np.arange(h)[:, None], np.arange(w)[None, :]
+    for _ in range(4):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(0.05, 0.2) * h
+        color = rng.uniform(0, 255, 3).astype(np.float32)
+        if rng.uniform() < 0.5:
+            inside = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        else:
+            inside = (np.abs(yy - cy) < r) & (np.abs(xx - cx) < 1.5 * r)
+        img = np.where(inside[..., None], color, img)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_cameras(adir, agent_type, rng, hw=CAMERA_HW):
+    """Every camera of ``agent_type`` (``CAM_KEYS``) into ``adir``: a
+    ``smooth_image`` PNG per camera and the metadata entries (the intrinsic
+    of a 90-degree horizontal view, the UE4 extrinsic of
+    ``camera_to_lidar``); no depth PNG, which no camera config of a ported
+    model reads. Returns the metadata entries."""
+    from PIL import Image
+
+    from airv2x_tpu_torch.data.camera import CAM_KEYS, lss_to_ue4
+
+    h, w = hw
+    f = w / 2.0
+    meta = {}
+    for key in CAM_KEYS[agent_type]:
+        Image.fromarray(smooth_image(rng, hw)).save(
+            os.path.join(adir, key + ".png"), compress_level=1)
+        meta[key] = {"intrinsic": np.array([[f, 0, w / 2], [0, f, h / 2],
+                                            [0, 0, 1]], np.float32),
+                     "extrinsic": lss_to_ue4(camera_to_lidar(key))}
+    return meta
+
+
 def write_scenario(root, layout, lidar_range, *, stamps=SCENARIO_STAMPS,
                    num_agents=NUM_AGENTS, points_per_agent=POINTS_PER_AGENT,
-                   num_objects=12, seg_hw=0, seg_res=0.25, seed=0):
+                   num_objects=12, seg_hw=0, seg_res=0.25, seed=0,
+                   camera_hw=None):
     """Write one AirV2X scenario under ``root``: ``stamps`` timestamps of
     the agents of ``num_agents`` (ids 1, 2, ...: vehicles, RSUs, drones; the
     ego is agent 1), each with ``metadata.pkl`` and ``lidar.pcd``, and an
@@ -2902,8 +3037,11 @@ def write_scenario(root, layout, lidar_range, *, stamps=SCENARIO_STAMPS,
     agent stands within 67 m of the ego with a random yaw and gets its
     slot's cloud in its own lidar frame. With ``seg_hw``, every agent dir
     also holds the 7 dynamic layers (the objects rasterized at ``seg_res``
-    m/px) and the 3 static ones (lanes and a road band) as PNGs. Returns
-    ``root``."""
+    m/px) and the 3 static ones (lanes and a road band) as PNGs. With
+    ``camera_hw``, every agent dir also holds its type's cameras
+    (``write_cameras``: images of that H x W), drawn from a generator of
+    their own so that the rest is the same.
+    Returns ``root``."""
     import pickle
 
     from airv2x_tpu_torch.data.camera import DYNAMIC_SEG_FILES, STATIC_SEG_FILES
@@ -2913,6 +3051,7 @@ def write_scenario(root, layout, lidar_range, *, stamps=SCENARIO_STAMPS,
     from airv2x_tpu_torch.utils.transforms import pose_a_to_b, pose_to_world
 
     rng = np.random.default_rng(seed)
+    cam_rng = np.random.default_rng((seed, 1))
     types = [t for t in AGENT_TYPES for _ in range(num_agents.get(t, 0))]
     c, s = np.cos(np.radians(SCENARIO_EGO_POSE[4])), np.sin(
         np.radians(SCENARIO_EGO_POSE[4]))
@@ -2945,6 +3084,8 @@ def write_scenario(root, layout, lidar_range, *, stamps=SCENARIO_STAMPS,
                     "odometry": {"ego_pos": pose,
                                  "ego_speed": 0.0 if t == "rsu" else 10.0},
                     "lidar": {"lidar_pose": list(SCENARIO_MOUNT)}}
+            if camera_hw:
+                meta.update(write_cameras(adir, t, cam_rng, camera_hw))
             with open(os.path.join(adir, "metadata.pkl"), "wb") as f:
                 pickle.dump(meta, f)
             agent_from_ego = np.linalg.inv(pose_a_to_b(lidar[aid - 1], lidar[0]))
@@ -2967,16 +3108,17 @@ def write_scenario(root, layout, lidar_range, *, stamps=SCENARIO_STAMPS,
     return root
 
 
-def eval_run_dir(path, root, work):
-    """A run dir under ``work`` for the config at ``path``, cut as phase 5,
-    computing in bf16 and reading the scenario at ``root`` (its train and
-    test dir), holding phase 5's seeded random weights as epoch 1."""
+def eval_run_dir(path, root, work, cut=None):
+    """A run dir under ``work`` for the config at ``path``, cut as phase 5
+    (or by ``cut``, a function of the path), computing in bf16 and reading
+    the scenario at ``root`` (its train and test dir), holding phase 5's
+    seeded random weights as epoch 1."""
     from airv2x_tpu_torch.models import build_model
     from airv2x_tpu_torch.parallel.train import TrainState
     from airv2x_tpu_torch.utils.checkpoint import save_checkpoint, setup_train_dir
     from airv2x_tpu_torch.utils.weights import init_random_
 
-    hypes = cut_hypes(path)
+    hypes = (cut or cut_hypes)(path)
     hypes["model"]["args"]["dtype"] = "bf16"
     hypes["root_dir"] = hypes["test_dir"] = root
     hypes["validate_dir"] = ""
@@ -3241,6 +3383,511 @@ def phase_eval(card):
         return res
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# Phase 16: the camera configs on disk. CAMERA_SCENES timestamps of
+# write_scenario's scenario with cameras, each a timed scene, CAMERA_RUNS
+# timed runs per path and mode after a warm-up
+CAMERA_SCENES = 3
+CAMERA_RUNS = 2
+# the tiny camera scene of phase 16 and tests/test_torch_camera_models.py:
+# tests/test_torch_camera.py's two scenes (seed 3: every frustum point more
+# than CELL_MARGIN of a cell from a boundary) with perturbed poses (seed 2)
+TINY_CAMERA_NCAM = {"vehicle": 2, "rsu": 1, "drone": 1}
+TINY_CAMERA_POSES = 2
+# init_random_'s seed of phase 16's tiny det compositions (3 where absent):
+# the first from 3 up whose CPU outputs keep some boxes and lie more than
+# ROI_MARGIN from every decision of decode (the objectness gate, the
+# candidate pool's cut, the NMS threshold: ``anchor_keep``, ``nms_margin``)
+TINY_CAMERA_SEEDS = {("airv2x_v2xvit", "det", "cam"): 4,
+                     ("airv2x_v2xvit", "det", "lidar+cam"): 8,
+                     ("airv2x_cobevt", "det", "cam"): 6,
+                     ("airv2x_when2com", "det", "cam"): 6,
+                     ("airv2x_when2com", "det", "lidar+cam"): 17,
+                     ("lift_splat_shoot_airv2x", "det", "cam"): 6,
+                     ("lift_splat_shoot_airv2x", "det", "lidar+cam"): 6}
+
+
+def camera_path(task, name):
+    return os.path.join(CAMERA_DIR, task, f"{name}.yaml")
+
+
+def camera_hypes(path):
+    """A shipped camera config cut as phase 5, with the AirV2X camera
+    augmentation keys (AIRV2X_AUG) its ``data_aug_conf`` lacks."""
+    from airv2x_tpu_torch.models.base import AGENT_TYPES
+
+    hypes = cut_hypes(path)
+    for t in AGENT_TYPES:
+        hypes["model"]["args"][t]["cam"]["data_aug_conf"].update(AIRV2X_AUG)
+    return hypes
+
+
+def tiny_camera_scene(hypes):
+    """The tiny camera scene (numpy, batch 2): ``make_scene`` and
+    ``add_camera_inputs`` from seed 3 (all agents, then no drone), its poses
+    perturbed (``perturb_poses``, seed TINY_CAMERA_POSES)."""
+    from airv2x_tpu_torch.data.synthetic import (
+        add_camera_inputs, make_scene, perturb_poses)
+    from airv2x_tpu_torch.models.base import SlotLayout
+
+    layout = SlotLayout.from_args(hypes["model"]["args"])
+    rng = np.random.default_rng(3)
+    scenes = []
+    for na in ({"vehicle": 2, "rsu": 1, "drone": 1},
+               {"vehicle": 2, "rsu": 1, "drone": 0}):
+        b, _ = make_scene(rng, layout, num_objects=6, points_per_agent=1024,
+                          lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                          pts_per_box=60, num_agents=na)
+        add_camera_inputs(b, layout, rng, img_hw=(64, 96), ncam=TINY_CAMERA_NCAM)
+        scenes.append(b)
+    batch = {k: ({kk: np.stack([s[k][kk] for s in scenes]) for kk in scenes[0][k]}
+                 if isinstance(scenes[0][k], dict)
+                 else np.stack([s[k] for s in scenes])) for k in scenes[0]}
+    return perturb_poses(batch, np.random.default_rng(TINY_CAMERA_POSES))
+
+
+# a camera grid's offset (m) for card-vs-CPU and port-vs-JAX comparisons of
+# on-disk camera scenes: the fixture's and write_scenario's symmetric rigs
+# put frustum points on the unshifted grid's cell boundaries
+GRID_SHIFT = 0.0123
+
+
+def shift_camera_grid(hypes):
+    """``hypes`` with every camera type's grid moved by GRID_SHIFT m on each
+    axis (the same cell counts), in place."""
+    from airv2x_tpu_torch.models.base import AGENT_TYPES
+
+    for t in AGENT_TYPES:
+        cam = hypes["model"]["args"][t].get("cam")
+        if cam is None:
+            continue
+        for axis in ("xbound", "ybound", "zbound"):
+            lo, hi, step = cam["grid_conf"][axis]
+            cam["grid_conf"][axis] = [lo + GRID_SHIFT, hi + GRID_SHIFT, step]
+    return hypes
+
+
+def camera_frustum_margin(hypes, batch):
+    """Smallest distance, in cell widths, of a frustum point of a numpy
+    batch's present agents' cameras to a cell boundary, over every camera
+    type of ``hypes`` (the geometry on the CPU, in float64 from the f32
+    points). An absent agent's map is zeroed after the encoder."""
+    from airv2x_tpu_torch.models.base import AGENT_TYPES
+    from airv2x_tpu_torch.models.camera.lss import (
+        create_frustum, gen_dx_bx, get_geometry)
+
+    margin = np.inf
+    for t in AGENT_TYPES:
+        args = hypes["model"]["args"][t]
+        if "cam" not in args.get("modalities", []) or f"cam_{t}" not in batch:
+            continue
+        cfg = args["cam"]
+        grid = cfg["grid_conf"]
+        frustum = create_frustum(cfg["data_aug_conf"]["final_dim"],
+                                 cfg["img_downsample"], grid["ddiscr"],
+                                 grid["mode"])
+        mask = np.asarray(batch["agent_mask"], bool)
+        cam = {k: np.asarray(v)[mask] for k, v in batch[f"cam_{t}"].items()}
+        geom = get_geometry(torch.from_numpy(frustum), *(
+            torch.from_numpy(cam[k]) for k in ("rots", "trans", "intrinsics",
+                                               "post_rots", "post_trans")))
+        dx, bx, _ = gen_dx_bx(grid["xbound"], grid["ybound"], grid["zbound"])
+        u = (geom.double().numpy() - (bx - dx / 2.0)) / dx
+        margin = min(margin, float(np.abs(u - np.round(u)).min()))
+    return margin
+
+
+def backbone_convs(hypes):
+    """ConvBNReLU layers (K4a launches in ``pallas``) of one backbone pass."""
+    args = hypes["model"]["args"]
+    return sum((args.get("modality_fusion") or args)["base_bev_backbone"][
+        "layer_nums"])
+
+
+def backbone_passes(name):
+    """Backbone passes per scene: Where2comm runs the stages for its
+    single-agent confidence and again in its multi-scale fusion."""
+    return 2 if name == "airv2x_where2comm" else 1
+
+
+def k4_one_map(layer_nums):
+    """K4a bf16 at the LSS backbone's stages (one map of K4_STAGES' sizes)
+    against its plain version and cuDNN's ConvBNReLU: per stage the device
+    ms of each and the bound; per scene at ``layer_nums`` launches per
+    stage (one backbone pass)."""
+    from airv2x_tpu_torch.models.nn import ConvBNReLU
+    from airv2x_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    rng = np.random.default_rng(5)
+    dt = torch.bfloat16
+    per = {k: 0.0 for k in ("ms", "plain_ms", "lib_ms", "bound_ms")}
+    err = 0.0
+    for si, (n, shape) in enumerate(zip(layer_nums, K4_STAGES)):
+        shape = (1,) + shape[1:]
+        c = shape[3]
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dt)
+        blk = init_random_(ConvBNReLU(c, c), seed=20 + si).cuda().eval()
+        blk.requires_grad_(False)
+        cast_weights_(blk, dt)
+        wk, sc, bi, packed = blk._fold(dt)
+        args = (x, wk, sc, bi)
+        ref = conv3x3_same_plain(*args, relu=True)
+        got = conv3x3_same(*args, relu=True, packed=packed)
+        d = (got.float() - ref.float()).abs()
+        if not bool((d <= K4_TOL_BF16 * (1 + ref.float().abs())).all()):
+            raise AssertionError(f"phase 16 K4a {shape}: {float(d.max())}")
+        err = max(err, float(d.max()))
+        xl = x.permute(0, 3, 1, 2)
+        with torch.inference_mode(), conv_mode("auto"):
+            lib = cuda_ms(lambda: blk(xl), 20)
+        row = {"ms": cuda_ms(lambda: conv3x3_same(*args, relu=True, packed=packed), 20),
+               "plain_ms": cuda_ms(lambda: conv3x3_same_plain(*args, relu=True), 10),
+               "lib_ms": lib, "bound_ms": k4_bound(shape, c, dt)[0]}
+        print(f"phase 16 K4a bf16 at {shape}: " + json.dumps(
+            {k: round(v, 4) for k, v in row.items()}))
+        for k, v in row.items():
+            per[k] += n * v
+    print(f"phase 16 K4a bf16 per LSS scene ({sum(layer_nums)} launches at one "
+          f"map), ms: " + json.dumps({k: round(v, 4) for k, v in per.items()})
+          + f"; share of bound {per['bound_ms'] / per['ms']:.3f}, time / cuDNN "
+          f"{per['ms'] / per['lib_ms']:.3f}; max|kernel - plain| {err:.3e}")
+    return dict(per, max_abs_err=err)
+
+
+def camera_step(hypes, model):
+    """One scene of a camera config: the stages of its model (Where2comm:
+    encoder, backbone + shrink + confidence, fusion + heads; the family and
+    V2X-ViT: encoder, backbone + shrink, fusion, heads; LSS: encoder,
+    backbone + shrink, heads), then decode (NMS) or the class maps. The
+    camera encoder marks its own stages first."""
+    from airv2x_tpu_torch.data.postprocess import decode_segmentation
+
+    det = model.task == "det"
+    if det:
+        decode, _ = det_decoder(hypes)
+    else:
+        def decode(out):
+            return decode_segmentation(out["dynamic_seg"], out["static_seg"])
+    last = DET_STAGES[3] if det else SEG_STAGES[3]
+
+    def run(batch, mark):
+        with torch.inference_mode():
+            x = model.encode(batch, mark)
+            mark("BEV encoder")
+            if hasattr(model, "single_psm"):
+                conf = model.single_psm(x)
+                mark("backbone+shrink+confidence")
+                out = model.fuse(x, conf, batch["agent_mask"])
+                mark("fusion+heads")
+            else:
+                feats = model.backbone(x)
+                mark("backbone+shrink")
+                if hasattr(model, "fuse"):
+                    feats = model.fuse(feats, batch)
+                    mark("fusion")
+                out = model.heads(feats)
+                mark("heads")
+            res = decode(out)
+            mark(last)
+        return out, res
+
+    return run
+
+
+def anchor_keep(out, det, top_k, obj_threshold):
+    """(keep mask over the anchors of sample 0, margins): ``det``'s kept
+    candidates placed at their anchors (the candidate order may swap
+    scores that tie within rounding), and the smallest distances of an
+    objectness from the gate (``gate``) and between the last candidate and
+    the next anchor (``pool``) - either could pick other candidates."""
+    objness = torch.sigmoid(out["obj"][0].float()).reshape(-1).cpu()
+    gated = torch.where(objness > obj_threshold, objness,
+                        torch.full_like(objness, -torch.inf))
+    s, idx = torch.sort(gated, descending=True, stable=True)
+    p = min(2 * top_k, len(s))
+    keep = torch.zeros(len(s), dtype=torch.bool)
+    keep[idx[:p]] = det.mask.cpu()
+    margins = {"gate": float((objness - obj_threshold).abs().min())}
+    if p < len(s) and bool(torch.isfinite(s[p])):
+        margins["pool"] = float(s[p - 1] - s[p])
+    return keep, margins
+
+
+def tiny_camera_compositions(card):
+    """Each tiny composition (TINY_COMPOSITIONS) on the card against the
+    same weights on the CPU, f32 with TF32 off and pinned cuDNN, on the tiny
+    camera scene: camera only in ``pallas``, and the vehicles LiDAR + camera
+    (gt depth) in ``auto``; outputs within TINY_TOL x (1 + scale), equal
+    keep sets (det), K1 0 / 3, K4a per pass x passes in ``pallas`` and K2 1
+    (det) launches asserted, the frustum, ROI and NMS margins bounded."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    base = load_yaml(TINY)
+    out = {}
+    try:
+        for (name, task), (kind, mode) in itertools.product(
+                TINY_COMPOSITIONS, (("cam", "pallas"), ("lidar+cam", "auto"))):
+            hypes = tiny_composition_hypes(base, name, task, kind)
+            scene = tiny_camera_scene(hypes)
+            batch = {d: batch_to_torch(scene, d) for d in ("cpu", "cuda")}
+            seed = TINY_CAMERA_SEEDS.get((name, task, kind), 3)
+            models = {d: init_random_(build_model(hypes, device=d), seed=seed)
+                      for d in ("cpu", "cuda")}
+            det = task == "det"
+            res = {}
+            for d, model in models.items():
+                decode, _ = det_decoder(hypes, d, TINY_SCOPE_TOP_K)
+                kernels.reset_launch_counts()
+                with conv_mode(mode), torch.inference_mode():
+                    if hasattr(model, "single_psm"):  # fused with the CPU's
+                        x = model.encode(batch[d])   # confidence: one comm mask
+                        single = model.single_psm(x)
+                        conf = single if d == "cpu" else res["cpu"][0]["single"].to(d)
+                        o = dict(model.fuse(x, conf, batch[d]["agent_mask"]),
+                                 single=single)
+                    else:
+                        o = model(batch[d])
+                    dets = decode(o) if det else None
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                res[d] = (o, dets, dict(kernels.LAUNCHES))
+            n = res["cuda"][2]
+            lidar = kind != "cam" and name != "lift_splat_shoot_airv2x"
+            want = {"pillar_encode": 3 if lidar else 0, "quad_iou": int(det),
+                    "conv3x3": (backbone_convs(hypes) * backbone_passes(name)
+                                if mode == "pallas" else 0)}
+            if n != {k: want.get(k, 0) for k in n}:
+                raise AssertionError(f"tiny {name} {task} {kind}: launches {n}, "
+                                     f"expected {want}")
+            margins = {"frustum": camera_frustum_margin(hypes, scene)}
+            if det:
+                margins["nms"] = nms_margin(res["cpu"][1],
+                                            hypes["postprocess"]["nms_thresh"])
+                thr = hypes["postprocess"]["target_args"]["obj_threshold"]
+                keeps = {}
+                for d in res:
+                    keeps[d], m = anchor_keep(res[d][0], res[d][1],
+                                              TINY_SCOPE_TOP_K, thr)
+                    if d == "cpu":
+                        margins.update(m)
+            if name == "airv2x_v2xvit":
+                margins["roi"] = float((roi_samples(
+                    hypes, batch["cpu"]["pairwise_t"], (48, 48)) - 0.5).abs().min())
+            if name == "airv2x_v2vnet":
+                margins["roi"] = v2vnet_roi_margin(hypes,
+                                                   batch["cpu"]["pairwise_t_full"])
+            keys = ((("psm", "rm", "obj") if det else ("dynamic_seg", "static_seg"))
+                    + ("comm_rate",) + (("single",) if "single" in res["cpu"][0]
+                                        else ()))
+            label = (f"phase 16 tiny {name} {task} {kind} {mode} card vs CPU "
+                     f"[{card}] ({n['pillar_encode']} K1, {n['conv3x3']} K4a, "
+                     f"{n['quad_iou']} K2 launches; margins "
+                     + json.dumps({k: float(f"{v:.3e}") for k, v in margins.items()})
+                     + f", limit {ROI_MARGIN})")
+            compare(label, res["cuda"][0], res["cpu"][0], keys)
+            kept = None
+            if det:
+                same = bool(torch.equal(keeps["cuda"], keeps["cpu"]))
+                kept = int(keeps["cpu"].sum())
+                print(f"phase 16 tiny {name} {kind}: keep sets by anchor card == "
+                      f"CPU {same}, {kept} kept (card {int(keeps['cuda'].sum())})")
+                if not same or not kept:
+                    raise AssertionError(f"tiny {name} {kind}: keep sets {same}, "
+                                         f"{kept} kept")
+            if min(margins.values()) <= ROI_MARGIN:
+                raise AssertionError(f"tiny {name} {task} {kind}: margins {margins}")
+            out[f"{name} {task} {kind} {mode}"] = {"margins": margins, "kept": kept}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    return out
+
+
+def phase_camera_disk(card):
+    """Phase 16: the camera configs on disk at full width. An on-disk
+    scenario with cameras (``write_scenario``: CAMERA_SCENES timestamps,
+    phase 5's agents, 6 / 4 / 1 cameras at 720 x 1280 per vehicle / RSU /
+    drone), the shipped camera configs cut as phase 5 with the AirV2X
+    augmentation keys supplied (``camera_hypes``); the dataset's host ms per
+    ``__getitem__``; one loaded batch card vs CPU (every array equal); the
+    scenes loaded once and kept on the card; then per config
+    (CAMERA_PATHS), bf16 with seeded random weights drawn on the card, in
+    ``auto`` and ``pallas``: CAMERA_RUNS timed runs after a warm-up
+    (ms/scene, stage times, peak memory), a profile window (device busy,
+    idle share, busy by stage), the launches asserted (K1 0; K4a the
+    config's ConvBNReLU count x its backbone passes in ``pallas``, 0 in
+    ``auto``; K2 1 per det scene), kept detections or class histograms;
+    the tiny compositions card vs CPU (``tiny_camera_compositions``); and
+    the Where2comm det and seg configs through ``inference_multi_scenario``
+    and ``inference_airv2x_seg`` on the scenario in ``pallas``, with their
+    tables and launches (K1 0, K4a 32, K2 at least 2 per det scene, 0 per
+    seg scene)."""
+    import shutil
+
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.models.base import SlotLayout
+    from airv2x_tpu_torch.ops.conv3x3 import KERNELS, conv3x3_plan
+    from airv2x_tpu_torch.tools import inference_airv2x_seg, inference_multi_scenario
+    from airv2x_tpu_torch.tools.inference import model_batch
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    t_phase = time.perf_counter()
+    res = {"card": card}
+    # K4a's tile plans at the LSS backbone's one map: instantiated kernels
+    plans = {}
+    for shape in K4_STAGES:
+        p = conv3x3_plan(1, *shape[1:], shape[3], torch.bfloat16)
+        if (p.wgs, p.mr, p.block_n) not in KERNELS:
+            raise AssertionError(f"phase 16: no K4 kernel for the plan {p}")
+        plans[str((1,) + shape[1:])] = (f"{p.tile_h}x{p.tile_w} pixels x "
+                                        f"{p.block_n} outputs, {p.n_blocks} blocks")
+    print(f"phase 16 K4a bf16 plans at the LSS backbone's stages: {json.dumps(plans)}")
+    res["k4a_lss"] = k4_one_map(cut_hypes(camera_path("det", "lss"))["model"][
+        "args"]["modality_fusion"]["base_bev_backbone"]["layer_nums"])
+
+    work = scratch_dir("chip_smoke_camera_")
+    try:
+        root = os.path.join(work, "test")
+        hypes = camera_hypes(camera_path("det", "where2comm"))
+        args = hypes["model"]["args"]
+        t0 = time.perf_counter()
+        write_scenario(root, SlotLayout.from_args(args),
+                       hypes["preprocess"]["cav_lidar_range"],
+                       stamps=CAMERA_SCENES, seg_hw=int(args["seg_hw"]),
+                       seg_res=float(args["seg_res"]), camera_hw=CAMERA_HW)
+        png = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                  for f in fs if f.endswith("camera.png"))
+        print(f"phase 16 [{card}]: scenario of {CAMERA_SCENES} timestamps with "
+              f"{sum(NCAM[t] * n for t, n in NUM_AGENTS.items())} cameras each at "
+              f"{CAMERA_HW[0]} x {CAMERA_HW[1]}, written in "
+              f"{time.perf_counter() - t0:.2f} s; camera PNGs {png} bytes")
+
+        ds = AirV2XDataset(hypes, root, train=False)
+        load_ms, scenes = [], []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            sample, _ = ds[i]
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+            scenes.append(model_batch(sample, "cuda"))
+        torch.cuda.synchronize()
+        mib = sum(v.numel() * v.element_size() for sc in scenes
+                  for k, d in sc.items() if k.startswith("cam_")
+                  for v in d.values()) / 2**20
+        print(f"phase 16 [{card}] dataset: host ms per __getitem__ "
+              f"{[round(v, 3) for v in load_ms]} (median "
+              f"{statistics.median(load_ms):.3f}); camera inputs {mib:.1f} MiB "
+              f"for {len(scenes)} scenes resident on the card; blocks "
+              + json.dumps({k: list(sample[k]["imgs"].shape) for k in sample
+                            if k.startswith("cam_")}))
+        res["getitem_ms"] = load_ms
+        loaded = {d: next(RealDataLoader(ds, hypes, 1, train=False, num_workers=1,
+                                         device=d).batches())
+                  for d in ("cuda", "cpu")}
+        err = same_batch(loaded["cuda"], loaded["cpu"])
+        cams = {k: v for k, v in err.items() if k.startswith("cam_")}
+        print(f"phase 16 [{card}] one loaded batch, card against CPU: camera "
+              f"arrays max abs err {json.dumps(cams)}")
+        bad = {k: v for k, v in err.items()
+               if v > (BATCH_TARGET_TOL if k == "labels.targets" else 0.0)}
+        if bad or len(cams) != 18:
+            raise AssertionError(f"phase 16: the card's batch differs: {bad}, "
+                                 f"{sorted(cams)}")
+        del loaded
+
+        set_tf32(False)
+        cudnn = torch.backends.cudnn
+        cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+        cudnn.benchmark, cudnn.deterministic = True, False
+        total = dict.fromkeys(kernels.LAUNCHES, 0)
+        for task, yaml_name in CAMERA_PATHS:
+            t0 = time.perf_counter()
+            h = camera_hypes(camera_path(task, yaml_name))
+            name = h["model"]["core_method"]
+            model = init_random_(build_model(h, device="cuda"), seed=0,
+                                 device="cuda")
+            cast_weights_(model, torch.bfloat16)
+            run = camera_step(h, model)
+            label = f"phase 16 {task}/{yaml_name}"
+            convs = backbone_convs(h) * backbone_passes(name)
+            r = {}
+            for mode in ("auto", "pallas"):
+                want = {"pillar_encode": 0, "quad_iou": int(task == "det"),
+                        "conv3x3": convs if mode == "pallas" else 0}
+                with conv_mode(mode):
+                    r[mode] = time_path(f"{label} {mode} [{card}]", run, scenes,
+                                        want, runs=CAMERA_RUNS)
+                r[mode]["launches_per_scene"] = want
+                for k, v in r[mode]["launches"].items():
+                    total[k] += v
+            for mode in ("auto", "pallas"):
+                with conv_mode(mode):
+                    r[mode]["profile"] = phase_profile(
+                        f"{label} {mode} [{card}]", run, scenes, top=8)
+                results = r[mode].pop("results")
+                if task == "det":
+                    r[mode]["kept"] = check_det(f"{label} {mode}", results,
+                                                det_decoder(h)[1])
+                else:
+                    r[mode]["class_hist"] = check_seg(f"{label} {mode}", results,
+                                                      h["model"]["args"])
+            r["seconds"] = time.perf_counter() - t0
+            print(f"{label} [{card}]: both modes, timed and profiled, in "
+                  f"{r['seconds']:.1f} s")
+            res[f"{task}/{yaml_name}"] = r
+            del model, run
+            torch.cuda.empty_cache()
+        del scenes
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        res["tiny_card_vs_cpu"] = tiny_camera_compositions(card)
+        print(f"phase 16 tiny compositions in {time.perf_counter() - t0:.1f} s")
+
+        n = len(ds)
+        for task, cli in (("det", inference_multi_scenario),
+                          ("seg", inference_airv2x_seg)):
+            h, run_dir = eval_run_dir(camera_path(task, "where2comm"), root, work,
+                                      cut=camera_hypes)
+            with conv_mode("pallas"):
+                kernels.reset_launch_counts()
+                out = cli.main(["--model_dir", run_dir, "--device", "cuda"])
+                torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            label = f"phase 16 {task}/where2comm CLI on disk, pallas [{card}]"
+            table = eval_table(task, out)
+            print(f"{label}: {out['ms_per_scene']:.3f} ms/scene (load + forward "
+                  f"+ decode + metrics, one run, cold), launches per scene "
+                  f"{ {k: v / n for k, v in launches.items()} }; "
+                  + json.dumps(table))
+            k2 = launches["quad_iou"]
+            if not (launches["pillar_encode"] == 0 and launches["conv3x3"] == 32 * n
+                    and (k2 >= 2 * n if task == "det" else k2 == 0)):
+                raise AssertionError(f"{label}: launches {launches} over {n} scenes")
+            if not all(np.isfinite(list(_numbers(out)))):
+                raise AssertionError(f"{label}: a non-finite metric: {out}")
+            res[f"cli {task}"] = {"table": table, "ms_per_scene": out["ms_per_scene"],
+                                  "launches": launches}
+        res["launches"] = total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 16 [{card}] in {res['seconds']:.1f} s; launches over its timed "
+          f"runs and CLI runs: {total}")
+    return res
 
 
 class RangeMarks:
@@ -3730,6 +4377,12 @@ def main() -> int:
     print(json.dumps({"eval": {"card": card, **{k: v for k, v in ev.items()
                                                if k != "launches"},
                                "ap_gate": gate}}))
+    cam_disk = phase_camera_disk(card)
+    print(json.dumps({"camera_disk": {
+        k: ({mode: ({kk: vv for kk, vv in r.items() if kk != "launches"}
+                    if isinstance(r, dict) else r) for mode, r in v.items()}
+            if "/" in k and not k.startswith("cli") else v)
+        for k, v in cam_disk.items()}}))
     # the training phases run after every serving phase, so that nothing
     # they leave on the card shows in the serving paths' peak memory
     tiny_train = phase_tiny_train(card)
@@ -3752,11 +4405,13 @@ def main() -> int:
     disk = family["on_disk_v2vnet"]["launches"]
     launches = {k: sum(r["launches"][k] for res in runs.values()
                        for r in res.values()) + ev["launches"][k] + disk[k]
+                + cam_disk["launches"][k]
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
-          f"15's on-disk V2VNet run: {disk}")
-    print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12 and "
-          f"15) and the counted phase 13 and 15 CLI runs: {launches}")
+          f"15's on-disk V2VNet run: {disk}; in phase 16's timed and CLI runs: "
+          f"{cam_disk['launches']}")
+    print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15 "
+          f"and 16) and the counted phase 13, 15 and 16 CLI runs: {launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",

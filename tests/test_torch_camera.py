@@ -1,6 +1,7 @@
 """The PyTorch port's camera-LSS path against the JAX package: the frustum,
 depth-bin and geometry helpers, voxel pooling, the resize helpers, each
-trunk / LSS module through the weight bridge, the whole tiny camera model
+trunk / LSS module through the weight bridge (the EfficientNet and the
+truncated resnet101 trunks), the whole tiny camera model
 (camera only, and LiDAR + camera on the vehicles) under the ``auto`` and
 ``pallas`` conv backends with its decoded keep sets, a bf16 eval against
 JAX bf16, and the serving cast's f32 BatchNorms."""
@@ -344,8 +345,29 @@ def test_torch_basic_block(stride, downsample):
     _rel_close(nchw_to_nhwc(got), np.asarray(want), TOL, "basic block")
 
 
-@pytest.mark.parametrize("gt", [False, True], ids=["softmax", "gt_depth"])
-def test_cam_encoder(gt):
+@pytest.mark.parametrize("in_c,planes,stride,downsample", [
+    (16, 8, 1, True),    # layer1_0: the projection at stride 1
+    (32, 8, 1, False),   # the identity skip
+    (32, 16, 2, True),   # layer2_0: stride 2 on conv2 and the projection
+])
+def test_torch_bottleneck(in_c, planes, stride, downsample):
+    x = np.random.default_rng(12).normal(size=(2, 10, 12, in_c)).astype(np.float32)
+    got, want = _module_case(
+        jtrunks.TorchBottleneck(planes, stride=stride, downsample=downsample),
+        trunks.TorchBottleneck(in_c, planes, stride, downsample), [x])
+    assert nchw_to_nhwc(got).shape == np.asarray(want).shape
+    _rel_close(nchw_to_nhwc(got), np.asarray(want), TOL, "bottleneck")
+
+
+def test_resnet101_trunk():
+    """conv1 .. layer2: 512 channels at /8 of the input."""
+    x = np.random.default_rng(13).uniform(0, 1, (2, 32, 48, 3)).astype(np.float32)
+    got, want = _module_case(jtrunks.ResNet101Trunk(), trunks.ResNet101Trunk(), [x])
+    assert nchw_to_nhwc(got).shape == np.asarray(want).shape == (2, 4, 6, 512)
+    _rel_close(nchw_to_nhwc(got), np.asarray(want), TOL, "resnet101 trunk")
+
+
+def _cam_encoder_case(gt, encoder_type):
     rng = np.random.default_rng(10)
     x = rng.uniform(0, 1, (2, 64, 96, 3)).astype(np.float32)
     onehot = None
@@ -353,8 +375,8 @@ def test_cam_encoder(gt):
         onehot = np.eye(8, dtype=np.float32)[rng.integers(0, 8, (2, 8, 12))]
         onehot[0, 0, 0] = 0.0  # an out-of-range pixel
     jmod = jlss.CamEncoder(depth_bins=8, context_c=16, downsample=8,
-                           use_gt_depth=gt)
-    tmod = lss.CamEncoder(8, 16, 8, use_gt_depth=gt)
+                           encoder_type=encoder_type, use_gt_depth=gt)
+    tmod = lss.CamEncoder(8, 16, 8, encoder_type=encoder_type, use_gt_depth=gt)
     (got, got_logits), (want, want_logits) = _module_case(
         jmod, tmod, [x, onehot], nchw=[True, False])
     assert got.shape == want.shape == (2, 8, 12, 8, 16)
@@ -364,6 +386,18 @@ def test_cam_encoder(gt):
         assert tmod.depth_head is None
     else:
         _rel_close(got_logits.numpy(), np.asarray(want_logits), TOL, "logits")
+
+
+@pytest.mark.parametrize("gt", [False, True], ids=["softmax", "gt_depth"])
+def test_cam_encoder(gt):
+    _cam_encoder_case(gt, "EfficientNet")
+
+
+@pytest.mark.parametrize("gt", [False, True], ids=["softmax", "gt_depth"])
+def test_cam_encoder_resnet101(gt):
+    """``camera_encoder: Resnet101``: the truncated resnet's 512 channels at
+    /8 straight into the 1x1 heads."""
+    _cam_encoder_case(gt, "Resnet101")
 
 
 def test_bev_encoder():

@@ -93,10 +93,18 @@ def crop_margins(monkeypatch):
 def assert_same_sample(want, got, what=""):
     """A JAX (batch, gt) against the port's: keys, shapes and dtypes equal;
     the points within CLOUD_TOL where valid, the gt boxes within BOX_TOL,
-    everything else equal."""
+    everything else equal, the ``cam_<type>`` blocks leaf by leaf."""
     (bj, gj), (bt, gt) = want, got
     assert set(bj) == set(bt), (what, set(bj) ^ set(bt))
     for k in bj:
+        if isinstance(bj[k], dict):
+            assert isinstance(bt[k], dict) and set(bt[k]) == set(bj[k]), (what, k)
+            for kk, v in bj[k].items():
+                a, b = np.asarray(v), np.asarray(bt[k][kk])
+                assert a.shape == b.shape and a.dtype == b.dtype, (
+                    what, k, kk, a.shape, b.shape)
+                np.testing.assert_array_equal(b, a, err_msg=f"{what} {k}.{kk}")
+            continue
         a, b = np.asarray(bj[k]), np.asarray(bt[k])
         assert a.shape == b.shape and a.dtype == b.dtype, (what, k, a.shape, b.shape)
         if k == "points":
@@ -221,9 +229,31 @@ def test_dataset_temporal_frames_match_jax(fixture_root, crop_margins):
     assert crop_margins == []  # proj_first false: the clouds stay as read
 
 
-def test_dataset_refuses_camera_configs(fixture_root):
+def test_dataset_refuses_camera_configs(tmp_path):
+    """A BM2CP config is refused (its lidar-depth projection into the
+    cameras is not ported). A shipped camera YAML, whose ``data_aug_conf``
+    gives only ``final_dim``, is refused by both packages at the first
+    camera read (KeyError on ``H``), the port naming every missing key;
+    with the keys supplied (``cam_hypes``) both read the same sample
+    (tests/test_torch_camera_data.py holds every camera path)."""
+    root = make_fixture(str(tmp_path / "cam"), n_timestamps=1, with_camera=True)
+    bm2cp = _tiny()
+    bm2cp["model"]["core_method"] = "airv2x_bm2cp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AirV2XDataset(cam_hypes(_tiny()), fixture_root)
+        AirV2XDataset(bm2cp, root)
+    shipped = os.path.join(os.path.dirname(TINY), "..", "airv2x", "camera",
+                           "det", "where2comm.yaml")
+    for load, dataset in ((jax_load_yaml, JaxDataset), (load_yaml, AirV2XDataset)):
+        ds = dataset(load(shipped), root, train=False)
+        with pytest.raises(KeyError, match="H"):
+            ds[0]
+    with pytest.raises(KeyError, match="resize_lim"):
+        AirV2XDataset(load_yaml(shipped), root, train=False)[0]
+    hypes = [cam_hypes(_tiny(package=p), ("vehicle", "rsu")) for p in ("jax", "port")]
+    got = AirV2XDataset(hypes[1], root, train=True, seed=4)[0]
+    assert {"cam_vehicle", "cam_rsu"} <= set(got[0])
+    assert_same_sample(JaxDataset(hypes[0], root, train=True, seed=4)[0], got,
+                       "camera sample")
 
 
 def test_augmentor_matches_jax():

@@ -609,7 +609,8 @@ def test_tiny_family_op_counts_match_the_executed_layers(family_run):
 
 def test_registry_has_the_family():
     assert set(MODEL_REGISTRY) == {
-        "airv2x_where2comm", "airv2x_v2xvit", "point_pillar_scope", *FAMILY}
+        "airv2x_where2comm", "airv2x_v2xvit", "point_pillar_scope",
+        "lift_splat_shoot_airv2x", "lift_splat_shoot", *FAMILY}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

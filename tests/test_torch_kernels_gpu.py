@@ -319,6 +319,64 @@ def test_dataset_batch_through_tiny_model_on_card_matches_cpu(cuda, tmp_path):
                                    atol=1e-4 * (1 + scale), rtol=0)
 
 
+def test_camera_batch_through_tiny_model_on_card_matches_cpu(cuda, tmp_path):
+    """One batch of an on-disk scenario with cameras (chip_smoke.py's writer,
+    72 x 128 images, the AirV2X augmentation keys) loaded for the card and
+    for the CPU (every camera array equal), then through the tiny
+    camera-only model in f32 on both (TF32 off, pinned cuDNN; the card
+    fuses with the CPU's confidence). The grid moves by
+    ``chip_smoke.GRID_SHIFT``: the writer's symmetric rig puts frustum
+    points on the unshifted grid's cell boundaries, where the card and the
+    CPU could round a point into neighbouring cells; no K1 launch."""
+    from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    cs = _chip_smoke()
+    hypes = cs.shift_camera_grid(cs.tiny_camera_hypes("cam"))
+    for t in ("vehicle", "rsu", "drone"):
+        hypes["model"]["args"][t]["cam"]["data_aug_conf"].update(
+            dict(cs.AIRV2X_AUG, H=72, W=128))
+    model = init_random_(build_model(hypes, device="cpu"), seed=3)
+    cs.write_scenario(str(tmp_path), model.layout,
+                      hypes["preprocess"]["cav_lidar_range"], stamps=2,
+                      num_agents={"vehicle": 2, "rsu": 1, "drone": 1},
+                      points_per_agent=500, camera_hw=(72, 128))
+    ds = AirV2XDataset(hypes, str(tmp_path), train=False)
+    batches = {d: next(RealDataLoader(ds, hypes, 2, train=False, num_workers=1,
+                                      device=d).batches()) for d in ("cpu", cuda)}
+    errs = cs.same_batch(batches[cuda], batches["cpu"])
+    assert sum(k.startswith("cam_") for k in errs) == 18
+    assert all(v <= (cs.BATCH_TARGET_TOL if k == "labels.targets" else 0.0)
+               for k, v in errs.items()), errs
+    for i in range(len(ds)):
+        sample = {k: ({kk: vv[None] for kk, vv in v.items()}
+                      if isinstance(v, dict) else v[None])
+                  for k, v in ds[i][0].items()}
+        assert cs.camera_frustum_margin(hypes, sample) > cs.CELL_MARGIN
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        outs = {}
+        for d, m in (("cpu", model), (cuda, copy.deepcopy(model).to(cuda))):
+            batch = {k: v for k, v in batches[d].items() if k != "labels"}
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                x = m.encode(batch)
+                single = m.single_psm(x)
+                conf = single if d == "cpu" else outs["cpu"]["single"].to(d)
+                outs[d] = dict(m.fuse(x, conf, batch["agent_mask"]), single=single)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    assert kernels.LAUNCHES["pillar_encode"] == 0
+    for k in ("single", "psm", "rm", "obj"):
+        scale = float(outs["cpu"][k].abs().max())
+        torch.testing.assert_close(outs[cuda][k].cpu(), outs["cpu"][k],
+                                   atol=1e-4 * (1 + scale), rtol=0)
+
+
 def test_tiny_model_on_card_matches_cpu(cuda):
     from airv2x_tpu_torch.config import load_yaml
     from airv2x_tpu_torch.data.postprocess import decode_detections

@@ -624,8 +624,9 @@ def test_cli_refuses_real_root_dir_and_missing_card(tmp_path):
     root = tmp_path / "dataset"
     root.mkdir()
     hypes["root_dir"] = str(root)
-    # the real-data loader reads LiDAR only: a camera config over an
-    # existing root_dir is refused (tests/test_torch_data.py trains on one)
+    # camera training is not ported: the CLI refuses a camera config once,
+    # before it builds a loader (the dataset itself reads cameras for
+    # evaluation; tests/test_torch_data.py trains on a LiDAR root_dir)
     hypes["model"]["args"]["vehicle"]["modalities"] = ["lidar", "cam"]
     cfg = tmp_path / "cfg.yaml"
     with open(cfg, "w") as f:
