@@ -187,6 +187,31 @@ def add_camera_inputs(
     return batch
 
 
+def camera_types(hypes: dict) -> list:
+    """The agent types a config gives the camera modality."""
+    margs = hypes["model"]["args"]
+    return [t for t in AGENT_TYPES if isinstance(margs.get(t), dict)
+            and "cam" in margs[t].get("modalities", [])]
+
+
+def add_camera_batch(batch: dict, hypes: dict, layout: SlotLayout,
+                     rng: np.random.Generator, **kw) -> dict:
+    """Attach the ``cam_<type>`` blocks of a camera config to a (numpy)
+    batch: each sample's ``add_camera_inputs`` at the first camera type's
+    ``final_dim`` (``kw`` passes on, e.g. ``ncam``), drawn sample by sample
+    (the JAX train CLI's order) and stacked leaf by leaf. A config without
+    cameras leaves the batch as it is."""
+    cams = camera_types(hypes)
+    if not cams:
+        return batch
+    hw = tuple(hypes["model"]["args"][cams[0]]["cam"]["data_aug_conf"]["final_dim"])
+    per = [add_camera_inputs({}, layout, rng, img_hw=hw, **kw)
+           for _ in range(len(batch["points"]))]
+    for key in per[0]:
+        batch[key] = {k: np.stack([c[key][k] for c in per]) for k in per[0][key]}
+    return batch
+
+
 def rasterize_seg_labels(boxes, mask, classes, seg_hw: int, seg_res: float):
     """Rasterize gt boxes into a (seg_hw, seg_hw) dynamic class-id map (a BEV
     square centred on the ego, seg_res m/px): the synthetic stand-in for the

@@ -1,5 +1,5 @@
-"""Lift-Splat-Shoot camera -> BEV encoder, eval mode (counterpart of
-airv2x_tpu/models/camera/lss.py).
+"""Lift-Splat-Shoot camera -> BEV encoder, eval and train mode
+(counterpart of airv2x_tpu/models/camera/lss.py).
 
   * frustum: the downsampled image-plane grid times LID / UD depth bins;
   * geometry: undo the augmentation (post_rots / post_trans), unproject
@@ -14,7 +14,8 @@ airv2x_tpu/models/camera/lss.py).
   * ``voxel_pooling``: frustum points quantised to the BEV grid and
     summed per cell by one ``index_add_`` in the features' dtype (the JAX
     package's scatter-add; on a card the order of the atomic adds, and so
-    the rounding, varies between runs);
+    the rounding, varies between runs; its backward is the gather of the
+    cells' gradients);
   * ``BevEncoder``: the resnet18 BEV head.
 
 Tensors keep the JAX package's channel-last layout at the interfaces; the
@@ -29,14 +30,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from airv2x_tpu_torch.models.camera.trunks import (
-    TORCH_BN_EPS,
     EfficientNetB0Features,
     ResNet101Trunk,
     TorchBasicBlock,
     UpBlock,
+    torch_bn,
     upsample_align_corners,
 )
-from airv2x_tpu_torch.models.nn import BatchNorm2d
 
 
 def depth_discretization(d_min, d_max, num_bins, mode) -> np.ndarray:
@@ -213,7 +213,7 @@ class BevEncoder(nn.Module):
     def __init__(self, in_c: int, out_c: int):
         super().__init__()
         self.conv1 = nn.Conv2d(in_c, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64, eps=TORCH_BN_EPS)
+        self.bn1 = torch_bn(64)
         self.layer1_0 = TorchBasicBlock(64, 64)
         self.layer1_1 = TorchBasicBlock(64, 64)
         self.layer2_0 = TorchBasicBlock(64, 128, stride=2, downsample=True)
@@ -222,7 +222,7 @@ class BevEncoder(nn.Module):
         self.layer3_1 = TorchBasicBlock(256, 256)
         self.up1 = UpBlock(64 + 256, 256, scale=4)
         self.up2_conv = nn.Conv2d(256, 128, 3, padding=1, bias=False)
-        self.up2_bn = BatchNorm2d(128, eps=TORCH_BN_EPS)
+        self.up2_bn = torch_bn(128)
         self.up2_out = nn.Conv2d(128, out_c, 1)
 
     def forward(self, x):
@@ -274,12 +274,13 @@ class LSSCameraEncoder(nn.Module):
 
     def gt_depth_onehot(self, depth_map):
         """The image's metric depth (B*, H, W) -> (B*, fH, fW, D) one-hot of
-        its bin at each downsampled pixel centre (zero where out of range),
-        as get_gt_depth_dist."""
+        its bin at each downsampled pixel centre, as get_gt_depth_dist: in
+        eval mode zero where out of range, in train mode clamped to the end
+        bins (the JAX package's ``target=train``)."""
         d_min, d_max, n_bins = self.ddiscr
         depth_map = torch.clamp(depth_map, max=float(d_max))
         idx, valid = bin_depth_indices(depth_map, self.mode, d_min, d_max,
-                                       n_bins, target=False)
+                                       n_bins, target=self.training)
         s = self.downsample
         idx = idx[:, s // 2::s, s // 2::s]
         valid = valid[:, s // 2::s, s // 2::s]
@@ -292,9 +293,6 @@ class LSSCameraEncoder(nn.Module):
 
         ``mark``, if given, is called with a stage name after each stage
         ("trunks+heads", "lift+voxel pooling", "BEV encoder"), for timing."""
-        if self.training:
-            raise NotImplementedError("camera training (the depth loss, the "
-                                      "trunks' train mode) is not ported")
         imgs = cam_inputs["imgs"]
         b, ncam = imgs.shape[:2]
         dtype = self.camencode.image_head.weight.dtype
@@ -312,13 +310,14 @@ class LSSCameraEncoder(nn.Module):
 
         lifted = CamEncoder.lift(depth, context)  # (B*N, fH, fW, D, C)
         lifted = lifted.reshape((b, ncam) + lifted.shape[1:])
+        # the geometry is f32 in every dtype, as in JAX (also after .double())
         geom = get_geometry(
-            self.frustum,
+            self.frustum.float(),
             *(cam_inputs[k].float() for k in ("rots", "trans", "intrinsics",
                                               "post_rots", "post_trans")),
         )  # (B, N, D, fH, fW, 3): in the lifted order (B, N, fH, fW, D)
-        bev = voxel_pooling(geom.permute(0, 1, 3, 4, 2, 5), lifted, self.dx,
-                            self.lo, self.nx)
+        bev = voxel_pooling(geom.permute(0, 1, 3, 4, 2, 5), lifted,
+                            self.dx.float(), self.lo.float(), self.nx)
         if mark is not None:
             mark("lift+voxel pooling")
 

@@ -1,4 +1,4 @@
-"""Camera-trunk building blocks, eval mode (counterpart of
+"""Camera-trunk building blocks, eval and train mode (counterpart of
 airv2x_tpu/models/camera/trunks.py).
 
   * ``EfficientNetB0Features``: the EfficientNet-b0 feature pyramid of the
@@ -16,10 +16,11 @@ airv2x_tpu/models/camera/trunks.py).
 
 Modules compute in NCHW (``channels_last`` in memory where the caller makes
 it so). Children carry the flax scope names, which the weight bridge
-(``utils/weights.py``) follows. BatchNorm eps follows each torch source:
-1e-3 for EfficientNet, 1e-5 for the resnet and Up blocks. Drop-connect is a
-train-time regulariser and, as in the JAX package, not applied; the trunks'
-train mode (the torch momenta) is not ported.
+(``utils/weights.py``) follows. BatchNorm eps and momentum follow each
+torch source: EfficientNet's eps 1e-3 and torch momentum 0.01 (flax 0.99),
+the resnet and Up blocks' eps 1e-5 and torch momentum 0.1 (flax 0.9,
+``torch_bn``). Drop-connect is a train-time regulariser and, as in the JAX
+package, not applied.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from torch import nn
 from airv2x_tpu_torch.models.nn import BatchNorm2d
 
 TORCH_BN_EPS = 1e-5
+TORCH_BN_MOMENTUM = 0.9  # flax's running-average coefficient (torch 0.1)
 EFF_BN_EPS = 1e-3
+EFF_BN_MOMENTUM = 0.99  # torch 0.01
 
 # EfficientNet-b0 block args (kernel, stride, expand, in_c, out_c, repeats)
 EFFNET_B0_STAGES = (
@@ -43,6 +46,11 @@ EFFNET_B0_STAGES = (
     (5, 2, 6, 112, 192, 4),
     (3, 1, 6, 192, 320, 1),
 )
+
+
+def torch_bn(num_features: int) -> BatchNorm2d:
+    """A BatchNorm of the torchvision parts: eps 1e-5, flax momentum 0.9."""
+    return BatchNorm2d(num_features, eps=TORCH_BN_EPS, momentum=TORCH_BN_MOMENTUM)
 
 
 def swish(x):
@@ -102,16 +110,16 @@ class MBConvBlock(nn.Module):
         self.skip = stride == 1 and in_c == out_c
         if expand != 1:
             self.expand_conv = nn.Conv2d(in_c, mid, 1, bias=False)
-            self.bn0 = BatchNorm2d(mid, eps=EFF_BN_EPS)
+            self.bn0 = BatchNorm2d(mid, eps=EFF_BN_EPS, momentum=EFF_BN_MOMENTUM)
         else:
             self.expand_conv = None
         self.depthwise_conv = SameConv2d(mid, mid, kernel, stride, groups=mid)
-        self.bn1 = BatchNorm2d(mid, eps=EFF_BN_EPS)
+        self.bn1 = BatchNorm2d(mid, eps=EFF_BN_EPS, momentum=EFF_BN_MOMENTUM)
         se_c = max(1, int(in_c * se_ratio))
         self.se_reduce = nn.Conv2d(mid, se_c, 1)
         self.se_expand = nn.Conv2d(se_c, mid, 1)
         self.project_conv = nn.Conv2d(mid, out_c, 1, bias=False)
-        self.bn2 = BatchNorm2d(out_c, eps=EFF_BN_EPS)
+        self.bn2 = BatchNorm2d(out_c, eps=EFF_BN_EPS, momentum=EFF_BN_MOMENTUM)
 
     def forward(self, x):
         inputs = x
@@ -133,7 +141,7 @@ class EfficientNetB0Features(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv_stem = SameConv2d(3, 32, 3, 2)
-        self.bn0 = BatchNorm2d(32, eps=EFF_BN_EPS)
+        self.bn0 = BatchNorm2d(32, eps=EFF_BN_EPS, momentum=EFF_BN_MOMENTUM)
         self.strides = []
         idx = 0
         for kernel, stride, expand, in_c, out_c, repeats in EFFNET_B0_STAGES:
@@ -164,13 +172,13 @@ class TorchBasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_c, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+        self.bn1 = torch_bn(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+        self.bn2 = torch_bn(planes)
         if downsample:
             self.ds_conv = nn.Conv2d(in_c, planes, 1, stride=stride,
                                      bias=False)
-            self.ds_bn = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+            self.ds_bn = torch_bn(planes)
         else:
             self.ds_conv = None
 
@@ -190,16 +198,16 @@ class TorchBottleneck(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_c, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+        self.bn1 = torch_bn(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = BatchNorm2d(planes, eps=TORCH_BN_EPS)
+        self.bn2 = torch_bn(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm2d(planes * 4, eps=TORCH_BN_EPS)
+        self.bn3 = torch_bn(planes * 4)
         if downsample:
             self.ds_conv = nn.Conv2d(in_c, planes * 4, 1, stride=stride,
                                      bias=False)
-            self.ds_bn = BatchNorm2d(planes * 4, eps=TORCH_BN_EPS)
+            self.ds_bn = torch_bn(planes * 4)
         else:
             self.ds_conv = None
 
@@ -223,7 +231,7 @@ class ResNet101Trunk(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64, eps=TORCH_BN_EPS)
+        self.bn1 = torch_bn(64)
         for i in range(3):
             self.add_module(f"layer1_{i}", TorchBottleneck(
                 64 if i == 0 else 256, 64, downsample=i == 0))
@@ -249,9 +257,9 @@ class UpBlock(nn.Module):
         super().__init__()
         self.scale = scale
         self.conv0 = nn.Conv2d(in_c, out_c, 3, padding=1, bias=False)
-        self.bn0 = BatchNorm2d(out_c, eps=TORCH_BN_EPS)
+        self.bn0 = torch_bn(out_c)
         self.conv1 = nn.Conv2d(out_c, out_c, 3, padding=1, bias=False)
-        self.bn1 = BatchNorm2d(out_c, eps=TORCH_BN_EPS)
+        self.bn1 = torch_bn(out_c)
 
     def forward(self, x, skip):
         x = upsample_align_corners(x, x.shape[-2] * self.scale,

@@ -15,7 +15,8 @@ airv2x_tpu/models/fusion/scope.py), channels-first.
     blends the temporal, ego and collaborative features.
 
 The gaussian is Where2comm's (unnormalised 1 / (2 pi sigma), in the input's
-dtype). The temporal BatchNorms use eps 1e-5, not the backbone's 1e-3.
+dtype). The temporal BatchNorms use eps 1e-5 and flax momentum 0.9, not the
+backbone's 1e-3 and 0.99.
 The LSTM's raw parameters (``b_*`` (1, C, H, W), ``init_c`` (C, H, W)) stay
 f32 under the serving cast, as the JAX package keeps its parameters; the
 weight bridge permutes them from flax's channels-last layout.
@@ -34,6 +35,7 @@ from airv2x_tpu_torch.models.fusion.where2comm import gaussian_smooth
 from airv2x_tpu_torch.models.nn import BatchNorm2d
 
 LSTM_BN_EPS = 1e-5
+LSTM_BN_MOMENTUM = 0.9  # flax coefficient (torch 0.1), as the JAX package
 
 
 def smoothed_confidence(psm, k_size: int, c_sigma: float):
@@ -120,7 +122,8 @@ class STPNMotionLSTM(nn.Module):
         for name, cin, cout, stride in self.LAYERS:
             self.add_module(f"conv{name}", nn.Conv2d(
                 cin * c, cout * c, 3, stride=stride, padding=1))
-            self.add_module(f"bn{name}", BatchNorm2d(cout * c, eps=LSTM_BN_EPS))
+            self.add_module(f"bn{name}", BatchNorm2d(
+                cout * c, eps=LSTM_BN_EPS, momentum=LSTM_BN_MOMENTUM))
 
     def _cbr(self, name, x):
         return _cbr(getattr(self, f"conv{name}"), getattr(self, f"bn{name}"), x)
@@ -189,7 +192,8 @@ class SyncLSTM(nn.Module):
                                     ("after_1", cs, ratio * cs),
                                     ("after_2", ratio * cs, channel_size)):
                 self.add_module(f"conv_{name}", nn.Conv2d(cin, cout, 3, padding=1))
-                self.add_module(f"bn_{name}", BatchNorm2d(cout, eps=LSTM_BN_EPS))
+                self.add_module(f"bn_{name}", BatchNorm2d(
+                    cout, eps=LSTM_BN_EPS, momentum=LSTM_BN_MOMENTUM))
         self.lstmcell = MotionLSTM(cs, height, width)
         self.init_c = nn.Parameter(torch.zeros(cs, height, width))
 

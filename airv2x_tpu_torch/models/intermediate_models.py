@@ -1,5 +1,5 @@
 """Intermediate-fusion models (counterpart of
-airv2x_tpu/models/intermediate_models.py), det and seg, in eval mode.
+airv2x_tpu/models/intermediate_models.py), det and seg, in eval and train mode.
 
 ``PostBackboneFusionModel`` is the shared spine: hetero encode -> shared
 BEV backbone (one pass over every agent) -> shrink -> a fusion of the

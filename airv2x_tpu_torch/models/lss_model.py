@@ -1,5 +1,5 @@
 """The camera-only LSS baseline (counterpart of
-airv2x_tpu/models/lss_model.py), det and seg, in eval mode.
+airv2x_tpu/models/lss_model.py), det and seg, in eval and train mode.
 
 One agent's cameras -> ``LSSCameraEncoder`` -> ``BaseBEVBackbone`` -> the
 optional ``DownsampleConv`` shrink -> detection heads or the BEV

@@ -2,7 +2,9 @@
 
 Modules compute in NCHW; BatchNorm uses the reference's eps = 1e-3 and, in
 train mode, flax's statistics: f32 batch statistics, the biased batch
-variance in the running average, flax momentum 0.99 (torch's 0.01).
+variance in the running average, flax momentum 0.99 (torch's 0.01) unless
+a module gives its own (the camera trunks' torchvision parts and SCOPE's
+temporal BNs take 0.9, torch's 0.1, as in the JAX package).
 ``FLAX_NAMES`` maps each child attribute to its flax scope name, which the
 weight bridge (``utils/weights.py``) follows; a ``ModuleList`` child ``x``
 maps to scopes ``<name>_0``, ``<name>_1``, ...
@@ -27,10 +29,11 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.99  # flax: ema = m * ema + (1 - m) * batch
 
 
-def _ema_(running: torch.Tensor, batch: torch.Tensor) -> None:
-    """Flax's running-average update, in place (bumps the tensor's version,
-    which ``ConvBNReLU._fold`` keys its cache on)."""
-    running.copy_(BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch)
+def _ema_(running: torch.Tensor, batch: torch.Tensor,
+          momentum: float = BN_MOMENTUM) -> None:
+    """Flax's running-average update with flax ``momentum``, in place (bumps
+    the tensor's version, which ``ConvBNReLU._fold`` keys its cache on)."""
+    running.copy_(momentum * running + (1 - momentum) * batch)
 
 
 def _conv3x3_mode(shape, dtype, features: int) -> str:
@@ -59,7 +62,11 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over the last axis of a padded point set (flax
     ``MaskedBatchNorm``). In train mode the statistics are taken over the
     rows where ``mask`` is True only, in f32: the masked mean, then the
-    masked mean of squared deviations (two passes, as the JAX package)."""
+    masked mean of squared deviations (two passes, as the JAX package).
+    Each sum accumulates in f64 and rounds once to f32, so the statistics
+    do not depend on the order of the sums (the CPU's, the card's, XLA's):
+    downstream of them a train step's gradients can amplify a one-ulp
+    difference in a statistic a thousandfold."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__()
@@ -81,8 +88,9 @@ class MaskedBatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             cnt = m.sum().clamp_min(1.0)
             xf = x.float()
-            mean = (xf * m).sum(dims) / cnt
-            var = ((xf - mean) ** 2 * m).sum(dims) / cnt
+            mean = ((xf * m).sum(dims, dtype=torch.float64) / cnt).float()
+            var = (((xf - mean) ** 2 * m).sum(dims, dtype=torch.float64)
+                   / cnt).float()
             with torch.no_grad():
                 _ema_(self.running_mean, mean)
                 _ema_(self.running_var, var)
@@ -101,10 +109,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     apart from torch's own variance by up to ~1e-4 relative where the mean
     dwarfs the spread), normalises with them in that type with the gradient
     flowing through both, casts to x's dtype, and updates the running
-    averages with flax's momentum. Eval mode is the parent's."""
+    averages with the flax ``momentum`` (torch's is 1 - momentum). Eval mode
+    is the parent's."""
 
-    def __init__(self, num_features: int, eps: float = BN_EPS):
-        super().__init__(num_features, eps=eps, momentum=1 - BN_MOMENTUM)
+    def __init__(self, num_features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
+        super().__init__(num_features, eps=eps, momentum=1 - momentum)
+        self.flax_momentum = momentum
 
     def forward(self, x):
         if not self.training:
@@ -113,8 +124,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = xf.mean((0, 2, 3))
         var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
-            _ema_(self.running_mean, mean)
-            _ema_(self.running_var, var)
+            _ema_(self.running_mean, mean, self.flax_momentum)
+            _ema_(self.running_var, var, self.flax_momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)

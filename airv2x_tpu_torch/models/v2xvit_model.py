@@ -1,5 +1,5 @@
 """Airv2x V2X-ViT model (counterpart of airv2x_tpu/models/v2xvit_model.py),
-for the det and seg tasks, in eval mode.
+for the det and seg tasks, in eval and train mode.
 
 The intermediate-fusion spine (``PostBackboneFusionModel``: hetero encode ->
 shared BEV backbone, one pass -> shrink -> heads) with the V2X-ViT

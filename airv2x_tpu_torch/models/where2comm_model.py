@@ -26,6 +26,9 @@ from airv2x_tpu_torch.models.nn import DownsampleConv
 
 
 class Airv2xWhere2comm(nn.Module):
+    # the train step passes ``comm_u`` / ``generator`` (parallel/train.py)
+    DRAWS_KEEP_FRACTION = True
+
     def __init__(self, args: dict):
         super().__init__()
         self.task = args["task"]

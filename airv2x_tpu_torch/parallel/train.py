@@ -111,19 +111,26 @@ def split_batch(batch: dict, parts: int) -> list[dict]:
 def make_train_step(loss_fn: Callable, sched: Callable[[int], float], *,
                     accum_steps: int = 1,
                     compute_dtype: torch.dtype = torch.float32, seed: int = 0):
-    """Build ``step(state, batch, comm_u=None) -> parts``.
+    """Build ``step(state, batch, comm_u=None) -> parts`` for any model of
+    the registry.
 
     One update per call: the learning rate ``sched(state.step)``, then the
     ``accum_steps`` microbatches run in order (BN statistics update per
     microbatch, as the JAX step's scan threads them), their gradients and
-    loss parts averaged. ``comm_u`` (B,) gives the train-mode keep
-    fractions of the whole batch (microbatch i takes its rows); without it
-    they are drawn from a CPU generator seeded by (``seed``, ``state.step``),
-    so a resumed run draws what an uninterrupted one would. ``parts`` are
+    loss parts averaged. A model whose class sets ``DRAWS_KEEP_FRACTION``
+    (Where2comm's train-mode communication) gets ``comm_u`` and
+    ``generator`` keywords: ``comm_u`` (B,) gives the keep fractions of the
+    whole batch (microbatch i takes its rows); without it they are drawn
+    from a CPU generator seeded by (``seed``, ``state.step``), so a resumed
+    run draws what an uninterrupted one would. Every other model is called
+    as ``model(batch)``, and ``comm_u`` must be None. ``parts`` are
     detached f32 tensors."""
 
     def step(state: TrainState, batch: dict, comm_u=None):
         model, opt = state.model, state.optimizer
+        draws = getattr(model, "DRAWS_KEEP_FRACTION", False)
+        if comm_u is not None and not draws:
+            raise ValueError(f"{type(model).__name__} draws no keep fraction")
         model.train()
         lr = sched(state.step)
         for group in opt.param_groups:
@@ -134,13 +141,14 @@ def make_train_step(loss_fn: Callable, sched: Callable[[int], float], *,
         dev = batch["points"].device
         totals: dict = {}
         for i, mb in enumerate(micro):
-            u = None
-            if comm_u is not None:
+            kw = {}
+            if draws:
                 n = mb["points"].shape[0]
-                u = comm_u[i * n:(i + 1) * n]
+                kw = dict(generator=generator, comm_u=None if comm_u is None
+                          else comm_u[i * n:(i + 1) * n])
             with torch.autocast(dev.type, dtype=compute_dtype,
                                 enabled=compute_dtype != torch.float32):
-                out = model(mb, comm_u=u, generator=generator)
+                out = model(mb, **kw)
             total, parts = loss_fn(out, mb["labels"])
             (total / accum_steps).backward()
             for k, v in parts.items():

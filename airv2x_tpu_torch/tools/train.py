@@ -10,13 +10,16 @@ split (``data/airv2x_dataset.py`` through ``data/loader.py``: prefetch
 workers, the config's wild settings, anchor labels on the device) and
 computes the validation loss on ``validate_dir`` (the train split, in
 order, when that is absent); otherwise, or with ``--synthetic``, on
-synthetic anchor-labelled LiDAR scenes (``data/synthetic.py:make_batch``).
-One optimizer update per batch, with the reference's run-dir layout:
+synthetic anchor-labelled LiDAR scenes (``data/synthetic.py:make_batch``),
+with each camera config's per-type camera stacks added per sample
+(``add_camera_inputs``, as the JAX CLI adds them). Every model the port
+serves trains, camera configs included (on disk their ``data_aug_conf``
+must give the AirV2X augmentation keys, which the shipped camera YAMLs
+lack). One optimizer update per batch, with the reference's run-dir layout:
 ``<log_dir>/<name>__<stamp>/config.yaml``, a checkpoint ``net_epoch{N}``
 per saved epoch, ``train_loss.txt`` and ``validation_loss.txt``.
 ``--model_dir`` resumes from the last checkpoint of that run dir, with its
-``config.yaml``. Radar configs raise, and camera configs before any
-loader is built.
+``config.yaml``. Radar and BM2CP configs raise before anything is built.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ import numpy as np
 from airv2x_tpu_torch.config import load_yaml
 from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset, WildSettings
 from airv2x_tpu_torch.data.loader import RealDataLoader
-from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_batch
+from airv2x_tpu_torch.data.synthetic import (
+    add_camera_batch, batch_to_torch, make_batch)
 from airv2x_tpu_torch.loss import build_loss
 from airv2x_tpu_torch.models import build_model
-from airv2x_tpu_torch.models.base import AGENT_TYPES, SlotLayout
+from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.models.registry import compute_dtype
 from airv2x_tpu_torch.ops.anchors import anchor_standup_boxes, generate_anchor_grid
 from airv2x_tpu_torch.parallel.train import (
@@ -105,12 +109,22 @@ def build_real_loaders(hypes, opt, batch_size, device):
     return train_loader, val_loader
 
 
-def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
-    """Anchor-labelled synthetic LiDAR batches (numpy), their labels computed
-    on ``device``; seg configs get rasterized seg labels."""
+def refuse_unported(hypes) -> None:
+    """Raise NotImplementedError for a config the port cannot train: the
+    V2X-R radar families and BM2CP."""
     core = hypes["model"]["core_method"].lower()
     if any(k in core for k in ("l4dr", "lrf", "interf", "mdd")):
         raise NotImplementedError("radar configs are not ported")
+    if "bm2cp" in core:
+        raise NotImplementedError("BM2CP is not ported (ROADMAP §1)")
+
+
+def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
+    """Anchor-labelled synthetic LiDAR batches (numpy), their labels computed
+    on ``device``; seg configs get rasterized seg labels, camera configs the
+    per-type camera stacks at the first camera type's ``final_dim``, drawn
+    per sample after its scene (the JAX CLI's order)."""
+    refuse_unported(hypes)
     anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
     standup = anchor_standup_boxes(anchors)
     rng = np.random.default_rng(seed)
@@ -127,7 +141,7 @@ def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
             lidar_range=hypes["preprocess"]["cav_lidar_range"],
             max_boxes=hypes["postprocess"]["max_num"],
         )
-        yield batch
+        yield add_camera_batch(batch, hypes, layout, rng)
 
 
 def main(argv=None) -> str:
@@ -135,13 +149,7 @@ def main(argv=None) -> str:
     opt = parse_args(argv)
     dev = resolve_device(opt.device)
     hypes = load_yaml(opt.hypes_yaml, opt.model_dir or None)
-    margs = hypes["model"]["args"]
-    if any(isinstance(margs.get(t), dict)
-           and "cam" in margs[t].get("modalities", []) for t in AGENT_TYPES):
-        # before any loader: the dataset reads cameras for evaluation
-        raise NotImplementedError(
-            "camera training (the depth loss, the trunks' train mode) is not "
-            "ported (ROADMAP §1 item 3)")
+    refuse_unported(hypes)
     tp = hypes["train_params"]
     epochs = opt.epochs or int(tp["epoches"])
     batch_size = opt.batch_size or int(tp["batch_size"])

@@ -204,18 +204,41 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      weights, flax-like initialisation: after a warm-up, 10 timed steps
      (median ms/step and train scenes/s on the host clock with
      synchronize() on both ends, peak memory, every step's loss parts,
-     all finite, a profile window of 3 steps), then one batch 20 times,
-     whose total loss must fall below its first value; then eval with the
+     all finite, a profile window of 3 steps), then one batch 20 times
+     at a tenth of the lr, whose total loss must fall (``loss_fell``);
+     then eval with the
      trained weights in f32: the single-agent confidence of ``pallas``
      against ``auto`` as phase 4a checks it (the folds were cached before
      training), and the det path (decode included) in ``pallas`` mode with
      its K1 / K4a / K2 launches counted;
   9. the same training run for the LiDAR seg model (512 x 512 labels), with
-     no decode check.
+     no decode check;
+  17. training beyond the flagship (``phase_train_models``): the V2X-ViT,
+     AttFusion, Max, CoBEVT, V2VNet and When2com LiDAR det configs, the
+     V2X-ViT seg config and the camera Where2comm and LSS det configs
+     (``TRAIN_MODEL_PATHS``), cut as phase 5, batch 2, bf16 autocast over
+      f32 master weights, cuDNN on its heuristics (no autotuning: the camera
+     trunks' many shapes took minutes of it), in the order of phases 8-9:
+     2 warm-up steps, TRAIN_MODEL_STEPS timed steps (ms/step, train
+     scenes/s, peak memory), a profile window of one step (busy, idle;
+     processing a longer window took a minute on the camera configs), then
+     one batch TRAIN_MODEL_REPEATS times (``loss_fell``); finite loss
+     parts, no kernel launch while training; the trained f32
+     weights evaluated in ``auto`` and ``pallas`` with their K1 / K4a / K2
+     launches asserted; then 2 steps of the train CLI on the camera LSS
+     config over an on-disk scenario with cameras; a ``train_models`` JSON
+     line.
+
+The repeated-batch check of phases 8, 9 and 17 (``loss_fell``): after the
+timed steps, one batch is taken again and again at REPEAT_LR_SCALE of the
+schedule's lr (Adam's moments carried over), Where2comm's keep fraction
+held at REPEAT_KEEP; the median of the second half of the repeats must lie
+at least REPEAT_DROP below the least of the first three.
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11, 12, 15 and 16) and each counted CLI run of phases 13, 15 and 16, and
-read just after; the ``kernels`` line sums them over those runs. Every profile window
+11, 12, 15 and 16), each counted CLI run of phases 13, 15 and 16 and each
+evaluation of phase 17, and read just after; the ``kernels`` line sums them
+over those runs. Every profile window
 gives each kernel, copy and memset PyTorch launched to the one stage whose
 host range holds its launch (``launch_ranges``), counts the port's own
 kernels (K1 / K2 / K4, launched through ctypes) apart, and requires the
@@ -223,8 +246,9 @@ two together to stay within the window's device busy time. Its K4 times are per 
 32 launches of one scene at their stages, in
 bf16 as the main path runs them and, under ``f32``, the f32 kernel; K2's
 row adds the prefilter's survivor share and the scene input's numbers.
-Phases 8 and 9 print the card's name and power limit on every line of
-numbers and their results as one ``training`` JSON line. It then prints
+Phases 8, 9 and 17 print the card's name and power limit on every line of
+numbers and their results as the ``training`` and ``train_models`` JSON
+lines. It then prints
 the kernels' JSON line and, last, the device JSON line.
 Nothing here imports JAX or the JAX package.
 """
@@ -591,10 +615,25 @@ BATCH_TARGET_TOL = 1e-6
 # where the CPU gradient clears twice the gradient bound, else 2 lr.
 STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL, STEP_GRAD_FLOOR = 2e-3, 2e-4
+# the tiny When2com's train step in float64, one package against the other
+# or the card against the CPU: its warp's sample grid is an f32 island in
+# both, and a one-ulp change there moves the model's float64 gradients by
+# 2.2e-2 of a leaf's scale (tests/train_reference_probes.py); the bound is
+# 5e-2 of the leaf's scale plus 1e-9 of the step's largest gradient (the
+# conv biases that a train-mode BN follows, and the key net's last bias,
+# have exact gradient 0 and read rounding noise)
+WHEN2COM_F64_GRAD_TOL, WHEN2COM_F64_GRAD_FLOOR = 5e-2, 1e-9
 TRAIN_BATCH = 2  # train_params.batch_size of both flagship YAMLs
 N_TRAIN_BATCHES = 4  # distinct batches the timed steps cycle through
 TRAIN_STEPS = 10  # timed, after a warm-up of 2
-REPEAT_STEPS = 20  # one batch, for the falling loss
+REPEAT_STEPS = 20  # one batch, for the falling loss (``loss_fell``)
+# the repeats' lr over the schedule's: at the YAMLs' own (Adam, lr 0.002,
+# eps 1e-10) a sound full-width model's loss on one batch can rise for 16
+# steps (When2com in f32: 7.50 -> 9.84 with its gradients checked against
+# the loss); at a tenth every config fell (tests/train_card_probes.py)
+REPEAT_LR_SCALE = 0.1
+REPEAT_DROP = 0.05  # the second half's median below the least of the first 3
+REPEAT_KEEP = 0.5  # Where2comm's keep fraction on every repeat
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -3956,15 +3995,14 @@ def launch_ranges(prof, prefixes):
     return out
 
 
-def phase_profile(label, run, scenes, top=15, unit="scene"):
-    """Device time by kernel over a few scenes (or train steps: ``unit``) of
-    a path, the device's idle share of that window (torch.profiler /
+def phase_profile(label, run, scenes, top=15, unit="scene", n=3):
+    """Device time by kernel over ``n`` scenes (or train steps: ``unit``)
+    of a path, the device's idle share of that window (torch.profiler /
     CUPTI), and the device time of the kernels launched in each stage."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    n = 3
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4145,61 +4183,93 @@ def phase_tiny_train(card):
     return out
 
 
-def train_setup(path, seg):
-    """A trainable full-width model (bf16 compute, flax-like weights) and
-    N_TRAIN_BATCHES labelled batches on the card."""
-    from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_batch
+def train_setup(hypes, n_batches=N_TRAIN_BATCHES):
+    """A trainable full-width model of ``hypes`` (bf16 compute, flax-like
+    weights) and ``n_batches`` labelled batches of TRAIN_BATCH on the card:
+    ``make_batch`` (seg labels for a seg config), then, for a camera config,
+    each sample's camera stacks (``add_camera_inputs``, NCAM cameras per
+    agent at the config's final_dim), drawn after the scenes as the train
+    CLI draws them."""
+    from airv2x_tpu_torch.data.synthetic import (
+        add_camera_batch, batch_to_torch, camera_types, make_batch)
     from airv2x_tpu_torch.models import build_model
     from airv2x_tpu_torch.ops.anchors import (
         anchor_standup_boxes, generate_anchor_grid)
     from airv2x_tpu_torch.utils.weights import init_flax_like_
 
-    hypes = cut_hypes(path)
     hypes["model"]["args"]["dtype"] = "bf16"
     assert int(hypes["train_params"]["batch_size"]) == TRAIN_BATCH
     model = init_flax_like_(build_model(hypes, device="cuda", train=True), seed=0)
     kw = dict(target_args=hypes["postprocess"]["target_args"])
-    if seg:
+    if hypes["task"] == "seg":
         kw.update(seg_hw=int(hypes["seg_hw"]), seg_res=float(hypes["seg_res"]))
     else:
         anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
         kw.update(anchors=anchors, anchor_standup=anchor_standup_boxes(anchors))
+    cams = camera_types(hypes)
     rng = np.random.default_rng(7)
     t0 = time.perf_counter()
-    batches = [batch_to_torch(make_batch(
-        rng, model.layout, TRAIN_BATCH, device="cuda", num_objects=12,
-        num_agents=NUM_AGENTS, points_per_agent=POINTS_PER_AGENT,
-        lidar_range=hypes["preprocess"]["cav_lidar_range"],
-        max_boxes=hypes["postprocess"]["max_num"], pts_per_box=100, **kw)[0],
-        "cuda") for _ in range(N_TRAIN_BATCHES)]
-    print(f"{N_TRAIN_BATCHES} batches of {TRAIN_BATCH} made in "
-          f"{time.perf_counter() - t0:.2f} s")
+    batches = []
+    for _ in range(n_batches):
+        b = make_batch(
+            rng, model.layout, TRAIN_BATCH, device="cuda", num_objects=12,
+            num_agents=NUM_AGENTS, points_per_agent=POINTS_PER_AGENT,
+            lidar_range=hypes["preprocess"]["cav_lidar_range"],
+            max_boxes=hypes["postprocess"]["max_num"], pts_per_box=100, **kw)[0]
+        add_camera_batch(b, hypes, model.layout, rng, ncam=NCAM)
+        batches.append(batch_to_torch(b, "cuda"))
+    torch.cuda.synchronize()
+    print(f"{n_batches} batches of {TRAIN_BATCH} made in "
+          f"{time.perf_counter() - t0:.2f} s" + (f" (with cameras: {cams})"
+                                                 if cams else ""))
     return hypes, model, batches
 
 
-def phase_train(label, card, hypes, model, batches):
-    """Warm-up, TRAIN_STEPS timed steps, a profile window, then one batch
-    REPEAT_STEPS times; the kernels must not launch (the train path has no
-    TPU-kernel counterpart)."""
+def loss_fell(repeated) -> bool:
+    """Whether a training learned one batch it took ``repeated`` times (the
+    total loss of each step, at REPEAT_LR_SCALE of the schedule's lr): every
+    loss finite, and the median of the second half at least REPEAT_DROP
+    below the least of the first three. The median absorbs a single
+    overshoot late in the run; the least of the first three holds a run
+    that climbs and only partly comes back (or wanders about a plateau
+    above its start) to failing, as it does a training that does not learn
+    and repeats one loss (the keep fraction is held fixed)."""
+    if not all(np.isfinite(repeated)):
+        return False
+    second = statistics.median(repeated[len(repeated) // 2:])
+    return second <= (1 - REPEAT_DROP) * min(repeated[:3])
+
+
+def phase_train(label, card, hypes, model, batches, steps=TRAIN_STEPS,
+                repeats=REPEAT_STEPS, autotune=True, profiled=3):
+    """Two warm-up steps, ``steps`` timed steps, a profile window of
+    ``profiled`` steps, then one batch ``repeats`` times at REPEAT_LR_SCALE
+    of the schedule's lr (``loss_fell``; a Where2comm model keeps the keep
+    fraction REPEAT_KEEP on every repeat); the kernels must not launch (the
+    train path has no TPU-kernel counterpart). ``autotune`` lets cuDNN time
+    its algorithms per shape (``cudnn.benchmark``); without it cuDNN takes
+    its heuristics' choice."""
     from airv2x_tpu_torch import kernels
     from airv2x_tpu_torch.loss import build_loss
     from airv2x_tpu_torch.models.registry import compute_dtype
     from airv2x_tpu_torch.parallel.train import (
         TrainState, make_optimizer, make_train_step)
 
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = autotune
     torch.backends.cudnn.deterministic = False
     opt, sched = make_optimizer(hypes, model.parameters(), 50)
     state = TrainState(model, opt)
-    step = make_train_step(build_loss(hypes), sched,
-                           compute_dtype=compute_dtype(hypes), seed=0)
+    loss_fn, dtype = build_loss(hypes), compute_dtype(hypes)
+    step = make_train_step(loss_fn, sched, compute_dtype=dtype, seed=0)
+    repeat_step = make_train_step(loss_fn, lambda s: REPEAT_LR_SCALE * sched(s),
+                                  compute_dtype=dtype, seed=0)
     kernels.reset_launch_counts()
     for b in batches[:2]:  # warm-up: allocator, cuDNN algorithm choice
         step(state, b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, losses = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         b = batches[i % len(batches)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4209,30 +4279,36 @@ def phase_train(label, card, hypes, model, batches):
         losses.append({k: float(v) for k, v in parts.items()})
     peak = torch.cuda.max_memory_allocated() / 2**20
     med = statistics.median(ms)
-    print(f"{label} [{card}]: {med:.3f} ms/step median of {TRAIN_STEPS} "
+    print(f"{label} [{card}]: {med:.3f} ms/step median of {steps} "
           f"({[round(t, 3) for t in ms]}), {TRAIN_BATCH * 1e3 / med:.3f} train "
           f"scenes/s, peak memory {peak:.1f} MiB")
     print(f"{label} loss parts per step: " + json.dumps(
         [{k: round(v, 5) for k, v in p.items()} for p in losses]))
     if not all(np.isfinite(v) for p in losses for v in p.values()):
         raise AssertionError(f"{label}: a non-finite loss part")
+    window = [batches[i % len(batches)] for i in range(profiled)]
     prof = phase_profile(f"{label} [{card}]", lambda b, mark: step(state, b),
-                         batches, top=10, unit="step")
-    repeated = []
-    for _ in range(REPEAT_STEPS):
-        repeated.append(float(step(state, batches[0])["total_loss"]))
-    print(f"{label} [{card}] one batch {REPEAT_STEPS} times, total loss: "
-          + json.dumps([round(v, 5) for v in repeated]))
-    if not all(np.isfinite(repeated)) or not repeated[-1] < repeated[0]:
-        raise AssertionError(f"{label}: the loss on a repeated batch did not "
-                             f"fall: {repeated[0]} -> {repeated[-1]}")
+                         window, top=10, unit="step", n=profiled)
+    kw = {}
+    if getattr(model, "DRAWS_KEEP_FRACTION", False):
+        kw["comm_u"] = torch.full((TRAIN_BATCH,), REPEAT_KEEP)
+    repeated = [float(repeat_step(state, batches[0], **kw)["total_loss"])
+                for _ in range(repeats)]
+    print(f"{label} [{card}] one batch {repeats} times at {REPEAT_LR_SCALE} "
+          "of the lr, total loss: " + json.dumps([round(v, 5) for v in repeated]))
+    if not loss_fell(repeated):
+        raise AssertionError(
+            f"{label}: the loss on a repeated batch did not fall: the median "
+            f"of the second half {statistics.median(repeated[repeats // 2:])} "
+            f"against the least of the first three {min(repeated[:3])} "
+            f"(needed {1 - REPEAT_DROP} of it)")
     torch.cuda.synchronize()
     if any(kernels.LAUNCHES.values()):
         raise AssertionError(f"{label}: kernels launched in training: "
                              f"{kernels.LAUNCHES}")
     return dict(ms_per_step=med, ms_runs=ms, scenes_per_s=TRAIN_BATCH * 1e3 / med,
-                peak_mib=peak, losses=losses, repeated_first=repeated[0],
-                repeated_last=repeated[-1], profile=prof, steps=state.step)
+                peak_mib=peak, losses=losses, repeated=repeated,
+                profile=prof, steps=state.step)
 
 
 def phase_train_det(card):
@@ -4240,7 +4316,7 @@ def phase_train_det(card):
     through K1, K4a and K2."""
     from airv2x_tpu_torch import kernels
 
-    hypes, model, batches = train_setup(FLAGSHIP, seg=False)
+    hypes, model, batches = train_setup(cut_hypes(FLAGSHIP))
     scene = {k: v[:1] for k, v in batches[0].items() if k != "labels"}
     set_tf32(False)
     cudnn = torch.backends.cudnn
@@ -4287,10 +4363,165 @@ def phase_train_det(card):
 
 def phase_train_seg(card):
     """Phase 9: full-width seg training (512 x 512 labels)."""
-    hypes, model, batches = train_setup(SEG, seg=True)
+    hypes, model, batches = train_setup(cut_hypes(SEG))
     res = phase_train("phase 9 seg training", card, hypes, model, batches)
     del model, batches
     torch.cuda.empty_cache()
+    return res
+
+
+# phase 17, training beyond the flagship: (group, task, YAML name) under
+# hypes_yaml/airv2x, cut as phase 5; the camera configs get the AirV2X aug
+# keys (``camera_hypes``)
+TRAIN_MODEL_PATHS = (
+    ("lidar", "det", "v2xvit"), ("lidar", "det", "att_fusion"),
+    ("lidar", "det", "max_fusion"), ("lidar", "det", "cobevt"),
+    ("lidar", "det", "v2vnet"), ("lidar", "det", "when2com"),
+    ("lidar", "seg", "v2xvit"), ("camera", "det", "where2comm"),
+    ("camera", "det", "lss"))
+TRAIN_MODEL_STEPS = 3  # timed, after a warm-up of 2
+TRAIN_MODEL_REPEATS = 16
+TRAIN_MODEL_BATCHES = 2
+CLI_CAMERA_STAMPS = 2  # the camera train CLI's on-disk scenario
+
+
+def first_scene(batch):
+    """Sample 0 of a batch, camera blocks included, without its labels."""
+    return {k: ({kk: vv[:1] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[:1]) for k, v in batch.items() if k != "labels"}
+
+
+def trained_eval(label, card, hypes, model, scene):
+    """The trained f32 weights in ``auto`` and ``pallas`` on one scene
+    (deterministic cuDNN, TF32 off): finite outputs, and the launches of
+    each mode asserted (K1 3 per LiDAR scene, 0 per camera scene; K4a the
+    backbone's ConvBNReLUs x its passes in ``pallas``, 0 in ``auto``; K2 1
+    per det scene: its NMS)."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.synthetic import camera_types
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.benchmark, cudnn.deterministic = False, True
+    model.eval()  # f32 master weights
+    run = camera_step(hypes, model)
+    det = model.task == "det"
+    k1 = 0 if camera_types(hypes) else 3
+    convs = backbone_convs(hypes) * backbone_passes(hypes["model"]["core_method"])
+    launches = {}
+    for mode in ("auto", "pallas"):
+        want = {"pillar_encode": k1, "conv3x3": convs if mode == "pallas" else 0,
+                "quad_iou": int(det)}
+        kernels.reset_launch_counts()
+        with conv_mode(mode):
+            out, res = run(scene, no_mark)
+        torch.cuda.synchronize()
+        launches[mode] = dict(kernels.LAUNCHES)
+        got = {k: launches[mode].get(k, 0) for k in want}
+        keys = ("psm", "rm", "obj") if det else ("dynamic_seg", "static_seg")
+        for k in keys:
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"{label} eval {mode}: non-finite {k}")
+        kept = int(res.mask.sum()) if det else None
+        print(f"{label} [{card}] eval of the trained weights, f32, {mode}: "
+              + (f"{kept} kept detections, " if det else "")
+              + f"launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"{label} eval {mode}: launches {got}, "
+                                 f"expected {want}")
+    cudnn.deterministic = False
+    return launches
+
+
+def camera_train_cli(card):
+    """2 steps of the train CLI on the camera LSS det config (cut as phase
+    5, the AirV2X aug keys supplied) over a ``write_scenario`` scenario of
+    CLI_CAMERA_STAMPS timestamps with cameras at CAMERA_HW, on disk:
+    ``AirV2XDataset`` / ``RealDataLoader`` in train mode, batch 1; the loss
+    parts must be finite."""
+    import re
+    import shutil
+
+    from airv2x_tpu_torch.config import save_yaml
+    from airv2x_tpu_torch.models.base import SlotLayout
+    from airv2x_tpu_torch.tools import train
+
+    work = scratch_dir("chip_smoke_train_cli_")
+    try:
+        root = os.path.join(work, "train")
+        hypes = camera_hypes(camera_path("det", "lss"))
+        write_scenario(root, SlotLayout.from_args(hypes["model"]["args"]),
+                       hypes["preprocess"]["cav_lidar_range"],
+                       stamps=CLI_CAMERA_STAMPS, camera_hw=CAMERA_HW)
+        hypes["root_dir"] = hypes["validate_dir"] = root
+        cfg = os.path.join(work, "train.yaml")
+        save_yaml(hypes, cfg)
+        torch.backends.cudnn.benchmark = False
+        t0 = time.perf_counter()
+        run_dir = train.main(["--hypes_yaml", cfg, "--log_dir", work,
+                              "--epochs", "1", "--steps_per_epoch", "2",
+                              "--batch_size", "1", "--num_workers", "2",
+                              "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(run_dir, "train_loss.txt")) as f:
+            line = f.read().splitlines()[-1]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    parts = {k: float(v) for k, v in re.findall(r"(\w+): (\S+)", line)}
+    print(f"phase 17 camera train CLI on disk [{card}]: camera/det/lss.yaml, 2 "
+          f"steps of batch 1 in {seconds:.2f} s (scenario load, model build and "
+          f"workers included): {line}")
+    if not parts or not all(np.isfinite(list(parts.values()))):
+        raise AssertionError(f"phase 17 camera train CLI: a non-finite loss: {line}")
+    return {"seconds": seconds, "loss_parts": parts}
+
+
+def phase_train_models(card):
+    """Phase 17: training beyond the flagship. Per config of
+    TRAIN_MODEL_PATHS at full width (cut to 3 / 2 / 1 agents, batch 2, bf16
+    autocast over f32 master weights, flax-like initialisation), in the
+    order of phases 8-9 (``phase_train``): 2 warm-up steps,
+    TRAIN_MODEL_STEPS timed steps, a profile window of one step, then one
+    batch TRAIN_MODEL_REPEATS times at REPEAT_LR_SCALE of the lr
+    (``loss_fell``); finite loss parts, no kernel launch in training,
+    cuDNN on its heuristics; then the
+    trained weights evaluated in both modes (``trained_eval``). Then the
+    camera train CLI on disk."""
+    t_phase = time.perf_counter()
+    res = {"card": card, "configs": {}}
+    launches = {}
+    for group, task, name in TRAIN_MODEL_PATHS:
+        t0 = time.perf_counter()
+        key = f"{group}/{task}/{name}"
+        path = os.path.join(REPO, "hypes_yaml/airv2x", group, task, f"{name}.yaml")
+        hypes = camera_hypes(path) if group == "camera" else cut_hypes(path)
+        hypes, model, batches = train_setup(hypes, TRAIN_MODEL_BATCHES)
+        t1 = time.perf_counter()
+        label = f"phase 17 {key} training"
+        r = phase_train(label, card, hypes, model, batches,
+                        steps=TRAIN_MODEL_STEPS, repeats=TRAIN_MODEL_REPEATS,
+                        autotune=False, profiled=1)
+        r.pop("losses")
+        t2 = time.perf_counter()
+        r["eval_launches"] = trained_eval(f"phase 17 {key}", card, hypes, model,
+                                          first_scene(batches[0]))
+        r["setup_s"], r["train_s"] = t1 - t0, t2 - t1
+        r["eval_s"] = time.perf_counter() - t2
+        for mode in ("auto", "pallas"):
+            for k, v in r["eval_launches"][mode].items():
+                launches[k] = launches.get(k, 0) + v
+        r["seconds"] = time.perf_counter() - t0
+        print(f"phase 17 {key} [{card}]: trained and evaluated in "
+              f"{r['seconds']:.1f} s (model and batches {r['setup_s']:.1f}, "
+              f"training {r['train_s']:.1f}, evaluation {r['eval_s']:.1f})")
+        res["configs"][key] = r
+        del model, batches
+        torch.cuda.empty_cache()
+    res["cli_camera_on_disk"] = camera_train_cli(card)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 [{card}] in {res['seconds']:.1f} s; launches in its "
+          f"evaluations: {launches}")
     return res
 
 
@@ -4392,6 +4623,8 @@ def main() -> int:
         "card": card, "tiny_card_vs_cpu": tiny_train,
         "det": {k: v for k, v in train_det.items() if k != "losses"},
         "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
+    train_models = phase_train_models(card)
+    print(json.dumps({"train_models": train_models}))
     print(json.dumps({"family": dict(family, tiny_card_vs_cpu=tiny_family)}))
     runs = {"det": det, "seg": seg, "camera": cam, "v2xvit det": v2x["det"],
             "v2xvit seg": v2x["seg"],
@@ -4405,13 +4638,15 @@ def main() -> int:
     disk = family["on_disk_v2vnet"]["launches"]
     launches = {k: sum(r["launches"][k] for res in runs.values()
                        for r in res.values()) + ev["launches"][k] + disk[k]
-                + cam_disk["launches"][k]
+                + cam_disk["launches"][k] + train_models["launches"].get(k, 0)
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
           f"15's on-disk V2VNet run: {disk}; in phase 16's timed and CLI runs: "
-          f"{cam_disk['launches']}")
+          f"{cam_disk['launches']}; in phase 17's evaluations of the trained "
+          f"models: {train_models['launches']}")
     print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15 "
-          f"and 16) and the counted phase 13, 15 and 16 CLI runs: {launches}")
+          "and 16), the counted phase 13, 15 and 16 CLI runs and phase 17's "
+          f"evaluations: {launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",

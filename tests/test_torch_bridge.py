@@ -646,7 +646,10 @@ def test_port_imports_no_jax():
                    "eval/seg_metrics.py", "tools/chip_ap_gate.py",
                    "tools/inference.py", "tools/inference_airv2x.py",
                    "tools/inference_airv2x_seg.py",
-                   "tools/inference_multi_scenario.py", "utils/transforms.py"):
+                   "tools/inference_multi_scenario.py", "utils/transforms.py",
+                   "loss/depth_loss.py", "loss/__init__.py",
+                   "parallel/train.py", "models/where2comm_model.py",
+                   "models/fusion/scope.py", "data/synthetic.py"):
         assert os.path.join("airv2x_tpu_torch", module) in names, module
     for path in files:
         for name in _imports(path):

@@ -680,6 +680,89 @@ def test_train_step_on_card(cuda, task, dtype):
     assert all(s["exp_avg"].dtype == torch.float32 for s in opt.state.values())
 
 
+def _f64(tree):
+    """A numpy batch with its floating arrays in float64."""
+    if isinstance(tree, dict):
+        return {k: _f64(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and np.issubdtype(tree.dtype, np.floating):
+        return tree.astype(np.float64)
+    return tree
+
+
+@pytest.mark.parametrize("name", ["airv2x_cobevt", "airv2x_v2vnet",
+                                  "airv2x_when2com"])
+def test_family_train_step_on_card_matches_cpu(cuda, name):
+    """One train step of a tiny family model (chip_smoke.py's TINY_FAMILY,
+    det) on the card, TF32 off and cuDNN pinned, against the same step on
+    the CPU from the same weights and batch: the loss parts to 1e-5
+    relative, every gradient within chip_smoke's STEP_GRAD_TOL of the
+    leaf's scale plus STEP_GRAD_FLOOR of the largest, the updated BN
+    statistics to 1e-5 x (1 + |v|); no kernel launched. When2com runs in
+    float64 on both, its gradients held to WHEN2COM_F64_GRAD_TOL /
+    WHEN2COM_F64_GRAD_FLOOR: in f32 its policy CNN's train-mode BNs
+    amplify rounding past the f32 bounds (tests/test_torch_train_eager.py),
+    and in float64 only its warp grid's f32 island remains."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import (
+        batch_to_torch, make_batch, perturb_poses)
+    from airv2x_tpu_torch.loss import build_loss
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.ops.anchors import (
+        anchor_standup_boxes, generate_anchor_grid)
+    from airv2x_tpu_torch.parallel.train import (
+        TrainState, make_optimizer, make_train_step)
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    cs = _chip_smoke()
+    hypes = cs.tiny_family_hypes(load_yaml(cs.TINY), name)
+    double = name == "airv2x_when2com"
+    tol, floor = ((cs.WHEN2COM_F64_GRAD_TOL, cs.WHEN2COM_F64_GRAD_FLOOR) if double
+                  else (cs.STEP_GRAD_TOL, cs.STEP_GRAD_FLOOR))
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        models = {"cpu": init_flax_like_(build_model(hypes, device="cpu",
+                                                     train=True), 0)}
+        models["cuda"] = build_model(hypes, device="cuda", train=True)
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
+        batch, _ = make_batch(
+            np.random.default_rng(1), models["cpu"].layout, 2, anchors=anchors,
+            anchor_standup=anchor_standup_boxes(anchors),
+            target_args=hypes["postprocess"]["target_args"], device="cpu",
+            num_objects=6, points_per_agent=1024, pts_per_box=60,
+            lidar_range=hypes["preprocess"]["cav_lidar_range"],
+            max_boxes=hypes["postprocess"]["max_num"])
+        batch = perturb_poses(batch, np.random.default_rng(cs.TINY_FAMILY_POSES))
+        if double:
+            for m in models.values():
+                m.double()
+            batch = _f64(batch)
+        parts = {}
+        kernels.reset_launch_counts()
+        for dev, model in models.items():
+            opt, sched = make_optimizer(hypes, model.parameters(), 10)
+            step = make_train_step(build_loss(hypes), sched)
+            parts[dev] = step(TrainState(model, opt), batch_to_torch(batch, dev))
+        torch.cuda.synchronize()
+        assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    for k, v in parts["cpu"].items():
+        assert float(parts["cuda"][k]) == pytest.approx(float(v), rel=1e-5), k
+    cpu = dict(models["cpu"].named_parameters())
+    top = max(float(p.grad.abs().max()) for p in cpu.values())
+    for pname, p in models["cuda"].named_parameters():
+        g, want = p.grad.cpu(), cpu[pname].grad
+        bound = tol * float(want.abs().max()) + floor * top
+        assert float((g - want).abs().max()) <= bound, pname
+    bufs = dict(models["cpu"].named_buffers())
+    for bname, b in models["cuda"].named_buffers():
+        if bname.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(b.cpu(), bufs[bname], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("impl", ["foreach", "fused"])
 def test_fold_cache_after_training_on_card(cuda, impl, monkeypatch):
     """On the card: a train-mode forward bumps the BN statistics' versions,

@@ -624,10 +624,10 @@ def test_cli_refuses_real_root_dir_and_missing_card(tmp_path):
     root = tmp_path / "dataset"
     root.mkdir()
     hypes["root_dir"] = str(root)
-    # camera training is not ported: the CLI refuses a camera config once,
-    # before it builds a loader (the dataset itself reads cameras for
-    # evaluation; tests/test_torch_data.py trains on a LiDAR root_dir)
-    hypes["model"]["args"]["vehicle"]["modalities"] = ["lidar", "cam"]
+    # radar configs are not ported: the CLI refuses one before it builds a
+    # loader or a run dir (camera configs train since camera training was
+    # ported: tests/test_torch_train_camera.py)
+    hypes["model"]["core_method"] = "point_pillar_lrf"
     cfg = tmp_path / "cfg.yaml"
     with open(cfg, "w") as f:
         yaml.safe_dump(jax.tree.map(lambda v: v.tolist() if hasattr(v, "tolist")
@@ -635,6 +635,7 @@ def test_cli_refuses_real_root_dir_and_missing_card(tmp_path):
     with pytest.raises(NotImplementedError):
         train_cli.main(["--hypes_yaml", str(cfg), "--device", "cpu",
                         "--log_dir", str(tmp_path / "logs")])
+    assert not (tmp_path / "logs").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             train_cli.main(["--hypes_yaml", TINY, "--log_dir",
