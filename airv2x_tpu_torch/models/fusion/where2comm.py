@@ -7,7 +7,9 @@ sample a keep fraction u, and each agent keeps its floor(u * H * W) most
 confident pixels. The rate is measured before the ego row is forced on.
 Multi-scale fusion reruns the shared backbone stages on the raw BEV
 features, gates stage 0 with the mask and fuses agents with ego-query
-attention at every scale.
+attention at every scale; single-scale fusion (the flat OPV2V model) gates
+the agents' 2-D maps with the mask and fuses them with ego-query attention
+once.
 """
 
 from __future__ import annotations
@@ -31,8 +33,12 @@ def _gaussian_kernel(k_size: int, sigma: float) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _gaussian_weight(k_size: int, sigma: float, device, dtype):
-    g = torch.from_numpy(_gaussian_kernel(k_size, sigma))
-    return g.to(device=device, dtype=dtype)[None, None]
+    # a normal tensor even when first made under inference mode: the cached
+    # kernel may later be saved for a backward (SCOPE's confidence is not
+    # detached)
+    with torch.inference_mode(False):
+        g = torch.from_numpy(_gaussian_kernel(k_size, sigma))
+        return g.to(device=device, dtype=dtype)[None, None]
 
 
 def gaussian_smooth(conf: torch.Tensor, k_size: int, sigma: float):
@@ -128,26 +134,33 @@ class Communication(nn.Module):
 
 
 class Where2commFusion(nn.Module):
-    """Multi-scale confidence-gated ego-query attention fusion. The shared
-    backbone is passed in at call time, never registered here."""
+    """Confidence-gated ego-query attention fusion, multi-scale (the shared
+    backbone is passed in at call time, never registered here) or
+    single-scale."""
 
     def __init__(self, multi_scale: bool = True, threshold: float = 0.01,
                  k_size: int = 5, c_sigma: float = 1.0):
         super().__init__()
-        if not multi_scale:
-            raise NotImplementedError("single-scale Where2comm is not ported")
+        self.multi_scale = multi_scale
         self.communication = Communication(threshold, k_size, c_sigma)
 
-    def forward(self, x, psm, agent_mask, backbone, comm_u=None,
+    def forward(self, x, psm, agent_mask, backbone=None, comm_u=None,
                 generator=None):
-        """x (B, L, H, W, C) raw BEV features; psm (B, L, AC, H', W');
-        ``comm_u`` / ``generator`` as ``Communication`` takes them.
+        """Multi-scale: x (B, L, H, W, C) raw BEV features and the backbone;
+        single-scale: x (B, L, C, H, W) the agents' 2-D maps. psm (B, L, AC,
+        H', W'); ``comm_u`` / ``generator`` as ``Communication`` takes them.
 
         Returns (fused (B, Cf, Hf, Wf), comm_rate)."""
-        b, l, h, w, c = x.shape
         comm_mask, rate = self.communication(psm, agent_mask, comm_u,
                                              generator)
+        if not self.multi_scale:
+            m = comm_mask
+            if m.shape[-2:] != x.shape[-2:]:
+                m = resize_comm_mask(m, x.shape[-2:])
+            return ego_agent_attention(x * m[:, :, None].to(x.dtype),
+                                       agent_mask), rate
 
+        b, l, h, w, c = x.shape
         ups = []
         cur = x.reshape(b * l, h, w, c).permute(0, 3, 1, 2)
         for i in range(len(backbone.stages)):

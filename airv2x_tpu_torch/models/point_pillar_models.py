@@ -1,18 +1,35 @@
-"""The OPV2V ``point_pillar_*`` family's shared spine, eval mode (counterpart
-of airv2x_tpu/models/point_pillar_models.py: ``PointPillarBase``; the
-family's fusion models other than SCOPE wait).
+"""The OPV2V / DAIR-V2X ``point_pillar_*`` family, in eval and train mode
+(counterpart of airv2x_tpu/models/point_pillar_models.py).
 
 Homogeneous (vehicle-only) PointPillars: one shared sort-free pillar
-encoder (``FastPillarBEV``, one K1 launch per call over every agent's
-cloud) -> the ResNet (``base_bev_backbone.resnet``) or the plain BEV
-backbone -> the ``DownsampleConv`` shrink -> binary heads (psm: one channel
-per anchor, rm: 7 per anchor; with ``num_class > 1`` the multiclass layout
-and an objectness head). The agent axis is a ``SlotLayout`` with every slot
-a vehicle. Without a fusion the ego slot's features go to the heads.
+encoder (``FastPillarBEV``: one K1 launch per call over every agent's cloud
+in eval, the plain scatter path in training) -> the ResNet
+(``base_bev_backbone.resnet``) or the plain BEV backbone -> the
+``DownsampleConv`` shrink -> a fusion of the agents' maps into the ego map
+(``fuse``) -> binary heads (psm: one channel per anchor, rm: 7 per anchor;
+with ``num_class > 1`` the multiclass layout and an objectness head). The
+agent axis is a ``SlotLayout`` with every slot a vehicle.
+
+The registered models and their fusion:
+
+  * point_pillar: none, the ego slot's map (comm_rate 0);
+  * point_pillar_intermediate / point_pillar_attfusion: per backbone stage,
+    ego-query attention over the unfused stage maps, each fused level
+    through its deblock (comm_rate: the count of nonzero stage features);
+  * point_pillar_baseline_multiscale: the same per-stage structure with
+    ``fusion_method`` max or att, usually on the ResNet backbone;
+  * point_pillar_max / point_pillar_fcooper: the masked elementwise max,
+    after warping the non-ego maps into the ego frame when the config has
+    a ``v2vfusion`` block;
+  * point_pillar_where2comm: single-scale Where2comm (the confidence mask
+    from the shared cls head gates the maps, then ego-query attention);
+  * point_pillar_v2xvit / _cobevt / _v2vnet / _when2com: the ported fusion
+    modules (comm_rate 1).
 
 Public outputs keep the JAX package's NHWC layout. The classic voxel
-encoder, the ``NaiveCompressor`` (``compression > 0``) and radar points are
-not ported and raise.
+encoder, the ``NaiveCompressor`` (``compression > 0``, and the per-stage
+``base_bev_backbone.compression``) and radar points are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -22,12 +39,27 @@ from torch import nn
 
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.models.bev_backbone import BaseBEVBackbone
+from airv2x_tpu_torch.models.fusion.cobevt import SwapFusionEncoder
+from airv2x_tpu_torch.models.fusion.common import ego_agent_attention, max_fusion
+from airv2x_tpu_torch.models.fusion.v2vnet import V2VNetFusion
+from airv2x_tpu_torch.models.fusion.v2xvit import V2XTransformer
+from airv2x_tpu_torch.models.fusion.when2com import When2comFusion
+from airv2x_tpu_torch.models.fusion.where2comm import Where2commFusion
 from airv2x_tpu_torch.models.nn import DownsampleConv
 from airv2x_tpu_torch.models.resnet_bev import ResNetBEVBackbone
 from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
+from airv2x_tpu_torch.ops.warp import (
+    normalized_pairwise_affine, warp_affine_normalized)
+
+
+def _rate(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 class PointPillarBase(nn.Module):
+    """The shared spine; without a fusion the ego slot's map goes to the
+    heads."""
+
     def __init__(self, args: dict):
         super().__init__()
         max_cav = args.get("max_cav", 5)
@@ -57,6 +89,11 @@ class PointPillarBase(nn.Module):
         else:
             self.backbone = BaseBEVBackbone(in_ch=self.vfe.out_c, **kw)
         head_in = self.backbone.out_channels
+        # the map's (H, W) after the backbone: every deblock meets the first
+        # stage's output upsampled by its own stride
+        self.feature_hw = tuple(
+            g * int(bb["upsample_strides"][0]) // int(bb["layer_strides"][0])
+            for g in (self.vfe.ny, self.vfe.nx))
         # a shrink_header block without a 'use' key is on when it has dims
         shrink = args.get("shrink_header") or {}
         self.shrink_conv = None
@@ -65,8 +102,13 @@ class PointPillarBase(nn.Module):
                 head_in, dims=shrink["dim"], kernels=shrink["kernal_size"],
                 strides=shrink["stride"], paddings=shrink.get("padding"))
             head_in = self.shrink_conv.out_channels
+            pads = shrink.get("padding") or [1] * len(shrink["dim"])
+            for k, s, p in zip(shrink["kernal_size"], shrink["stride"], pads):
+                self.feature_hw = tuple((n + 2 * p - k) // s + 1
+                                        for n in self.feature_hw)
         if int(args.get("compression", 0)) > 0:
             raise NotImplementedError("NaiveCompressor is not ported")
+        self.head_in = head_in
         self.num_class = int(args.get("num_class", 1))
         anchors = int(args["anchor_number"])
         self.cls_head = nn.Conv2d(head_in, anchors * self.num_class, 1)
@@ -74,12 +116,6 @@ class PointPillarBase(nn.Module):
         self.obj_head = None
         if self.num_class > 1 and args.get("obj_head", True):
             self.obj_head = nn.Conv2d(head_in, anchors, 1)
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "training the point_pillar family is not ported")
-        return super().train(False)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -89,7 +125,7 @@ class PointPillarBase(nn.Module):
     def encode(self, batch):
         """points (B, L, N, 4), points_mask (B, L, N), agent_mask (B, L) ->
         (B, L, ny, nx, C) BEV features, zero for absent agents: one K1
-        launch over the B * L clouds."""
+        launch over the B * L clouds in eval mode."""
         if "radar_points" in batch:
             raise NotImplementedError("radar points are not ported")
         bev = self.vfe(batch["points"], batch["points_mask"])
@@ -104,17 +140,197 @@ class PointPillarBase(nn.Module):
             feats = self.shrink_conv(feats)
         return feats.reshape((b, l) + feats.shape[1:])
 
+    def fuse(self, grouped, batch):
+        """The agents' maps (B, L, C, H, W) -> (the fused ego map (B, C, H, W),
+        comm_rate); here the ego slot's map and rate 0."""
+        return grouped[:, 0], _rate(0.0, grouped)
+
     def heads(self, x):
-        """(B, C, H, W) -> NHWC psm / rm (/ obj) of the heads."""
+        """(B, C, H, W) -> NHWC psm / rm (/ obj) of the heads; x is cast to
+        the heads' dtype (a warped map is f32 under a bf16 compute dtype)."""
+        x = x.to(self.cls_head.weight.dtype)
         out = {"psm": self.cls_head(x), "rm": self.reg_head(x)}
         if self.obj_head is not None:
             out["obj"] = self.obj_head(x)
         return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
 
-    def forward(self, batch):
-        """Without a fusion: the ego slot's features to the heads."""
-        grouped = self.backbone_2d(self.encode(batch))
-        out = self.heads(grouped[:, 0])
-        out["comm_rate"] = torch.zeros((), dtype=torch.float32,
-                                       device=grouped.device)
+    def forward(self, batch, **kw):
+        """``kw`` go to ``fuse`` (Where2comm's keep fraction)."""
+        fused, rate = self.fuse(self.backbone_2d(self.encode(batch)), batch,
+                                **kw)
+        out = self.heads(fused)
+        out["comm_rate"] = rate
         return out
+
+
+class PointPillar(PointPillarBase):
+    """The single-agent baseline (``point_pillar``)."""
+
+
+class _PerStageFusionBase(PointPillarBase):
+    """Per-backbone-stage agent fusion: each stage's unfused maps feed the
+    next stage, and a parameter-free fusion of each stage's maps over the
+    agents feeds that stage's deblock; the fused levels are concatenated
+    and shrunk."""
+
+    FUSION_METHOD = "att"
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        if int(args["base_bev_backbone"].get("compression", 0)) > 0:
+            raise NotImplementedError(
+                "the per-stage AutoEncoder compression is not ported")
+        self.fusion_method = self.FUSION_METHOD
+
+    def _fuse_scale(self, feats, agent_mask):
+        if self.fusion_method == "att":
+            return ego_agent_attention(feats, agent_mask)
+        return max_fusion(feats, agent_mask)
+
+    def forward(self, batch):
+        x = self.encode(batch)
+        b, l, h, w, c = x.shape
+        flat = x.reshape(b * l, h, w, c).permute(0, 3, 1, 2)
+        resnet = isinstance(self.backbone, ResNetBEVBackbone)
+        if resnet:
+            ms = self.backbone.get_multiscale_feature(flat)
+        else:
+            ms = []
+            for i in range(len(self.backbone.stages)):
+                flat = self.backbone.stage(i, flat)
+                ms.append(flat)
+        rate = sum((f != 0).float().sum() for f in ms)
+        fused_ms = [self._fuse_scale(f.unflatten(0, (b, l)), batch["agent_mask"])
+                    for f in ms]
+        if resnet:
+            fused = self.backbone.decode_multiscale(fused_ms)
+        else:
+            fused = self.backbone.finish(
+                [self.backbone.deblock(i, f) for i, f in enumerate(fused_ms)])
+        if self.shrink_conv is not None:
+            fused = self.shrink_conv(fused)
+        out = self.heads(fused)
+        out["comm_rate"] = rate
+        return out
+
+
+class PointPillarIntermediate(_PerStageFusionBase):
+    """AttFusion: per-stage scaled-dot attention from the ego over the
+    present agents (``point_pillar_intermediate`` and
+    ``point_pillar_attfusion``)."""
+
+
+class PointPillarBaselineMultiscale(_PerStageFusionBase):
+    """The multiscale single-fusion baseline: per-stage ``fusion_method``
+    (max by default, or att) on the ResNet or the plain backbone."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        self.fusion_method = args.get("fusion_method", "max")
+
+
+class PointPillarMax(PointPillarBase):
+    """The masked elementwise max over the present agents
+    (``point_pillar_max``, and ``point_pillar_fcooper``: F-Cooper is max
+    fusion, for which the reference ships a config but no model file). With
+    a ``v2vfusion`` block, each non-ego map is first warped into the ego
+    frame by the ego row of ``pairwise_t_full`` (normalized affine)."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        v2v = args.get("v2vfusion") or {}
+        vs = v2v.get("voxel_size") or args["preprocess"]["args"]["voxel_size"]
+        self.discrete_ratio = float(vs[0])
+        self.downsample_rate = float(v2v.get("downsample_rate", 1))
+        self.warp_fuse = "v2vfusion" in args
+
+    def fuse(self, grouped, batch):
+        if self.warp_fuse and "pairwise_t_full" in batch:
+            h, w = grouped.shape[-2:]
+            aff = normalized_pairwise_affine(
+                batch["pairwise_t_full"], h, w, self.discrete_ratio,
+                self.downsample_rate)[:, 0]
+            cl = grouped.permute(0, 1, 3, 4, 2)
+            warped = warp_affine_normalized(cl[:, 1:], aff[:, 1:])
+            grouped = torch.cat([cl[:, :1], warped], dim=1).permute(0, 1, 4, 2, 3)
+        return max_fusion(grouped, batch["agent_mask"]), _rate(1.0, grouped)
+
+
+class PointPillarWhere2comm(PointPillarBase):
+    """Single-scale Where2comm: the cls head's confidence of every agent's
+    map gives the communication mask (in training a drawn keep fraction),
+    which gates the maps before ego-query attention."""
+
+    # the train step passes ``comm_u`` / ``generator`` (parallel/train.py)
+    DRAWS_KEEP_FRACTION = True
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        w2c = args["where2comm_fusion"]
+        comm = w2c.get("communication", {})
+        gauss = comm.get("gaussian_smooth")
+        if w2c.get("fully", False) or gauss is None:
+            raise NotImplementedError(
+                "only gaussian-smoothed, confidence-gated Where2comm is ported")
+        self.fusion_net = Where2commFusion(
+            multi_scale=False, threshold=comm.get("threshold", 0.01),
+            k_size=gauss["k_size"], c_sigma=gauss["c_sigma"])
+
+    def fuse(self, grouped, batch, comm_u=None, generator=None):
+        """``comm_u`` (B,) keep fractions, or a CPU ``generator`` to draw
+        them from, in train mode; eval mode ignores both."""
+        b, l = grouped.shape[:2]
+        psm = self.cls_head(grouped.flatten(0, 1).to(self.compute_dtype))
+        return self.fusion_net(grouped, psm.unflatten(0, (b, l)),
+                               batch["agent_mask"], comm_u=comm_u,
+                               generator=generator)
+
+
+class PointPillarV2XViT(PointPillarBase):
+    def __init__(self, args: dict):
+        super().__init__(args)
+        self.fusion_net = V2XTransformer(args["transformer"])
+
+    def fuse(self, grouped, batch):
+        return (self.fusion_net(grouped, batch["agent_mask"], batch["pairwise_t"],
+                                batch["prior_encoding"]), _rate(1.0, grouped))
+
+
+class PointPillarCoBEVT(PointPillarBase):
+    """CoBEVT's swap fusion; ``agent_size`` defaults to the slot count."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        fax = dict(args["fax_fusion"])
+        fax.setdefault("agent_size", self.layout.total)
+        self.fusion_net = SwapFusionEncoder(fax)
+
+    def fuse(self, grouped, batch):
+        return self.fusion_net(grouped, batch["agent_mask"]), _rate(1.0, grouped)
+
+
+class PointPillarV2VNet(PointPillarBase):
+    def __init__(self, args: dict):
+        super().__init__(args)
+        self.fusion_net = V2VNetFusion(args["v2vfusion"], self.head_in)
+
+    def fuse(self, grouped, batch):
+        return (self.fusion_net(grouped, batch["agent_mask"],
+                                batch["pairwise_t_full"]), _rate(1.0, grouped))
+
+
+class PointPillarWhen2com(PointPillarBase):
+    """When2com's handshake. Its MLPs' input size follows the fused map's
+    (H, W), which the JAX package infers from the map; the config's ``H`` /
+    ``W`` are replaced by the map's own (``feature_hw``), so a grid other
+    than the config's (DAIR's 504 x 200) builds the right MLPs."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        h, w = self.feature_hw
+        self.fusion_net = When2comFusion(
+            dict(args["when2com_fusion"], H=h, W=w), self.head_in)
+
+    def fuse(self, grouped, batch):
+        return (self.fusion_net(grouped, batch["agent_mask"],
+                                batch["pairwise_t_full"]), _rate(1.0, grouped))

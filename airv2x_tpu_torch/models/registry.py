@@ -3,8 +3,13 @@
 (``airv2x_attfusion`` / ``airv2x_intermediate``, ``airv2x_maxfusion``,
 ``airv2x_cobevt``, ``airv2x_v2vnet``, ``airv2x_when2com``), the camera-only
 LSS baseline (``lift_splat_shoot_airv2x`` / ``lift_splat_shoot``), whose
-``task`` (det or seg) the config names, and OPV2V's ``point_pillar_scope``
-(SCOPE temporal detection)."""
+``task`` (det or seg) the config names, and the OPV2V / DAIR-V2X flat
+family: ``point_pillar``, ``point_pillar_intermediate`` /
+``point_pillar_attfusion``, ``point_pillar_max`` / ``point_pillar_fcooper``,
+``point_pillar_where2comm``, ``point_pillar_v2xvit``,
+``point_pillar_cobevt``, ``point_pillar_v2vnet``, ``point_pillar_when2com``,
+``point_pillar_baseline_multiscale`` and ``point_pillar_scope`` (SCOPE
+temporal detection)."""
 
 from __future__ import annotations
 
@@ -14,6 +19,10 @@ from airv2x_tpu_torch.models.intermediate_models import (
     Airv2xAttFusion, Airv2xCoBEVT, Airv2xMaxFusion, Airv2xV2VNet,
     Airv2xWhen2com)
 from airv2x_tpu_torch.models.lss_model import LiftSplatShoot
+from airv2x_tpu_torch.models.point_pillar_models import (
+    PointPillar, PointPillarBaselineMultiscale, PointPillarCoBEVT,
+    PointPillarIntermediate, PointPillarMax, PointPillarV2VNet,
+    PointPillarV2XViT, PointPillarWhen2com, PointPillarWhere2comm)
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
 from airv2x_tpu_torch.models.where2comm_model import Airv2xWhere2comm
@@ -29,6 +38,18 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "airv2x_when2com": Airv2xWhen2com,
                   "lift_splat_shoot_airv2x": LiftSplatShoot,
                   "lift_splat_shoot": LiftSplatShoot,
+                  "point_pillar": PointPillar,
+                  "point_pillar_intermediate": PointPillarIntermediate,
+                  "point_pillar_attfusion": PointPillarIntermediate,
+                  "point_pillar_max": PointPillarMax,
+                  "point_pillar_fcooper": PointPillarMax,
+                  "point_pillar_where2comm": PointPillarWhere2comm,
+                  "point_pillar_v2xvit": PointPillarV2XViT,
+                  "point_pillar_cobevt": PointPillarCoBEVT,
+                  "point_pillar_v2vnet": PointPillarV2VNet,
+                  "point_pillar_when2com": PointPillarWhen2com,
+                  "point_pillar_baseline_multiscale":
+                      PointPillarBaselineMultiscale,
                   "point_pillar_scope": PointPillarScope}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}

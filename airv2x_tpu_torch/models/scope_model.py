@@ -1,6 +1,10 @@
-"""SCOPE, eval mode (counterpart of airv2x_tpu/models/scope_model.py:
-``PointPillarScope``): temporal, collaborative and late fusion on the
-``PointPillarBase`` spine.
+"""SCOPE, in eval and train mode (counterpart of
+airv2x_tpu/models/scope_model.py: ``PointPillarScope``): temporal,
+collaborative and late fusion on the ``PointPillarBase`` spine. In train
+mode the encoder takes its plain scatter path, every BatchNorm updates its
+statistics at its JAX momentum (the backbone's 0.99, the temporal LSTM's
+0.9), and the gradients flow through the warps and the deformable
+sampling; the train step's loss reads psm / rm.
 
 Temporal batch contract: every per-frame array carries a time axis after
 the batch axis, the LAST frame is the current one: points (B, T, L, N, 4),
@@ -127,6 +131,12 @@ class PointPillarScope(PointPillarBase):
         psm_slots = self.cls_head(flat_2d).unflatten(0, (b, l))
         rm_slots = self.reg_head(flat_2d).unflatten(0, (b, l))
         agent_mask = batch["agent_mask"][:, -1]
+        if batch["pairwise_t_full"].dim() != 6:
+            raise ValueError(
+                "SCOPE reads pairwise_t_full as (B, T, L, L, 4, 4), got "
+                f"{tuple(batch['pairwise_t_full'].shape)}: repeat a loaded "
+                "batch's over the frames (data/opv2v_dataset.py:"
+                "pairwise_over_frames)")
         aff = normalized_pairwise_affine(
             batch["pairwise_t_full"][:, -1, 0], ny, nx, self.discrete_ratio,
             self.downsample_rate)  # (B, L, 2, 3): each slot into the ego's

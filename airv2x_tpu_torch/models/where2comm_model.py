@@ -64,12 +64,14 @@ class Airv2xWhere2comm(nn.Module):
         w2c = args["where2com_fusion"]
         comm = w2c.get("communication", {})
         gauss = comm.get("gaussian_smooth")
+        if not w2c["multi_scale"]:
+            raise NotImplementedError(
+                "single-scale Where2comm on the AirV2X model is not ported")
         if int(w2c.get("attn_heads", 0)) or w2c["fully"] or gauss is None:
             raise NotImplementedError(
                 "only gaussian-smoothed, confidence-gated Where2comm without "
                 "multi-head attention is ported")
         self.fusion_net = Where2commFusion(
-            multi_scale=w2c["multi_scale"],
             threshold=comm.get("threshold", 0.01),
             k_size=gauss["k_size"],
             c_sigma=gauss["c_sigma"],

@@ -1,5 +1,4 @@
-"""Host-side pose / SE(3) math (numpy; copy of airv2x_tpu/utils/transforms.py
-without ``world_to_pose``, which the port does not use).
+"""Host-side pose / SE(3) math (numpy; copy of airv2x_tpu/utils/transforms.py).
 
 Carla-style 6-DoF poses ``[x, y, z, roll, yaw, pitch]`` in degrees are used by
 the AirV2X dataset metadata.  Behavioural parity with the reference
@@ -43,6 +42,18 @@ def pose_to_world(pose) -> np.ndarray:
     T[2, 1] = -cp * sr
     T[2, 2] = cp * cr
     return T
+
+
+def world_to_pose(T: np.ndarray):
+    """Inverse of :func:`pose_to_world`: a 4x4 frame -> world transform back
+    to ``[x, y, z, roll, yaw, pitch]`` in degrees (contract of reference
+    ``tfm_to_pose``, transformation_utils.py:109)."""
+    T = np.asarray(T, dtype=np.float64)
+    yaw = np.degrees(np.arctan2(T[1, 0], T[0, 0]))
+    roll = np.degrees(np.arctan2(-T[2, 1], T[2, 2]))
+    pitch = np.degrees(np.arctan2(T[2, 0], np.sqrt(T[2, 1] ** 2 + T[2, 2] ** 2)))
+    x, y, z = T[:3, 3]
+    return [float(x), float(y), float(z), float(roll), float(yaw), float(pitch)]
 
 
 def pose_a_to_b(pose_a, pose_b) -> np.ndarray:

@@ -192,6 +192,28 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      ``inference_multi_scenario`` and ``inference_airv2x_seg`` on the
      scenario in ``pallas`` (tables printed; K1 0, K4a 32, K2 at least 2
      per det scene); a ``camera_disk`` JSON line and the phase's seconds;
+  18. (run after phase 16) OPV2V and DAIR-V2X on disk (``phase_disk``): an
+     OPV2V split written beside ``write_scenario``'s (DISK_CAVS: 5 vehicles
+     and one beyond the 70 m gate, DISK_STAMPS stamps, DISK_POINTS points
+     per cloud, DISK_OBJECTS vehicles) and a normalized DAIR split (vehicle
+     and roadside unit, DISK_STAMPS frames) with one raw frame, read
+     directly and converted by ``tools/dair_convert.py``, both against the
+     normalized frame; the 18 OPV2V / DAIR YAMLs of the flat family and
+     SCOPE (DISK_CONFIGS, whole, bf16, seeded random weights, batch 1)
+     through their dataset and ``RealDataLoader``: forward, decode and the
+     AP's accumulation, DISK_RUNS timed runs per mode after a warm-up
+     (ms/scene, peak memory, kept detections), the launches asserted per
+     scene (K1 once per frame, K4a 16 in ``pallas`` on the plain backbone,
+     0 on the ResNet one, K2 for the NMS and for the AP where it had
+     detections and gt), a ``pallas`` profile window (busy, idle); the
+     K1 / K4a / K2 inputs each config's ``pallas`` warm-up handed the
+     kernels (``recorded_kernel_inputs``: 5 OPV2V and 2 DAIR maps, the
+     NMS and AP quads), each new one held to its plain version before the
+     counted runs (``check_kernel_inputs``); one loaded OPV2V temporal batch
+     card against CPU; a ``disk`` JSON line with those checks; and, after
+     phase 17 (``phase_disk_train``), DISK_TRAIN's OPV2V configs trained on
+     the split as phase 17 trains, each evaluated after, its f32 kernel
+     inputs held to their plain versions the same way;
   4b. (run after phase 16, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
@@ -236,8 +258,8 @@ held at REPEAT_KEEP; the median of the second half of the repeats must lie
 at least REPEAT_DROP below the least of the first three.
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11, 12, 15 and 16), each counted CLI run of phases 13, 15 and 16 and each
-evaluation of phase 17, and read just after; the ``kernels`` line sums them
+11, 12, 15, 16 and 18), each counted CLI run of phases 13, 15 and 16 and
+each evaluation of phases 17 and 18, and read just after; the ``kernels`` line sums them
 over those runs. Every profile window
 gives each kernel, copy and memset PyTorch launched to the one stage whose
 host range holds its launch (``launch_ranges``), counts the port's own
@@ -3870,10 +3892,12 @@ def phase_camera_disk(card):
                 r[mode]["launches_per_scene"] = want
                 for k, v in r[mode]["launches"].items():
                     total[k] += v
+            # one profile window, in ``pallas`` (phase 15's): the whole
+            # script stays well inside its time limit
+            with conv_mode("pallas"):
+                r["pallas"]["profile"] = phase_profile(
+                    f"{label} pallas [{card}]", run, scenes, top=8)
             for mode in ("auto", "pallas"):
-                with conv_mode(mode):
-                    r[mode]["profile"] = phase_profile(
-                        f"{label} {mode} [{card}]", run, scenes, top=8)
                 results = r[mode].pop("results")
                 if task == "det":
                     r[mode]["kept"] = check_det(f"{label} {mode}", results,
@@ -4525,6 +4549,695 @@ def phase_train_models(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: OPV2V and DAIR-V2X on disk
+
+# the configurations: (dataset, name) of hypes_yaml/opv2v/opv2v_<name>.yaml
+# and hypes_yaml/dair-v2x/dair_<name>.yaml, read whole (nothing cut)
+DISK_YAMLS = {"opv2v": "hypes_yaml/opv2v/opv2v_{}.yaml",
+              "dair": "hypes_yaml/dair-v2x/dair_{}.yaml"}
+DISK_CONFIGS = tuple(("opv2v", n) for n in (
+    "single", "attfuse", "fcooper", "where2comm", "v2xvit", "cobevt", "v2vnet",
+    "when2com", "baseline_multiscale", "scope")) + tuple(("dair", n) for n in (
+        "single", "attfuse", "fcooper", "where2comm", "v2xvit", "cobevt",
+        "v2vnet", "when2com"))
+DISK_TRAIN = ("attfuse", "where2comm", "v2vnet", "scope")  # OPV2V, batch 2
+DISK_RUNS = 2  # timed runs per config and mode, after a warm-up
+DISK_STAMPS = 4  # OPV2V timestamps, DAIR frames
+DISK_POINTS = 50000  # points written per cloud (max_points 60,000)
+DISK_OBJECTS = 20
+DISK_LIDAR_Z = 1.9  # the vehicles' lidar height over the ground (m)
+# the OPV2V cavs: (dx, dy) from the ego (m) and yaw (degrees); cav 105 lies
+# beyond the 70 m communication range, which the dataset's gate drops
+DISK_CAVS = {"100": (0.0, 0.0, 0.0), "101": (18.0, 6.0, 10.0),
+             "102": (-24.0, -9.0, -5.0), "103": (41.0, 14.0, 0.0),
+             "104": (-48.0, 16.0, 15.0), "105": (115.0, 2.0, 0.0)}
+DISK_SCENARIO = "2021_08_20_00_00_00"
+# DAIR: the vehicle's pose at frame 0 (x, y, z, yaw) and the roadside unit's
+# lidar pose; the raw frame's system error offset
+DAIR_VEHICLE = (100.0, 50.0, 1.9, 30.0)
+DAIR_INFRA = (112.0, 62.0, 6.0, -60.0)
+DAIR_OFFSET = {"delta_x": 0.5, "delta_y": -0.25}
+
+
+def disk_hypes(dataset, name):
+    """A phase-18 YAML as ``load_yaml`` gives it, bf16. SCOPE's YAML names
+    its frame count ``fusion_args.frame``, which neither package's dataset
+    reads (ROADMAP §3): it goes to ``fusion.args.num_sweep_frames``."""
+    from airv2x_tpu_torch.config import load_yaml
+
+    hypes = load_yaml(os.path.join(REPO, DISK_YAMLS[dataset].format(name)))
+    hypes["model"]["args"]["dtype"] = "bf16"
+    fa = hypes["model"]["args"].get("fusion_args")
+    if fa and "frame" in fa:
+        hypes.setdefault("fusion", {}).setdefault("args", {})[
+            "num_sweep_frames"] = int(fa["frame"])
+    return hypes
+
+
+def disk_objects(rng, centre):
+    """DISK_OBJECTS vehicles around the world point ``centre``: world xy
+    (n, 2), yaw (n,) in degrees, half extents (n, 3)."""
+    n = DISK_OBJECTS
+    xy = np.asarray(centre, np.float64) + rng.uniform([-60, -30], [60, 30], (n, 2))
+    ext = np.stack([rng.uniform(1.9, 2.5, n), rng.uniform(0.85, 1.05, n),
+                    rng.uniform(0.7, 0.9, n)], 1)
+    return xy, rng.uniform(-180, 180, n), ext
+
+
+def disk_cloud(rng, sensor_pose, objects):
+    """DISK_POINTS points in the sensor's frame: a fifth inside the boxes of
+    the objects within 70 m of it, the rest on the ground over 140 x 80 m
+    around it (not within 2.5 m, its carrier); intensity in [0, 1)."""
+    from airv2x_tpu_torch.utils import transforms as tf
+
+    xy, yaw, ext = objects
+    near = np.hypot(*(xy - np.asarray(sensor_pose[:2])).T) < 70.0
+    n_obj = DISK_POINTS // 5 if near.any() else 0
+    n_ground = DISK_POINTS - n_obj
+    g = rng.uniform([-70.0, -40.0], [70.0, 40.0], (2 * n_ground, 2))
+    g = g[(np.abs(g) >= 2.5).any(1)][:n_ground]
+    ground = np.column_stack([g, rng.normal(-sensor_pose[2], 0.03, len(g))])
+    idx = rng.choice(np.nonzero(near)[0], n_obj) if n_obj else np.zeros(0, int)
+    local = rng.uniform(-1.0, 1.0, (n_obj, 3)) * ext[idx]
+    c, s = np.cos(np.radians(yaw[idx])), np.sin(np.radians(yaw[idx]))
+    world = np.column_stack([xy[idx, 0] + c * local[:, 0] - s * local[:, 1],
+                             xy[idx, 1] + s * local[:, 0] + c * local[:, 1],
+                             ext[idx, 2] + local[:, 2]])
+    to_sensor = np.linalg.inv(tf.pose_to_world(sensor_pose))
+    obj = world @ to_sensor[:3, :3].T + to_sensor[:3, 3]
+    pts = np.vstack([ground, obj])
+    return np.column_stack([pts, rng.uniform(0, 1, len(pts))]).astype(np.float32)
+
+
+def write_opv2v_split(root, rng):
+    """An OPV2V split: one scenario of DISK_STAMPS timestamps, the cavs of
+    DISK_CAVS around an ego moving 2 m per stamp, each with its yaml
+    (``lidar_pose``, ``ego_speed``, the ``vehicles`` within 100 m of it)
+    and a cloud of DISK_POINTS points; DISK_OBJECTS vehicles."""
+    import yaml
+
+    from airv2x_tpu_torch.data.pcd import write_pcd
+
+    objects = disk_objects(rng, (0.0, 0.0))
+    xy, yaw, ext = objects
+    scen = os.path.join(root, DISK_SCENARIO)
+    for t in range(DISK_STAMPS):
+        for cav, (dx, dy, dyaw) in DISK_CAVS.items():
+            pose = [2.0 * t + dx, dy, DISK_LIDAR_Z, 0.0, dyaw, 0.0]
+            cdir = os.path.join(scen, cav)
+            os.makedirs(cdir, exist_ok=True)
+            near = np.hypot(*(xy - pose[:2]).T) < 100.0
+            meta = {"lidar_pose": pose, "ego_speed": 7.2,
+                    "vehicles": {1000 + int(i): {
+                        "location": [float(xy[i, 0]), float(xy[i, 1]), 0.0],
+                        "angle": [0.0, float(yaw[i]), 0.0],
+                        "center": [0.0, 0.0, float(ext[i, 2])],
+                        "extent": [float(v) for v in ext[i]]}
+                        for i in np.nonzero(near)[0]}}
+            with open(os.path.join(cdir, f"{t:06d}.yaml"), "w") as f:
+                yaml.safe_dump(meta, f)
+            write_pcd(os.path.join(cdir, f"{t:06d}.pcd"),
+                      disk_cloud(rng, pose, objects))
+
+
+def _box_corners(xy, yaw_deg, ext):
+    """World corners (8, 3) of one box in the reference's template order
+    (bottom face first; edge 0-3 along the length)."""
+    from airv2x_tpu_torch.data.airv2x_dataset import _CORNER_SIGNS
+
+    local = _CORNER_SIGNS * ext
+    c, s = np.cos(np.radians(yaw_deg)), np.sin(np.radians(yaw_deg))
+    return np.column_stack([xy[0] + c * local[:, 0] - s * local[:, 1],
+                            xy[1] + s * local[:, 0] + c * local[:, 1],
+                            ext[2] + local[:, 2]])
+
+
+def write_dair_split(root, raw_root, rng):
+    """A normalized DAIR split of DISK_STAMPS frames (the vehicle moving 2 m
+    per frame, the roadside unit fixed; DISK_POINTS points per cloud;
+    DISK_OBJECTS world-frame labels) under ``root``, and its frame 0 in the
+    raw release's layout under ``raw_root``: the calib chain (lidar ->
+    novatel -> world, virtuallidar -> world less the system error offset)
+    and ``world_8_points`` labels."""
+    import json
+    import shutil
+
+    from airv2x_tpu_torch.data.pcd import write_pcd
+    from airv2x_tpu_torch.utils import transforms as tf
+
+    def dump(base, rel, obj):
+        path = os.path.join(base, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(obj, f)
+
+    vx, vy, vz, vyaw = DAIR_VEHICLE
+    ix, iy, iz, iyaw = DAIR_INFRA
+    objects = disk_objects(rng, (vx, vy))
+    xy, yaw, ext = objects
+    infos = []
+    for i in range(DISK_STAMPS):
+        veh = [vx + 2.0 * i, vy, vz, 0.0, vyaw, 0.0]
+        inf = [ix, iy, iz, 0.0, iyaw, 0.0]
+        for side, pose in (("veh", veh), ("inf", inf)):
+            path = os.path.join(root, "velodyne", f"{side}_{i:06d}.pcd")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_pcd(path, disk_cloud(rng, pose, objects))
+        dump(root, f"cooperative/label_{i:06d}.json", [
+            {"location": [float(xy[k, 0]), float(xy[k, 1]), float(ext[k, 2])],
+             "rotation": float(np.radians(yaw[k])),
+             "extent": [float(v) for v in ext[k]]} for k in range(len(xy))])
+        infos.append({
+            "vehicle_pointcloud_path": f"velodyne/veh_{i:06d}.pcd",
+            "infrastructure_pointcloud_path": f"velodyne/inf_{i:06d}.pcd",
+            "vehicle_lidar_pose": veh, "infrastructure_lidar_pose": inf,
+            "cooperative_label_path": f"cooperative/label_{i:06d}.json"})
+    dump(root, "cooperative/data_info.json", infos)
+
+    veh_w = tf.pose_to_world(infos[0]["vehicle_lidar_pose"])
+    inf_w = tf.pose_to_world(infos[0]["infrastructure_lidar_pose"])
+    dump(raw_root, "vehicle-side/calib/lidar_to_novatel/veh_000000.json",
+         {"transform": {"rotation": np.eye(3).tolist(),
+                        "translation": [[0.0], [0.0], [0.0]]}})
+    dump(raw_root, "vehicle-side/calib/novatel_to_world/veh_000000.json",
+         {"rotation": veh_w[:3, :3].tolist(),
+          "translation": veh_w[:3, 3:].tolist()})
+    t_inf = inf_w[:3, 3] - [DAIR_OFFSET["delta_x"], DAIR_OFFSET["delta_y"], 0.0]
+    dump(raw_root, "infrastructure-side/calib/virtuallidar_to_world/"
+         "inf_000000.json", {"rotation": inf_w[:3, :3].tolist(),
+                             "translation": t_inf[:, None].tolist()})
+    dump(raw_root, "cooperative/raw_label_000000.json", [
+        {"world_8_points": _box_corners(xy[k], yaw[k], ext[k]).tolist()}
+        for k in range(len(xy))])
+    dump(raw_root, "cooperative/data_info.json", [{
+        "vehicle_pointcloud_path": "velodyne/veh_000000.pcd",
+        "infrastructure_pointcloud_path": "velodyne/inf_000000.pcd",
+        "cooperative_label_path": "cooperative/raw_label_000000.json",
+        "system_error_offset": dict(DAIR_OFFSET)}])
+    shutil.copytree(os.path.join(root, "velodyne"),
+                    os.path.join(raw_root, "velodyne"))
+
+
+def bev_rectangles(boxes):
+    """hwl boxes (N, 7) -> their sorted BEV corners (N, 4, 2), equal for two
+    parametrisations of one rectangle (length and width swapped, the yaw a
+    quarter turn apart)."""
+    out = []
+    for x, y, _, _, w, l, yaw in np.asarray(boxes, np.float64):
+        c, s = np.cos(yaw), np.sin(yaw)
+        out.append(sorted((x + c * dx - s * dy, y + s * dx + c * dy)
+                          for dx, dy in ((l / 2, w / 2), (l / 2, -w / 2),
+                                         (-l / 2, w / 2), (-l / 2, -w / 2))))
+    return np.array(out)
+
+
+def dair_raw_check(card, hypes, root, raw_root, work):
+    """The raw frame read directly and converted by the port's
+    ``dair_convert`` against the normalized frame 0: the same points and
+    masks, the same boxes (as rectangles: the converter takes corner edge
+    0-1 as the length, ROADMAP §3)."""
+    from airv2x_tpu_torch.data.dair_dataset import DAIRDataset
+    from airv2x_tpu_torch.tools import dair_convert
+
+    conv = os.path.join(work, "dair_converted")
+    if dair_convert.convert(raw_root, conv) != 1:
+        raise AssertionError("phase 18 dair_convert converted no frame")
+    os.symlink(os.path.join(raw_root, "velodyne"), os.path.join(conv, "velodyne"))
+    want = DAIRDataset(hypes, root, train=False)[0]
+    out = {}
+    for kind, path in (("raw", raw_root), ("converted", conv)):
+        got = DAIRDataset(hypes, path, train=False)[0]
+        b, g = got[0], got[1]
+        if not (np.array_equal(b["points_mask"], want[0]["points_mask"])
+                and np.array_equal(g["mask"], want[1]["mask"])):
+            raise AssertionError(f"phase 18 DAIR {kind} frame: masks differ")
+        m = g["mask"]
+        err = {"points": float(np.abs(b["points"] - want[0]["points"]).max()),
+               "box_centres": float(np.abs(g["boxes"][m][:, :4]
+                                           - want[1]["boxes"][m][:, :4]).max()),
+               "box_rectangles": float(np.abs(
+                   bev_rectangles(g["boxes"][m])
+                   - bev_rectangles(want[1]["boxes"][m])).max())}
+        print(f"phase 18 DAIR {kind} frame 0 against the normalized one [{card}]: "
+              f"{int(b['points_mask'].sum())} points, {int(m.sum())} boxes, max "
+              "abs differences " + json.dumps(err))
+        if max(err.values()) > 1e-3:
+            raise AssertionError(f"phase 18 DAIR {kind} frame differs: {err}")
+        out[kind] = err
+    return out
+
+
+def disk_items(hypes, dataset, root):
+    """Every sample of the split through the config's dataset and
+    ``RealDataLoader`` (batch 1, eval) on the card: (batch, gt quads)
+    pairs. OPV2V batches come from the loader's iterator; DAIR samples
+    through its collate (its ``__getitem__`` takes no epoch: ROADMAP §3).
+    A temporal batch gets its pairwise transforms repeated over the frames
+    (``pairwise_over_frames``)."""
+    from airv2x_tpu_torch.data.dair_dataset import DAIRDataset
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.data.opv2v_dataset import (
+        OPV2VDataset, pairwise_over_frames)
+    from airv2x_tpu_torch.ops import geometry as geo
+
+    if dataset == "opv2v":
+        ds = OPV2VDataset(hypes, root, train=False)
+        loader = RealDataLoader(ds, hypes, 1, train=False, num_workers=2,
+                                device="cuda")
+        pairs = list(loader.batches(0, with_gt=True))
+    else:
+        ds = DAIRDataset(hypes, root, train=False)
+        loader = RealDataLoader(ds, hypes, 1, train=False, device="cuda")
+        pairs = [loader._collate([ds[i]]) for i in range(len(ds))]
+    items = []
+    for batch, gt in pairs:
+        m = gt["mask"][0]
+        quads = geo.boxes_to_corners_bev(
+            torch.from_numpy(gt["boxes"][0][m]).to("cuda"), order="hwl")
+        items.append((pairwise_over_frames(batch), quads))
+    return items
+
+
+def disk_model(hypes):
+    """The config's model on the card with seeded random weights
+    (``init_random_`` seed 0, drawn on the card; SCOPE's cls head scaled
+    by SCOPE_CLS_SCALE as in phase 12), cast to bf16."""
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    model = init_random_(build_model(hypes, device="cuda"), seed=0,
+                         device="cuda")
+    if hypes["model"]["core_method"] == "point_pillar_scope":
+        with torch.no_grad():
+            model.cls_head.weight.mul_(SCOPE_CLS_SCALE)
+    return cast_weights_(model, torch.bfloat16)
+
+
+def disk_step(hypes, model, stat):
+    """One scene: forward, decode (rotated NMS, K2) and the AP's
+    accumulation (one det x gt IoU, K2, where both are non-empty) into
+    ``stat``; returns (outputs, kept, whether the AP launched K2)."""
+    from airv2x_tpu_torch.eval.ap import accumulate_scene
+
+    decode, _ = det_decoder(hypes)
+
+    def run(item, mark):
+        batch, gt_quads = item
+        with torch.inference_mode():
+            out = model(batch)
+            mark("forward")
+            det = decode(out)
+            keep = det.mask
+            kept = int(keep.sum())
+            accumulate_scene(det.corners[keep][:, :4, :2],
+                             det.scores[keep].float().cpu().numpy(), gt_quads,
+                             stat)
+            mark("decode+AP")
+        return out, kept, bool(kept and gt_quads.shape[0])
+
+    return run
+
+
+def disk_convs(hypes):
+    """K4a launches per scene in ``pallas``: the plain backbone's stride-1
+    ConvBNReLUs, one pass (0 on the ResNet backbone)."""
+    bb = hypes["model"]["args"]["base_bev_backbone"]
+    return 0 if bb.get("resnet") else sum(bb["layer_nums"])
+
+
+# where the port's modules call the wrappers of K1, K4a and K2
+KERNEL_CALL_SITES = (("airv2x_tpu_torch.ops.fast_pillars", "pillar_encode"),
+                     ("airv2x_tpu_torch.models.nn", "conv3x3_same"),
+                     ("airv2x_tpu_torch.ops.nms", "quad_iou"),
+                     ("airv2x_tpu_torch.eval.ap", "quad_iou"))
+
+
+@contextlib.contextmanager
+def recorded_kernel_inputs(seen: dict):
+    """Within the block every call of a KERNEL_CALL_SITES wrapper passes
+    through, and the first call of each wrapper and input (shapes, types,
+    options) leaves its arguments in ``seen``."""
+    import importlib
+
+    saved = []
+    for mod_name, attr in KERNEL_CALL_SITES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def call(*args, _fn=fn, _name=attr, **kw):
+            key = (_name,) + tuple(
+                (tuple(a.shape), str(a.dtype)) for a in args
+                if torch.is_tensor(a)) + tuple(sorted(
+                    (k, str(v)) for k, v in kw.items()
+                    if not torch.is_tensor(v) and v is not None))
+            seen.setdefault(key, (args, kw))
+            return _fn(*args, **kw)
+
+        setattr(mod, attr, call)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_kernel_inputs(label, seen: dict, done: set) -> list:
+    """Each input of ``seen`` not in ``done`` through its kernel and the
+    kernel's plain version (TF32 off), within the tolerances of phases 2-4:
+    K1 K1_TOL (f32) or K1_TOL_BF16 x (1 + |plain|) (bf16), K4a K4_TOL x
+    (1 + scale) (f32) or K4_TOL_BF16 x (1 + |plain|) (bf16), K2 K2_TOL on
+    the pairs its caller reads (i < j for NMS). Returns one row per input."""
+    from airv2x_tpu_torch.ops.conv3x3 import conv3x3_same, conv3x3_same_plain
+    from airv2x_tpu_torch.ops.pillar_encode import (
+        pillar_encode, pillar_encode_plain)
+    from airv2x_tpu_torch.ops.quad_iou import quad_iou, quad_iou_plain
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    set_tf32(False)
+    rows = []
+    for key, (args, kw) in seen.items():
+        if key in done:
+            continue
+        done.add(key)
+        name = key[0]
+        with torch.inference_mode():
+            if name == "pillar_encode":
+                got = pillar_encode(*args, **kw)
+                ref = pillar_encode_plain(*args, **kw)
+                bf16 = kw["out_dtype"] == torch.bfloat16
+                tol = K1_TOL_BF16 if bf16 else K1_TOL
+            elif name == "conv3x3_same":
+                got = conv3x3_same(*args, **kw)
+                ref = conv3x3_same_plain(*args, relu=kw.get("relu", False))
+                bf16 = args[0].dtype == torch.bfloat16
+                tol = (K4_TOL_BF16 if bf16
+                       else K4_TOL * (1 + float(ref.float().abs().max())))
+            else:
+                if not min(a.shape[0] for a in args):
+                    continue
+                got = quad_iou(*args, **kw)
+                ref = quad_iou_plain(*args)
+                # pairs of finite quads (a decoded box of an overflowed
+                # regression is not; NMS never keeps it), and for NMS the
+                # pairs i < j it reads; a NaN IoU (a finite quad too large
+                # for f32 areas) as both callers read it: no overlap
+                fin = [torch.isfinite(a).flatten(1).all(1) for a in args]
+                pairs = fin[0][:, None] & fin[1][None, :]
+                if kw.get("triangular"):
+                    pairs = pairs.triu(1)
+                got, ref = got[pairs], ref[pairs]
+                nonfinite = sum(int((~f).sum()) for f in fin)
+                nan_pairs = [int(t.isnan().sum()) for t in (got, ref)]
+                got, ref = got.nan_to_num(nan=0.0), ref.nan_to_num(nan=0.0)
+                bf16, tol = False, K2_TOL
+            torch.cuda.synchronize()
+            d = (got.float() - ref.float()).abs()
+            err = float(d.max()) if d.numel() else 0.0
+            ok = (bool((d <= tol * (1 + ref.float().abs())).all()) if bf16
+                  else err <= tol)
+        row = {"kernel": {"pillar_encode": "K1", "conv3x3_same": "K4a",
+                          "quad_iou": "K2"}[name],
+               "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
+               "dtype": str((kw.get("out_dtype") if name == "pillar_encode"
+                             else args[0].dtype)).removeprefix("torch."),
+               "max_abs_err": err,
+               "tol": f"{tol} x (1 + |plain|)" if bf16 else tol}
+        if name == "quad_iou":
+            row.update(triangular=bool(kw.get("triangular")),
+                       nonfinite_quads=nonfinite, nan_pairs=nan_pairs)
+        print(f"{label}: {row['kernel']} at the path's input {row['shapes']} "
+              f"{row['dtype']}: max|kernel - plain| {err:.3e} (tol "
+              f"{row['tol']})" + (
+                  f"; {nonfinite} non-finite quads left out, NaN IoUs "
+                  f"(kernel, plain) {nan_pairs} read as 0"
+                  if name == "quad_iou" and (nonfinite or any(nan_pairs))
+                  else ""))
+        if not ok:
+            raise AssertionError(f"{label}: {row['kernel']} disagrees with its "
+                                 f"plain version at {row['shapes']}: {err}")
+        rows.append(row)
+    seen.clear()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows
+
+
+def time_disk(label, run, items, hypes, mode, checked=None):
+    """Warm-up, then DISK_RUNS timed runs over ``items``: ms/scene, peak
+    memory, kept detections, and the launches asserted per scene (K1 once
+    per frame, K4a ``disk_convs`` in ``pallas``, K2 once for the NMS and
+    once more where the AP had detections and gt to match). Where
+    ``checked`` is given, the warm-up's kernel inputs not in it are held to
+    the plain versions before the counts and the peak are reset
+    (``check_kernel_inputs``; its rows under "kernel_checks")."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.opv2v_dataset import temporal_frames
+
+    seen = {}
+    with (recorded_kernel_inputs(seen) if checked is not None
+          else contextlib.nullcontext()):
+        for item in items:
+            run(item, no_mark)
+    checks = (check_kernel_inputs(label, seen, checked)
+              if checked is not None else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run_ms, kept, ap = [], [], 0
+    for _ in range(DISK_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for item in items:
+            out, k, a = run(item, no_mark)
+            kept.append(k)
+            ap += a
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) / len(items) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    n = DISK_RUNS * len(items)
+    want = {"pillar_encode": temporal_frames(hypes) * n,
+            "conv3x3": disk_convs(hypes) * n if mode == "pallas" else 0,
+            "quad_iou": n + ap}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want or launches.get("pillar_reduce", 0):
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    for k in ("psm", "rm"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{label}: non-finite {k}")
+    return dict(ms=statistics.median(run_ms), run_ms=run_ms,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                kept=kept[:len(items)], launches=launches,
+                launches_per_scene={k: v / n for k, v in want.items()},
+                kernel_checks=checks)
+
+
+def phase_disk(card, work):
+    """Phase 18 (a) and (b): the OPV2V split (DISK_CAVS: 5 vehicles and one
+    beyond 70 m, DISK_STAMPS stamps, DISK_POINTS points per cloud,
+    DISK_OBJECTS vehicles) and the DAIR split (DISK_STAMPS frames, vehicle
+    and roadside unit, one raw frame converted by ``dair_convert`` and
+    checked against its normalized twin) written under ``work``; every
+    DISK_CONFIGS YAML at full width (bf16, seeded random weights, batch 1)
+    through its dataset and ``RealDataLoader``, forward + decode + AP, in
+    ``auto`` and ``pallas`` (DISK_RUNS timed runs, launches asserted per
+    scene, a ``pallas`` profile window: busy and idle; the kernel inputs
+    of each ``pallas`` warm-up held to their plain versions before the
+    counted runs); then one loaded OPV2V temporal batch card against CPU."""
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.data.opv2v_dataset import OPV2VDataset, temporal_frames
+    from airv2x_tpu_torch.eval.ap import eval_final_results, new_result_stat
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    roots = {"opv2v": os.path.join(work, "opv2v"),
+             "dair": os.path.join(work, "dair")}
+    raw_root = os.path.join(work, "dair_raw")
+    t0 = time.perf_counter()
+    write_opv2v_split(roots["opv2v"], rng)
+    write_dair_split(roots["dair"], raw_root, rng)
+    print(f"phase 18 [{card}]: OPV2V split ({len(DISK_CAVS)} cavs x "
+          f"{DISK_STAMPS} stamps) and DAIR split ({DISK_STAMPS} frames, one "
+          f"raw) of {DISK_POINTS} points per cloud written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    res = {"card": card, "configs": {}, "kernel_checks": []}
+    checked = set()  # the kernel inputs already held to their plain versions
+    res["dair_raw_frame"] = dair_raw_check(card, disk_hypes("dair", "single"),
+                                           roots["dair"], raw_root, work)
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = False, False  # heuristics: 18 configs
+    cache, launches = {}, {}
+    for dataset, name in DISK_CONFIGS:
+        t_cfg = time.perf_counter()
+        hypes = disk_hypes(dataset, name)
+        key = (dataset, temporal_frames(hypes))
+        if key not in cache:
+            t0 = time.perf_counter()
+            cache[key] = disk_items(hypes, dataset, roots[dataset])
+            torch.cuda.synchronize()
+            print(f"phase 18 {dataset} loader [{card}]: {len(cache[key])} "
+                  f"batches of {key[1]} frame(s) on the card in "
+                  f"{(time.perf_counter() - t0) * 1e3 / len(cache[key]):.1f} ms "
+                  "each (read, project, crop, collate, anchor targets)")
+        items = cache[key]
+        model = disk_model(hypes)
+        label = f"phase 18 {dataset}_{name}"
+        r = {}
+        for mode in ("auto", "pallas"):
+            stat = new_result_stat()
+            run = disk_step(hypes, model, stat)
+            with conv_mode(mode):
+                r[mode] = time_disk(f"{label} {mode} [{card}]", run, items,
+                                    hypes, mode,
+                                    checked if mode == "pallas" else None)
+            res["kernel_checks"] += r[mode].pop("kernel_checks")
+            r[mode]["ap"] = eval_final_results(stat)
+            for k, v in r[mode]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        with conv_mode("pallas"):
+            r["profile"] = phase_profile(
+                f"{label} pallas [{card}]", disk_step(hypes, model,
+                                                      new_result_stat()),
+                items, top=6, n=len(items))
+        prof = r["profile"] or {}
+        r["seconds"] = time.perf_counter() - t_cfg
+        print(f"{label} [{card}]: ms/scene auto {r['auto']['ms']:.3f} "
+              f"{[round(v, 3) for v in r['auto']['run_ms']]}, pallas "
+              f"{r['pallas']['ms']:.3f} "
+              f"{[round(v, 3) for v in r['pallas']['run_ms']]}; busy "
+              f"{prof.get('busy_ms', float('nan')):.3f} ms/scene, idle "
+              f"{prof.get('idle_share', float('nan')):.3f} (pallas); peak "
+              f"{max(r[m]['peak_mib'] for m in ('auto', 'pallas')):.1f} MiB; "
+              f"launches per scene {r['pallas']['launches_per_scene']}; kept "
+              f"{r['pallas']['kept']}; AP {r['pallas']['ap']}; "
+              f"{r['seconds']:.1f} s")
+        res["configs"][f"{dataset}_{name}"] = r
+        del model
+        torch.cuda.empty_cache()
+    del cache
+    # (b) one loaded temporal batch, card against CPU
+    hypes = disk_hypes("opv2v", "scope")
+    batches = {}
+    for dev in ("cuda", "cpu"):
+        loader = RealDataLoader(OPV2VDataset(hypes, roots["opv2v"], train=True,
+                                             seed=3), hypes, 2, seed=3,
+                                num_workers=2, device=dev)
+        batches[dev] = next(iter(loader.batches(0)))
+    diff = same_batch(batches["cuda"], batches["cpu"])
+    bad = {k: v for k, v in diff.items()
+           if v > (BATCH_TARGET_TOL if k == "labels.targets" else 0.0)}
+    print(f"phase 18 one loaded OPV2V temporal batch of 2 (points "
+          f"{tuple(batches['cuda']['points'].shape)}), card against CPU, max "
+          f"abs difference per key [{card}]: " + json.dumps(diff))
+    if bad:
+        raise AssertionError(f"phase 18: the card's batch differs: {bad}")
+    res["batch_card_vs_cpu"] = diff
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18 serving [{card}] in {res['seconds']:.1f} s; launches: "
+          f"{launches}")
+    return res
+
+
+def disk_trained_eval(label, card, hypes, model, item, checked):
+    """The trained f32 weights on one loaded scene in ``auto`` and
+    ``pallas`` (deterministic cuDNN, TF32 off): finite outputs and the
+    launches of each mode asserted (K1 once per frame, K4a ``disk_convs``
+    in ``pallas``, K2 for the NMS and the AP); then the ``pallas`` run's
+    kernel inputs not in ``checked`` held to their plain versions. Returns
+    (launches per mode, ``check_kernel_inputs`` rows)."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.opv2v_dataset import temporal_frames
+    from airv2x_tpu_torch.eval.ap import new_result_stat
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.benchmark, cudnn.deterministic = False, True
+    model.eval()
+    run = disk_step(hypes, model, new_result_stat())
+    launches, seen = {}, {}
+    for mode in ("auto", "pallas"):
+        kernels.reset_launch_counts()
+        with conv_mode(mode), (recorded_kernel_inputs(seen) if mode == "pallas"
+                               else contextlib.nullcontext()):
+            out, kept, ap = run(item, no_mark)
+        torch.cuda.synchronize()
+        launches[mode] = dict(kernels.LAUNCHES)
+        want = {"pillar_encode": temporal_frames(hypes),
+                "conv3x3": disk_convs(hypes) if mode == "pallas" else 0,
+                "quad_iou": 1 + int(ap)}
+        got = {k: launches[mode].get(k, 0) for k in want}
+        finite = all(bool(torch.isfinite(out[k]).all()) for k in ("psm", "rm"))
+        print(f"{label} [{card}] eval of the trained weights, f32, {mode}: "
+              f"{kept} kept detections, launches {got} (expected {want})")
+        if got != want or not finite:
+            raise AssertionError(f"{label} eval {mode}: launches {got}, "
+                                 f"expected {want}, finite {finite}")
+    rows = check_kernel_inputs(f"{label} [{card}] trained, f32", seen, checked)
+    cudnn.deterministic = False
+    return launches, rows
+
+
+def phase_disk_train(card, work):
+    """Phase 18 (c): DISK_TRAIN's OPV2V configs trained at full width on the
+    written split (batch 2 through ``RealDataLoader`` in train mode, bf16
+    autocast over f32 master weights, flax-like initialisation), as phase
+    17 trains (``phase_train``: 2 warm-up steps, TRAIN_MODEL_STEPS timed,
+    a one-step profile window, one batch TRAIN_MODEL_REPEATS times at
+    REPEAT_LR_SCALE of the lr with its loss falling); then the trained
+    weights evaluated through K1 / K4a / K2, their f32 kernel inputs held
+    to the plain versions."""
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.data.opv2v_dataset import (
+        OPV2VDataset, pairwise_over_frames)
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "opv2v")
+    res = {"card": card, "configs": {}, "kernel_checks": []}
+    launches, checked = {}, set()
+    for name in DISK_TRAIN:
+        t0 = time.perf_counter()
+        hypes = disk_hypes("opv2v", name)
+        assert int(hypes["train_params"]["batch_size"]) == TRAIN_BATCH
+        loader = RealDataLoader(OPV2VDataset(hypes, root, train=True, seed=0),
+                                hypes, TRAIN_BATCH, seed=0, num_workers=2,
+                                device="cuda")
+        batches = [pairwise_over_frames(b) for b in loader.batches(0)]
+        model = init_flax_like_(build_model(hypes, device="cuda", train=True),
+                                seed=0)
+        t1 = time.perf_counter()
+        label = f"phase 18 opv2v_{name} training"
+        r = phase_train(label, card, hypes, model, batches,
+                        steps=TRAIN_MODEL_STEPS, repeats=TRAIN_MODEL_REPEATS,
+                        autotune=False, profiled=1)
+        r.pop("losses")
+        t2 = time.perf_counter()
+        item = next(iter(disk_items(hypes, "opv2v", root)))
+        r["eval_launches"], checks = disk_trained_eval(
+            f"phase 18 opv2v_{name}", card, hypes, model, item, checked)
+        res["kernel_checks"] += checks
+        for mode in ("auto", "pallas"):
+            for k, v in r["eval_launches"][mode].items():
+                launches[k] = launches.get(k, 0) + v
+        r["setup_s"], r["train_s"] = t1 - t0, t2 - t1
+        r["seconds"] = time.perf_counter() - t0
+        print(f"phase 18 opv2v_{name} [{card}]: trained and evaluated in "
+              f"{r['seconds']:.1f} s (loader and model {r['setup_s']:.1f}, "
+              f"training {r['train_s']:.1f})")
+        res["configs"][name] = r
+        del model, batches
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18 training [{card}] in {res['seconds']:.1f} s; launches in "
+          f"its evaluations: {launches}")
+    return res
+
+
 def k4_row(name, launches, k4, form):
     """The kernels-line row of K4a (``form`` "a") or K4b ("b"): per scene
     of 32 launches, bf16 as the main path runs it, and f32 beside it."""
@@ -4550,6 +5263,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    import shutil
+
     from airv2x_tpu_torch.utils.weights import cast_weights_
 
     phase_build()
@@ -4614,17 +5329,31 @@ def main() -> int:
                     if isinstance(r, dict) else r) for mode, r in v.items()}
             if "/" in k and not k.startswith("cli") else v)
         for k, v in cam_disk.items()}}))
-    # the training phases run after every serving phase, so that nothing
-    # they leave on the card shows in the serving paths' peak memory
-    tiny_train = phase_tiny_train(card)
-    train_det = phase_train_det(card)
-    train_seg = phase_train_seg(card)
-    print(json.dumps({"training": {
-        "card": card, "tiny_card_vs_cpu": tiny_train,
-        "det": {k: v for k, v in train_det.items() if k != "losses"},
-        "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
-    train_models = phase_train_models(card)
-    print(json.dumps({"train_models": train_models}))
+    disk_work = scratch_dir("chip_smoke_disk_")
+    try:
+        disk = phase_disk(card, disk_work)
+        print(json.dumps({"disk": {k: ({name: {m: ({kk: vv for kk, vv in r.items()
+                                                    if kk != "launches"}
+                                                   if m in ("auto", "pallas")
+                                                   else r) for m, r in c.items()}
+                                        for name, c in v.items()}
+                                       if k == "configs" else v)
+                                   for k, v in disk.items()}}))
+        # the training phases run after every serving phase, so that nothing
+        # they leave on the card shows in the serving paths' peak memory
+        tiny_train = phase_tiny_train(card)
+        train_det = phase_train_det(card)
+        train_seg = phase_train_seg(card)
+        print(json.dumps({"training": {
+            "card": card, "tiny_card_vs_cpu": tiny_train,
+            "det": {k: v for k, v in train_det.items() if k != "losses"},
+            "seg": {k: v for k, v in train_seg.items() if k != "losses"}}}))
+        train_models = phase_train_models(card)
+        print(json.dumps({"train_models": train_models}))
+        disk_train = phase_disk_train(card, disk_work)
+        print(json.dumps({"disk_train": disk_train}))
+    finally:
+        shutil.rmtree(disk_work, ignore_errors=True)
     print(json.dumps({"family": dict(family, tiny_card_vs_cpu=tiny_family)}))
     runs = {"det": det, "seg": seg, "camera": cam, "v2xvit det": v2x["det"],
             "v2xvit seg": v2x["seg"],
@@ -4635,18 +5364,21 @@ def main() -> int:
     for path, res in runs.items():
         for mode, r in res.items():
             print(f"launches in the timed {path} {mode} runs: {r['launches']}")
-    disk = family["on_disk_v2vnet"]["launches"]
+    v2v_disk = family["on_disk_v2vnet"]["launches"]
     launches = {k: sum(r["launches"][k] for res in runs.values()
-                       for r in res.values()) + ev["launches"][k] + disk[k]
+                       for r in res.values()) + ev["launches"][k] + v2v_disk[k]
                 + cam_disk["launches"][k] + train_models["launches"].get(k, 0)
+                + disk["launches"].get(k, 0) + disk_train["launches"].get(k, 0)
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
-          f"15's on-disk V2VNet run: {disk}; in phase 16's timed and CLI runs: "
-          f"{cam_disk['launches']}; in phase 17's evaluations of the trained "
-          f"models: {train_models['launches']}")
-    print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15 "
-          "and 16), the counted phase 13, 15 and 16 CLI runs and phase 17's "
-          f"evaluations: {launches}")
+          f"15's on-disk V2VNet run: {v2v_disk}; in phase 16's timed and CLI "
+          f"runs: {cam_disk['launches']}; in phase 17's evaluations of the "
+          f"trained models: {train_models['launches']}; in phase 18's timed "
+          f"runs: {disk['launches']}; in phase 18's evaluations of the trained "
+          f"models: {disk_train['launches']}")
+    print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15, "
+          "16 and 18), the counted phase 13, 15 and 16 CLI runs and phase 17's "
+          f"and 18's evaluations: {launches}")
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16
     print(json.dumps({"kernels": [
         {"name": "pillar_encode", "route": "cuda",

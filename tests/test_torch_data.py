@@ -72,8 +72,14 @@ def crop_margins(monkeypatch):
     """Record, for every cloud the port's dataset loads with a transform,
     the smallest distance of a transformed point to a face of the range
     crop (both readers read an untransformed cloud's floats bit for bit)."""
+    return record_crop_margins(monkeypatch, port_dataset)
+
+
+def record_crop_margins(monkeypatch, module):
+    """The margins list that ``crop_margins`` records, for the dataset
+    ``module`` whose ``load_pcd_into`` it wraps."""
     margins = []
-    real = port_dataset.load_pcd_into
+    real = module.load_pcd_into
 
     def recording(path, out, *, transform=None, lidar_range=None, ego_mask=0.0):
         if transform is not None:
@@ -86,7 +92,7 @@ def crop_margins(monkeypatch):
         return real(path, out, transform=transform, lidar_range=lidar_range,
                     ego_mask=ego_mask)
 
-    monkeypatch.setattr(port_dataset, "load_pcd_into", recording)
+    monkeypatch.setattr(module, "load_pcd_into", recording)
     return margins
 
 
@@ -179,6 +185,8 @@ def test_transforms_match_jax():
         b = rng.uniform(-100, 100, 6)
         np.testing.assert_array_equal(tf.pose_to_world(a), jax_tf.pose_to_world(a))
         np.testing.assert_array_equal(tf.pose_a_to_b(a, b), jax_tf.pose_a_to_b(a, b))
+        np.testing.assert_array_equal(tf.world_to_pose(tf.pose_a_to_b(a, b)),
+                                      jax_tf.world_to_pose(tf.pose_a_to_b(a, b)))
         pts = rng.normal(0, 10, (50, 4))
         t = tf.pose_a_to_b(a, b)
         np.testing.assert_array_equal(tf.transform_points(pts, t),

@@ -610,7 +610,12 @@ def test_tiny_family_op_counts_match_the_executed_layers(family_run):
 def test_registry_has_the_family():
     assert set(MODEL_REGISTRY) == {
         "airv2x_where2comm", "airv2x_v2xvit", "point_pillar_scope",
-        "lift_splat_shoot_airv2x", "lift_splat_shoot", *FAMILY}
+        "lift_splat_shoot_airv2x", "lift_splat_shoot", *FAMILY,
+        # the flat OPV2V / DAIR family (tests/test_torch_point_pillar_family.py)
+        "point_pillar", "point_pillar_intermediate", "point_pillar_attfusion",
+        "point_pillar_max", "point_pillar_fcooper", "point_pillar_where2comm",
+        "point_pillar_v2xvit", "point_pillar_cobevt", "point_pillar_v2vnet",
+        "point_pillar_when2com", "point_pillar_baseline_multiscale"}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

@@ -32,7 +32,7 @@ from airv2x_tpu_torch.models.resnet_bev import ResNetBEVBackbone
 from airv2x_tpu_torch.ops import warp as twarp
 from airv2x_tpu_torch.utils.weights import load_flax_variables
 from tests.torch_port_helpers import (
-    CHIP_SMOKE, assert_close, jnp_tree, random_variables)
+    CHIP_SMOKE, assert_close, jnp_tree, one_torch_thread, random_variables)
 
 TOL = 1e-5  # modules, f32, x (1 + scale): sums in another order
 MARGIN = 1e-4  # a thresholded value this close could fall either side
@@ -149,7 +149,7 @@ def _tiny_args(resnet, num_class=1):
 def test_point_pillar_base_matches_jax(resnet, num_class):
     """The spine without a fusion (the JAX package's ``point_pillar``): one
     frame, one of the three slots absent; the multiclass layout adds the
-    objectness head."""
+    objectness head; in eval and in train mode."""
     hypes, args = _tiny_args(resnet, num_class)
     hypes["model"]["core_method"] = "point_pillar"
     hypes["model"]["args"]["num_class"] = num_class
@@ -171,8 +171,16 @@ def test_point_pillar_base_matches_jax(resnet, num_class):
     for k in keys - {"comm_rate"}:
         _close(got[k].numpy(), want[k], k)
     assert got["psm"].shape == (1, 32, 32, 2 * num_class)
-    with pytest.raises(NotImplementedError):
-        tmodel.train()
+    # train mode (the plain scatter encoder, batch statistics) as flax's, at
+    # the whole-model tolerance: batch statistics over one scene amplify
+    # either package's f32 rounding (the train steps are held to JAX's
+    # float64 step in tests/test_torch_point_pillar_family.py)
+    want, _ = jmodel.apply(var, jnp_tree(batch), train=True,
+                           mutable=["batch_stats"])
+    with torch.no_grad():
+        got = tmodel.train()(batch_to_torch(batch, "cpu"))
+    for k in keys - {"comm_rate"}:
+        _close(got[k].numpy(), want[k], k, tol=1e-4)
 
 
 def test_point_pillar_base_raises_on_unported_options():

@@ -265,11 +265,13 @@ def test_scope_ops_match_the_executed_convolutions_and_linears():
 
 def test_scope_builds_on_the_card_unless_asked_for_the_cpu():
     """``build_model`` defaults to the card (and raises without one); on the
-    CPU when asked; train mode raises (SCOPE training is not ported)."""
+    CPU when asked; with ``train`` a trainable model in train mode (its
+    train step is held to JAX's in tests/test_torch_opv2v_data.py)."""
     hypes = CHIP_SMOKE.tiny_scope_hypes()
     assert isinstance(build_model(hypes, device="cpu"), PointPillarScope)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(hypes)
-    with pytest.raises(NotImplementedError, match="training"):
-        build_model(hypes, device="cpu", train=True)
+    model = build_model(hypes, device="cpu", train=True)
+    assert all(m.training for m in model.modules())
+    assert all(p.requires_grad for p in model.parameters())
