@@ -10,7 +10,9 @@ airv2x_tpu/loss/point_pillar_multiclass.py).
 
 The reference's normalisation quirks are kept: the focal term is divided by
 the batch size twice. Predictions are NHWC f32 (cast here), targets as
-``ops/anchors.py:assign_targets`` makes them.
+``ops/anchors.py:assign_targets`` makes them; ``prefix`` selects
+``psm<prefix>`` / ``rm<prefix>`` / ``obj<prefix>`` and suffixes the parts'
+names (SiCP's dual heads).
 """
 
 from __future__ import annotations
@@ -44,10 +46,10 @@ def make_multiclass_loss(args: dict):
     obj_weight = float(args.get("obj_weight", 1.0))
     alpha, gamma = 0.25, 2.0
 
-    def loss_fn(output: dict, target: dict):
-        psm = output["psm"].float()  # (B, H, W, A*C)
-        rm = output["rm"].float()  # (B, H, W, 7A)
-        obj = output["obj"].float()  # (B, H, W, A)
+    def loss_fn(output: dict, target: dict, prefix: str = ""):
+        psm = output[f"psm{prefix}"].float()  # (B, H, W, A*C)
+        rm = output[f"rm{prefix}"].float()  # (B, H, W, 7A)
+        obj = output[f"obj{prefix}"].float()  # (B, H, W, A)
         pos = target["pos_equal_one"]  # (B, H, W, A)
         b, a = psm.shape[0], pos.shape[-1]
 
@@ -85,7 +87,9 @@ def make_multiclass_loss(args: dict):
         obj_loss = bce.mean() * obj_weight
 
         total = reg_loss + conf_loss + obj_loss
-        return total, {"total_loss": total, "reg_loss": reg_loss,
-                       "conf_loss": conf_loss, "obj_loss": obj_loss}
+        return total, {f"total_loss{prefix}": total,
+                       f"reg_loss{prefix}": reg_loss,
+                       f"conf_loss{prefix}": conf_loss,
+                       f"obj_loss{prefix}": obj_loss}
 
     return loss_fn

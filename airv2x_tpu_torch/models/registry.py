@@ -9,12 +9,14 @@ family: ``point_pillar``, ``point_pillar_intermediate`` /
 ``point_pillar_where2comm``, ``point_pillar_v2xvit``,
 ``point_pillar_cobevt``, ``point_pillar_v2vnet``, ``point_pillar_when2com``,
 ``point_pillar_baseline_multiscale`` and ``point_pillar_scope`` (SCOPE
-temporal detection)."""
+temporal detection); and the heterogeneous-collaboration models
+``airv2x_heal``, ``airv2x_stamp`` and ``airv2x_sicp``."""
 
 from __future__ import annotations
 
 import torch
 
+from airv2x_tpu_torch.models.heal_model import Airv2xHEAL
 from airv2x_tpu_torch.models.intermediate_models import (
     Airv2xAttFusion, Airv2xCoBEVT, Airv2xMaxFusion, Airv2xV2VNet,
     Airv2xWhen2com)
@@ -24,6 +26,7 @@ from airv2x_tpu_torch.models.point_pillar_models import (
     PointPillarIntermediate, PointPillarMax, PointPillarV2VNet,
     PointPillarV2XViT, PointPillarWhen2com, PointPillarWhere2comm)
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
+from airv2x_tpu_torch.models.stamp_model import Airv2xSiCP, Airv2xSTAMP
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
 from airv2x_tpu_torch.models.where2comm_model import Airv2xWhere2comm
 from airv2x_tpu_torch.utils.device import resolve_device
@@ -50,7 +53,10 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "point_pillar_when2com": PointPillarWhen2com,
                   "point_pillar_baseline_multiscale":
                       PointPillarBaselineMultiscale,
-                  "point_pillar_scope": PointPillarScope}
+                  "point_pillar_scope": PointPillarScope,
+                  "airv2x_heal": Airv2xHEAL,
+                  "airv2x_stamp": Airv2xSTAMP,
+                  "airv2x_sicp": Airv2xSiCP}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 

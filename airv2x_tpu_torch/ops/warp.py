@@ -2,8 +2,8 @@
 (counterpart of airv2x_tpu/ops/warp.py: ``grid_sample_bilinear``,
 ``warp_affine``, ``discretized_transform``, ``center_pixel_affine``,
 ``warp_bev_features``, ``rotated_roi_mask`` and the normalized-coordinate
-pair ``warp_affine_normalized`` / ``normalized_pairwise_affine`` that SCOPE
-uses). Layout: channel-last (..., H, W, C), as in the JAX package.
+pair ``warp_affine_normalized`` / ``normalized_pairwise_affine`` that SCOPE,
+V2VNet, When2com, HEAL's pyramid and SiCP use). Layout: channel-last (..., H, W, C), as in the JAX package.
 
 The affine arithmetic is written out as f32 products and sums (no matmul,
 so no TF32 on the card, and no division by a host scalar, which CUDA turns
@@ -150,12 +150,13 @@ def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=like.device)
 
 
-def warp_affine_normalized(src, M, src_index=None):
+def warp_affine_normalized(src, M, src_index=None, align_corners=False):
     """Warp (..., H, W, C) by the (..., 2, 3) affine ``M`` given in
     normalized coordinates: it maps each dst pixel's normalized coordinates
-    in [-1, 1], -1 and 1 on the outer pixel edges (``F.affine_grid``'s
-    convention with ``align_corners=False``, SCOPE's), straight to the
-    src's, then samples bilinearly with zero padding.
+    in [-1, 1] straight to the src's, then samples bilinearly with zero
+    padding. With ``align_corners=False`` (``F.affine_grid``'s default,
+    SCOPE's and every shipped config's) -1 and 1 lie on the outer pixel
+    edges; with True on the outer pixel centres.
 
     With ``src_index`` (K,), ``src`` is (N, H, W, C), ``M`` (K, 2, 3) and
     affine k warps map ``src_index[k]``: (K, H, W, C), each map sampled as
@@ -168,16 +169,24 @@ def warp_affine_normalized(src, M, src_index=None):
         torch.arange(h, dtype=torch.float32, device=src.device),
         torch.arange(w, dtype=torch.float32, device=src.device),
         indexing="ij")
-    gx = (2.0 * xs + 1.0) / device_scalar(w, ms) - 1.0
-    gy = (2.0 * ys + 1.0) / device_scalar(h, ms) - 1.0
+    if align_corners:
+        gx = 2.0 * xs / device_scalar(max(w - 1, 1), ms) - 1.0
+        gy = 2.0 * ys / device_scalar(max(h - 1, 1), ms) - 1.0
+    else:
+        gx = (2.0 * xs + 1.0) / device_scalar(w, ms) - 1.0
+        gy = (2.0 * ys + 1.0) / device_scalar(h, ms) - 1.0
 
     def per(a):
         return a[:, None, None]
 
     sxn = per(ms[:, 0, 0]) * gx + per(ms[:, 0, 1]) * gy + per(ms[:, 0, 2])
     syn = per(ms[:, 1, 0]) * gx + per(ms[:, 1, 1]) * gy + per(ms[:, 1, 2])
-    sx = ((sxn + 1.0) * w - 1.0) * 0.5
-    sy = ((syn + 1.0) * h - 1.0) * 0.5
+    if align_corners:
+        sx = (sxn + 1.0) * 0.5 * (w - 1)
+        sy = (syn + 1.0) * 0.5 * (h - 1)
+    else:
+        sx = ((sxn + 1.0) * w - 1.0) * 0.5
+        sy = ((syn + 1.0) * h - 1.0) * 0.5
     out = grid_sample_bilinear(srcs, sx, sy, src_index)
     return out.reshape(lead + (h, w, src.shape[-1]))
 

@@ -14,6 +14,13 @@ function at that count, never with an epoch-stepped torch scheduler.
 Parameters and optimizer state stay f32 (the master weights); with a bf16
 compute dtype the forward runs under ``torch.autocast``, as the JAX
 package keeps f32 parameters and computes in its module dtype.
+
+``backbone_fix`` (the multi-stage recipe of HEAL and STAMP) freezes
+parameters by their flax path, as the JAX package's ``freeze_by_path``
+labels them for ``optax.set_to_zero``: ``freeze_by_path`` takes them out of
+the gradient and the optimizer is built over the rest, so a frozen
+parameter gets no update and no weight decay, while a frozen module's BN
+statistics still update in train mode, as flax's ``batch_stats`` do.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import Callable
 
 import torch
 from torch import nn
+
+from airv2x_tpu_torch.utils.weights import flax_paths
 
 
 def make_lr_schedule(hypes: dict, steps_per_epoch: int) -> Callable[[int], float]:
@@ -78,6 +87,38 @@ def make_optimizer(hypes: dict, params, steps_per_epoch: int = 1):
             f"optimizer {opt_cfg['core_method']} is not ported (every config "
             "in the repo names Adam)")
     return torch.optim.AdamW(params, lr=sched(0), eps=eps, weight_decay=wd), sched
+
+
+def backbone_fix_prefixes(args: dict) -> list:
+    """The flax scope prefixes ``args['backbone_fix']`` freezes: true ->
+    the encoders, backbone, shrink and heads; a list of agent types ->
+    those types' pillar encoders; false or absent -> none."""
+    fix = args.get("backbone_fix")
+    if not fix:
+        return []
+    if isinstance(fix, bool):
+        return ["encoder", "backbone", "shrink_conv", "heads", "seg_head"]
+    return [f"{t}_pillar_vfe" for t in fix]
+
+
+def freeze_by_path(model: nn.Module, frozen_prefixes) -> list:
+    """Freeze every parameter of ``model`` one of whose flax path's parts
+    (through the weight bridge's name map, ``utils/weights.py:flax_paths``)
+    starts with one of ``frozen_prefixes``: it stops requiring a gradient,
+    and an optimizer built over ``trainable_parameters(model)`` leaves it
+    as it is. Returns the frozen parameters' names."""
+    paths = flax_paths(model)
+    frozen = []
+    for name, p in model.named_parameters():
+        if any(str(part).startswith(pre) for part in paths[name][1:]
+               for pre in frozen_prefixes):
+            p.requires_grad_(False)
+            frozen.append(name)
+    return frozen
+
+
+def trainable_parameters(model: nn.Module) -> list:
+    return [p for p in model.parameters() if p.requires_grad]
 
 
 @dataclasses.dataclass

@@ -141,6 +141,39 @@ def flax_state_dict(model: nn.Module, variables: dict) -> dict:
     return sd
 
 
+class _LeafPath:
+    """Stands in for a flax leaf in ``_walk``: its path, kept through the
+    bridge's layout operations."""
+
+    def __init__(self, path: tuple):
+        self.path = path
+
+    @property
+    def T(self):  # noqa: N802 (numpy's name)
+        return self
+
+    def __getitem__(self, _):
+        return self
+
+    def transpose(self, *_):
+        return self
+
+
+class _Paths:
+    def take(self, col: str, scope: tuple, key: str) -> _LeafPath:
+        return _LeafPath((col,) + scope + (key,))
+
+
+def flax_paths(model: nn.Module) -> dict:
+    """``{torch name: (collection, *flax path)}`` for every tensor the
+    bridge fills: the flax leaf each of ``model``'s parameters and
+    statistics comes from (``num_batches_tracked``, which flax lacks, left
+    out)."""
+    out: dict = {}
+    _walk(model, (), "", _Paths(), out)
+    return {k: v.path for k, v in out.items() if isinstance(v, _LeafPath)}
+
+
 def load_flax_variables(model: nn.Module, variables: dict) -> None:
     """Fill ``model`` from a flax variables tree (``flax_state_dict``).
 
@@ -196,7 +229,10 @@ def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
     kernel's taps times its input channels), biases zero, BatchNorm scale 1,
     bias 0, running mean 0 and variance 1, LayerNorm scale 1 and bias 0, and
     a module's own raw parameters by its ``flax_init_(g)`` (V2X-ViT's
-    relation tensors and position biases). The start of a training run."""
+    relation tensors and position biases, STAMP's ConvNeXt ``gamma`` and
+    pixel-wise FC weights), and last, where a module's children take other
+    initialisers than these, its ``flax_reinit_()`` (the DSA adapter's
+    zero kernels and ring bias). The start of a training run."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -217,6 +253,9 @@ def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
                 mod.running_var.fill_(1.0)
             else:
                 _init_own_leaves_(mod, g)
+        for mod in model.modules():
+            if hasattr(mod, "flax_reinit_"):
+                mod.flax_reinit_()  # children flax initialises otherwise
     return model
 
 

@@ -615,7 +615,9 @@ def test_registry_has_the_family():
         "point_pillar", "point_pillar_intermediate", "point_pillar_attfusion",
         "point_pillar_max", "point_pillar_fcooper", "point_pillar_where2comm",
         "point_pillar_v2xvit", "point_pillar_cobevt", "point_pillar_v2vnet",
-        "point_pillar_when2com", "point_pillar_baseline_multiscale"}
+        "point_pillar_when2com", "point_pillar_baseline_multiscale",
+        # HEAL, STAMP and SiCP (tests/test_torch_heal_models.py)
+        "airv2x_heal", "airv2x_stamp", "airv2x_sicp"}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

@@ -1049,3 +1049,75 @@ def test_tiny_scope_model_on_card_matches_cpu(cuda, resnet):
         scale = float(w.abs().max())
         err = float((g - w).abs().max())
         assert scale > 0 and err <= 1e-4 * (1 + scale), (k, err, scale)
+
+
+@pytest.mark.parametrize("task", ["det", "seg"])
+@pytest.mark.parametrize("name", ["airv2x_heal", "airv2x_stamp", "airv2x_sicp"])
+def test_tiny_hetero_model_on_card_matches_cpu(cuda, name, task, monkeypatch):
+    """The tiny HEAL / STAMP / SiCP models (``chip_smoke.TINY_HETERO``)
+    with seeded random weights on phase 4f's scene (perturbed poses, an
+    absent drone), f32, TF32 off, deterministic cuDNN, SiCP in ``pallas``:
+    the card's outputs within 1e-4 x (1 + scale) of the CPU's; K1 three
+    times, K4a once per SiCP backbone conv (none for HEAL / STAMP)."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    cs = _chip_smoke()
+    hypes = cs.tiny_hetero_hypes(
+        load_yaml(os.path.join(REPO, "hypes_yaml/test/tiny_where2comm.yaml")),
+        name, task)
+    models = {d: init_random_(build_model(hypes, device=d),
+                              seed=cs.TINY_HETERO_SEED) for d in ("cpu", "cuda")}
+    scene = cs.tiny_family_scene(hypes)
+    monkeypatch.setenv("AIRV2X_CONV_KERNEL", "pallas")
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = {}
+        for d, model in models.items():
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                outs[d] = model(batch_to_torch(scene, d))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert kernels.LAUNCHES["pillar_encode"] == 3
+    assert kernels.LAUNCHES["conv3x3"] == (3 if name == "airv2x_sicp" else 0)
+    keys = ("psm", "rm", "obj") if task == "det" else ("dynamic_seg",
+                                                       "static_seg")
+    for k in keys:
+        want, got = outs["cpu"][k].double(), outs["cuda"][k].cpu().double()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert scale > 0 and err <= 1e-4 * (1 + scale), (k, err, scale)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_normalized_warp_on_card_matches_cpu(cuda, align_corners):
+    """The normalized warp (HEAL's pyramid levels, SiCP's sender maps) at
+    the full-width level 0 map (100 x 352, 64 channels, 6 agents) under
+    perturbed poses: the card computes the CPU's sample coordinates, so the
+    warped ones canvas (the footprint HEAL and SiCP threshold) is bit-equal
+    and the features agree to f32 rounding."""
+    from airv2x_tpu_torch.data.synthetic import perturb_poses
+    from airv2x_tpu_torch.ops.warp import (
+        normalized_pairwise_affine, warp_affine_normalized)
+
+    batch = {"pairwise_t": np.broadcast_to(np.eye(4, dtype=np.float32),
+                                           (1, 6, 4, 4)).copy(),
+             "prior_encoding": np.zeros((1, 6, 3), np.float32)}
+    perturb_poses(batch, np.random.default_rng(5))
+    feats = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(1, 6, 100, 352, 64)).astype(np.float32))
+    outs = {}
+    for d in ("cpu", "cuda"):
+        aff = normalized_pairwise_affine(
+            torch.from_numpy(batch["pairwise_t"]).to(d), 100, 352, 0.4, 2)
+        ones = torch.ones((1, 6, 100, 352, 1), device=d)
+        outs[d] = [warp_affine_normalized(t, aff, align_corners=align_corners)
+                   for t in (ones, feats.to(d))]
+    torch.cuda.synchronize()
+    assert torch.equal(outs["cuda"][0].cpu(), outs["cpu"][0])
+    err = float((outs["cuda"][1].cpu() - outs["cpu"][1]).abs().max())
+    assert err <= 1e-5, err

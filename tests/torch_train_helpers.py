@@ -40,7 +40,8 @@ from airv2x_tpu_torch.data.synthetic import batch_to_torch, perturb_poses
 from airv2x_tpu_torch.loss import build_loss
 from airv2x_tpu_torch.models import build_model
 from airv2x_tpu_torch.parallel.train import (
-    TrainState, make_optimizer, make_train_step)
+    TrainState, freeze_by_path, make_optimizer, make_train_step,
+    trainable_parameters)
 from airv2x_tpu_torch.utils.weights import load_flax_variables
 from tests.test_torch_train import (
     F64_GRAD_TOL, LR, STEP_GRAD_FLOOR, STEP_GRAD_TOL, STEP_LOSS_TOL,
@@ -107,16 +108,21 @@ def jax_step(hypes, batch, variables, *, accum=1, u=None, jit=True,
     return out + (g,)
 
 
-def port_step(hypes, batch, variables, *, accum=1, u=None, double=False):
+def port_step(hypes, batch, variables, *, accum=1, u=None, double=False,
+              freeze=()):
     """The port's update from the same variables: (model after the step,
-    loss parts as floats)."""
+    loss parts as floats). ``freeze``: flax scope prefixes whose parameters
+    ``freeze_by_path`` takes out of the optimizer."""
     model = build_model(hypes, device="cpu", train=True)
     if double:
         model.double()
         variables = jax.tree.map(f64, variables)
         batch = jax.tree.map(f64, batch)
     load_flax_variables(model, variables)
-    opt, sched = make_optimizer(hypes, model.parameters(), STEPS_PER_EPOCH)
+    if freeze:
+        freeze_by_path(model, freeze)
+    opt, sched = make_optimizer(hypes, trainable_parameters(model),
+                                STEPS_PER_EPOCH)
     state = TrainState(model, opt)
     step = make_train_step(build_loss(hypes), sched, accum_steps=accum)
     n = batch["agent_mask"].shape[0]
