@@ -75,6 +75,21 @@ def load_point_pillar_params(param: dict) -> dict:
     return param
 
 
+def load_airv2x_bm2cp_params(param: dict) -> dict:
+    """BM2CP's deriver: ``load_airv2x_params``, then the vehicle and rsu
+    ``pc_params.point_pillar_scatter.grid_size`` from the shared grid (the
+    reference reads an undefined ``rsu_lidar_range`` there; both types use
+    ``cav_lidar_range``, as in the JAX package)."""
+    param = load_airv2x_params(param)
+    gs = _grid_size(param["preprocess"]["cav_lidar_range"],
+                    param["preprocess"]["args"]["voxel_size"])
+    for agent in ("vehicle", "rsu"):
+        cfg = param["model"]["args"].get(agent)
+        if cfg and "pc_params" in cfg:
+            cfg["pc_params"]["point_pillar_scatter"]["grid_size"] = gs
+    return param
+
+
 def _fill_anchor_args(param: dict) -> None:
     cav_lidar_range = param["preprocess"]["cav_lidar_range"]
     anchor_args = param["postprocess"]["anchor_args"]
@@ -88,6 +103,7 @@ def _fill_anchor_args(param: dict) -> None:
 PARSER_REGISTRY: dict[str, Callable[[dict], dict]] = {
     "load_airv2x_params": load_airv2x_params,
     "load_point_pillar_params": load_point_pillar_params,
+    "load_airv2x_bm2cp_params": load_airv2x_bm2cp_params,
 }
 
 

@@ -16,11 +16,10 @@ airv2x_tpu/data/airv2x_dataset.py).
     ego-frame hwl boxes and padded to ``max_num``;
   * for each agent type with the ``cam`` modality, every chosen agent's
     cameras loaded and augmented (``data/camera.py``) and stacked per type
-    into ``cam_<type>`` blocks over all slots;
+    into ``cam_<type>`` blocks over all slots; a BM2CP config's vehicle and
+    rsu cameras (``img_params``) and drone camera (its flat LSS conf), each
+    with the agent's LiDAR projected into them as ``depth_maps``;
   * for the seg task, the ego's dynamic and static BEV label maps.
-
-A BM2CP config raises: its lidar-depth projection is not ported (ROADMAP
-§1 item 5).
 """
 
 from __future__ import annotations
@@ -32,7 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from airv2x_tpu_torch.data.camera import (
-    load_agent_cam_inputs, load_seg_labels, stack_cam_slots)
+    load_agent_cam_inputs, load_agent_depth_maps, load_seg_labels,
+    stack_cam_slots)
 from airv2x_tpu_torch.data.pcd import load_pcd_into
 from airv2x_tpu_torch.models.base import AGENT_TYPES, SlotLayout
 from airv2x_tpu_torch.utils import transforms as tf
@@ -125,20 +125,30 @@ class AirV2XDataset:
         margs = hypes["model"]["args"]
         core = hypes["model"]["core_method"].lower()
         fusion = hypes.get("fusion", {})
-        if "bm2cp" in str(fusion.get("core_method", "")).lower() + core:
-            raise NotImplementedError(
-                "BM2CP samples: the lidar-depth projection into the cameras "
-                "is not ported (ROADMAP §1 item 5)")
+        # BM2CP samples: the veh / rsu camera confs sit under img_params, the
+        # drone's is the flat LSS conf, and each type with a grid_conf gets
+        # its LiDAR projected into its cameras (depth_maps)
+        self.bm2cp = "bm2cp" in str(fusion.get("core_method", "")).lower() + core
         # the types that consume images: their LSS augmentation confs and
         # whether their images carry the depth channel
-        self.cam_confs, self.cam_depth = {}, {}
+        self.cam_confs, self.cam_depth, self.cam_grid = {}, {}, {}
         for t in AGENT_TYPES:
             tcfg = margs.get(t)
-            if isinstance(tcfg, dict) and "cam" in tcfg.get("modalities", []):
+            if not isinstance(tcfg, dict):
+                continue
+            if "cam" in tcfg.get("modalities", []):
                 cam = tcfg["cam"]
-                self.cam_confs[t] = cam["data_aug_conf"]
-                self.cam_depth[t] = bool(cam.get("use_depth_gt")
-                                         or cam.get("depth_supervision"))
+            elif self.bm2cp and "img_params" in tcfg:
+                cam = tcfg["img_params"]
+            elif self.bm2cp and "grid_conf" in tcfg and "data_aug_conf" in tcfg:
+                cam = tcfg
+            else:
+                continue
+            self.cam_confs[t] = cam["data_aug_conf"]
+            self.cam_depth[t] = bool(cam.get("use_depth_gt")
+                                     or cam.get("depth_supervision"))
+            if "grid_conf" in cam:
+                self.cam_grid[t] = cam["grid_conf"]
         self.layout = SlotLayout.from_args(margs)
         self.lidar_range = hypes["preprocess"]["cav_lidar_range"]
         self.max_points = int(hypes["preprocess"].get("max_points", 60000))
@@ -276,7 +286,8 @@ class AirV2XDataset:
                 if self.wild.loc_error and aid != ego_id:
                     pose = tf.add_pose_noise(pose, rng, self.wild.xyz_std,
                                              self.wild.ryp_std)
-                t_cav_ego = tf.pose_a_to_b(pose, ego_pose).astype(np.float32)
+                t_cav_ego64 = tf.pose_a_to_b(pose, ego_pose)
+                t_cav_ego = t_cav_ego64.astype(np.float32)
                 pairwise[slot] = t_cav_ego
                 # prior_encoding = [velocity / 30, time delay, is RSU]
                 prior[slot, 0] = float(
@@ -285,6 +296,7 @@ class AirV2XDataset:
                 prior[slot, 2] = float(tname == "rsu")
                 if aid == ego_id:
                     ego_dir = a["path"]
+                cnt = 0
                 if a["lidar"] is not None:
                     cnt = load_pcd_into(
                         a["lidar"], points[slot],
@@ -300,6 +312,18 @@ class AirV2XDataset:
                     cam = load_agent_cam_inputs(
                         a["path"], a["meta"], tname, self.cam_confs[tname],
                         self.train, rng, with_depth=self.cam_depth[tname])
+                    if cam is not None and self.bm2cp and tname in self.cam_grid:
+                        # the LiDAR projected into the cameras; a drone has no
+                        # LiDAR: all -1, the predicted depth fills in
+                        dm = load_agent_depth_maps(
+                            a["path"], a["meta"], tname,
+                            points[slot, :cnt, :3] if cnt
+                            else np.zeros((0, 3), np.float32),
+                            self.cam_grid[tname],
+                            tuple(self.cam_confs[tname]["final_dim"]),
+                            cav_to_points=t_cav_ego64 if self.proj_first else None)
+                        if dm is not None:
+                            cam["depth_maps"] = dm
                     if cam is not None:
                         cam_slots[tname][slot] = cam
 

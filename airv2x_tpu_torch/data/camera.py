@@ -10,13 +10,17 @@
   * imagenet normalization;
   * ``load_agent_cam_inputs`` (one agent's cameras) and ``stack_cam_slots``
     (the fixed per-slot blocks of one agent type);
+  * BM2CP's LiDAR-depth projection: ``depth_discretization_np``,
+    ``project_lidar_depth_map`` (one camera) and ``load_agent_depth_maps``
+    (one agent's cameras), min depth-bin levels, -1 where no return lands;
+  * ``load_opv2v_cam_inputs``: an OPV2V vehicle's four cameras;
   * the 7 dynamic and 3 static BEV layer masks as class-id maps.
 
 Outputs are channel-last numpy arrays, the contract of
 ``data.synthetic.add_camera_inputs``: imgs (Ncam, H, W, 3[+1]) float32,
 intrinsics (Ncam, 3, 3), rots / trans of the cam -> lidar matrix in LSS
-axes, post_rots / post_trans (3 x 3 / 3). The BM2CP lidar-depth projection
-and the OPV2V camera loader are not ported (ROADMAP §1 items 4-5).
+axes, post_rots / post_trans (3 x 3 / 3), and for BM2CP depth_maps
+(Ncam, fH, fW).
 """
 
 from __future__ import annotations
@@ -242,17 +246,151 @@ def load_agent_cam_inputs(agent_dir: str, meta: dict, agent_type: str,
     }
 
 
+def depth_discretization_np(d_min, d_max, num_bins, mode) -> np.ndarray:
+    """camera_utils.depth_discretization in float64: the bin starts, uniform
+    (UD) or with linearly increasing widths (LID)."""
+    if mode == "UD":
+        return np.linspace(d_min, d_max, num_bins, dtype=np.float64)
+    idx = np.arange(num_bins, dtype=np.float64)
+    delta = 2 * (d_max - d_min) / (num_bins * (1 + num_bins))
+    return d_min + delta * idx * (idx + 1) / 2
+
+
+def project_lidar_depth_map(lidar_xyz: np.ndarray, intrinsic: np.ndarray,
+                            extrinsic_ue4: np.ndarray, img_hw: tuple,
+                            depth_discre: np.ndarray, final_hw: tuple) -> np.ndarray:
+    """A LiDAR cloud -> one camera's per-pixel minimum depth level
+    (the BM2CP dataset's generate_depth_map with
+    airv2x_utils.project_lidar_to_cam_single): the points into the camera
+    by the UE4 extrinsic (LiDAR -> camera), to the OpenCV axes ([y, -z,
+    x]), the pin-hole projection rounded half up to pixels, the least
+    discretized level per pixel, then min-pooled to ``final_hw``. Pixels
+    without a return are -1. float64 on the host, as the JAX package."""
+    img_h, img_w = img_hw
+    f_h, f_w = final_hw
+    dm_full = np.full((img_h, img_w), np.inf, np.float32)
+    if lidar_xyz.shape[0]:
+        lidar2cam = np.asarray(extrinsic_ue4, np.float64)
+        pts = lidar_xyz[:, :3].astype(np.float64) @ lidar2cam[:3, :3].T
+        pts = pts + lidar2cam[:3, 3]
+        cam_pts = np.stack([pts[:, 1], -pts[:, 2], pts[:, 0]], axis=1)
+        depth = cam_pts[:, 2]
+        uvw = cam_pts @ np.asarray(intrinsic, np.float64).T
+        with np.errstate(divide="ignore", invalid="ignore"):
+            uv = uvw[:, :2] / depth[:, None]
+        uv_int = np.floor(uv + 0.5).astype(np.int64)
+        col, row = uv_int[:, 0], uv_int[:, 1]
+        valid = ((depth >= depth_discre[0]) & (row >= 0) & (row < img_h)
+                 & (col >= 0) & (col < img_w))
+        lvl = np.searchsorted(depth_discre, depth[valid], side="left")
+        lvl = np.maximum(lvl, 1) - 1
+        np.minimum.at(dm_full, (row[valid], col[valid]), lvl.astype(np.float32))
+    sh, sw = img_h // f_h, img_w // f_w
+    if sh >= 1 and sw >= 1 and img_h % f_h == 0 and img_w % f_w == 0:
+        dm = dm_full.reshape(f_h, sh, f_w, sw).min(axis=(1, 3))
+    else:  # a non-integer scale: the nearest sample
+        ys = np.clip((np.arange(f_h) * img_h / f_h).astype(int), 0, img_h - 1)
+        xs = np.clip((np.arange(f_w) * img_w / f_w).astype(int), 0, img_w - 1)
+        dm = dm_full[np.ix_(ys, xs)]
+    dm[~np.isfinite(dm)] = -1.0
+    return dm.astype(np.float32)
+
+
+def load_agent_depth_maps(agent_dir: str, meta: dict, agent_type: str,
+                          lidar_xyz: np.ndarray, grid_conf: dict,
+                          final_hw: tuple,
+                          cav_to_points: np.ndarray | None = None):
+    """One agent's LiDAR projected into each of its cameras on disk (the
+    BM2CP sample assembly, intermediate_fusion_dataset_bm2cp.py:661-679):
+    (Ncam, fH, fW) minimum depth levels, -1 without a return, or None
+    without cameras. ``cav_to_points`` is the agent -> points-frame
+    transform where the cloud is not in the agent's frame (``proj_first``
+    puts it in the ego's), so the extrinsics follow the points."""
+    from PIL import Image
+
+    dd = depth_discretization_np(*grid_conf["ddiscr"], grid_conf["mode"])
+    maps = []
+    for key in CAM_KEYS[agent_type]:
+        cam_path = os.path.join(agent_dir, key + ".png")
+        if not os.path.isfile(cam_path):
+            continue
+        with Image.open(cam_path) as im:
+            img_w, img_h = im.size
+        extr = np.asarray(meta[key]["extrinsic"], np.float64).reshape(4, 4)
+        if cav_to_points is not None:
+            # lidar(points frame) -> cam = (lidar(cav) -> cam) @ inv(cav -> points)
+            extr = extr @ np.linalg.inv(np.asarray(cav_to_points, np.float64))
+        maps.append(project_lidar_depth_map(
+            lidar_xyz, np.asarray(meta[key]["intrinsic"], np.float64).reshape(3, 3),
+            extr, (img_h, img_w), dd, final_hw))
+    if not maps:
+        return None
+    return np.stack(maps)
+
+
+# OPV2V cameras: four per vehicle, files ``<timestamp>_camera{i}.png``, each
+# with its ``cords`` pose and ``intrinsic``; lidar -> cam = pose_a_to_b(lidar
+# pose, camera pose) @ the axis swap below, and cam (LSS) -> lidar its inverse
+_OPV2V_SWAP = np.array(
+    [[0, 0, 1, 0], [1, 0, 0, 0], [0, -1, 0, 0], [0, 0, 0, 1]], np.float64)
+
+
+def load_opv2v_cam_inputs(cav_dir: str, stamp: str, meta: dict,
+                          data_aug_conf: dict, train: bool, rng=None):
+    """Load and augment an OPV2V vehicle's four cameras into the LSS input
+    contract (imgs, intrinsics, rots, trans, post_rots, post_trans), or
+    None when no camera file exists; one augmentation per camera."""
+    from PIL import Image
+
+    from airv2x_tpu_torch.utils import transforms as tf
+
+    lidar_pose = meta["lidar_pose"]
+    imgs, intrins, rots, trans, post_rots, post_trans = [], [], [], [], [], []
+    for i in range(4):
+        path = os.path.join(cav_dir, f"{stamp}_camera{i}.png")
+        if f"camera{i}" not in meta or not os.path.isfile(path):
+            continue
+        entry = meta[f"camera{i}"]
+        intrin = np.asarray(entry["intrinsic"], np.float32).reshape(3, 3)
+        l2c = tf.pose_a_to_b(lidar_pose, entry["cords"]) @ _OPV2V_SWAP
+        cam_to_lidar = np.linalg.inv(l2c).astype(np.float32)
+        with Image.open(path) as img:
+            img.load()
+            pil = [img]
+        aug = sample_augmentation(data_aug_conf, train, rng)
+        pil, post_rot2, post_tran2 = img_transform(pil, *aug)
+        post_rot = np.eye(3, dtype=np.float32)
+        post_tran = np.zeros(3, np.float32)
+        post_rot[:2, :2] = post_rot2
+        post_tran[:2] = post_tran2
+        imgs.append(normalize_img(pil[0]))
+        intrins.append(intrin)
+        rots.append(cam_to_lidar[:3, :3])
+        trans.append(cam_to_lidar[:3, 3])
+        post_rots.append(post_rot)
+        post_trans.append(post_tran)
+    if not imgs:
+        return None
+    return {"imgs": np.stack(imgs).astype(np.float32),
+            "intrinsics": np.stack(intrins), "rots": np.stack(rots),
+            "trans": np.stack(trans), "post_rots": np.stack(post_rots),
+            "post_trans": np.stack(post_trans)}
+
+
 def stack_cam_slots(cam_slots: dict, num_slots: int) -> dict:
     """{slot: one agent's camera dict} -> fixed (num_slots, ...) arrays,
     zero outside the populated slots, the identity in ``post_rots``,
-    ``intrinsics`` and ``rots`` (which must stay invertible). Raises when
-    two agents carry different camera counts."""
+    ``intrinsics`` and ``rots`` (which must stay invertible), -1 in
+    ``depth_maps`` (no return, never level 0). Raises when two agents carry
+    different camera counts."""
     first = next(iter(cam_slots.values()))
     stacked = {}
     for key, arr in first.items():
         full = np.zeros((num_slots,) + arr.shape, arr.dtype)
         if key in ("post_rots", "intrinsics", "rots"):
             full[...] = np.eye(3, dtype=arr.dtype)
+        elif key == "depth_maps":
+            full[...] = -1.0
         for slot, cam in cam_slots.items():
             if cam[key].shape != arr.shape:
                 raise ValueError(

@@ -19,8 +19,11 @@ Wild settings add gaussian localization noise to the infrastructure pose,
 drawn from ``np.random.default_rng((seed, idx))``. ``__getitem__`` takes
 the sample index only, as the JAX package's does: ``RealDataLoader`` (which
 passes ``epoch``) cannot draw from it, and DAIR batches are collated from a
-list of samples (``RealDataLoader._collate``). A config with a camera block
-raises (ROADMAP §1 item 5).
+list of samples (``RealDataLoader._collate``). A config whose vehicle or
+rsu args hold a ``cam`` block gets one camera per slot from the raw calib
+chain (``cam_vehicle``); as in the JAX package, the ``dair_bm2cp`` YAML
+(``img_params`` at the top of the model args) loads none, and no sample
+carries ``depth_maps`` (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -147,10 +150,9 @@ class DAIRDataset:
     def __init__(self, hypes: dict, root_dir: str, train: bool = True,
                  wild: WildSettings | None = None, seed: int = 0):
         margs = (hypes.get("model") or {}).get("args") or {}
-        if any((margs.get(t) or {}).get("cam") for t in ("vehicle", "rsu")):
-            raise NotImplementedError(
-                "DAIR camera inputs (BM2CP's) are not ported (ROADMAP §1 "
-                "item 5)")
+        # the first vehicle / rsu ``cam`` block gives the camera inputs
+        self.cam_cfg = next((margs[t]["cam"] for t in ("vehicle", "rsu")
+                             if (margs.get(t) or {}).get("cam")), None)
         self.train = train
         self.root = root_dir
         self.wild = wild or WildSettings()
@@ -252,5 +254,51 @@ class DAIRDataset:
                  "pairwise_t_full": pairwise_full,
                  # the infrastructure flag on slot 1
                  "prior_encoding": np.array([[0, 0, 0], [0, 0, 1]], np.float32)}
+        cam = self._load_cameras(info)
+        if cam is not None:
+            batch["cam_vehicle"] = cam
         gt = {"boxes": boxes, "mask": mask, "classes": classes}
         return batch, gt
+
+    def _load_cameras(self, info):
+        """One camera per slot from the raw calib chain
+        (lidar_camera_intermediate_fusion_dataset.py:505-560): the image
+        resized to ``final_dim`` and imagenet-normalized, cam_K, the
+        camera -> lidar rotation and translation, identity post transforms
+        (the reference resizes without touching post_rots: kept). None
+        without a camera block or without any image on disk."""
+        if self.cam_cfg is None:
+            return None
+        from PIL import Image
+
+        from airv2x_tpu_torch.data.camera import normalize_img
+
+        h, w = self.cam_cfg["data_aug_conf"]["final_dim"]
+        L = 2
+        imgs = np.zeros((L, 1, h, w, 3), np.float32)
+        intr = np.broadcast_to(np.eye(3, dtype=np.float32), (L, 1, 3, 3)).copy()
+        rots = intr.copy()
+        trans = np.zeros((L, 1, 3), np.float32)
+        found = False
+        for slot, key in enumerate(("vehicle", "infrastructure")):
+            img_rel = info.get(f"{key}_image_path")
+            c2l = info.get(f"{key}_camera2lidar")
+            cam_k = info.get(f"{key}_cam_k")
+            if not img_rel or c2l is None or cam_k is None:
+                continue
+            path = os.path.join(self.root, img_rel)
+            if not os.path.isfile(path):
+                continue
+            with Image.open(path) as img:
+                imgs[slot, 0] = normalize_img(img.resize((w, h)))
+            intr[slot, 0] = cam_k
+            c2l = np.asarray(c2l, np.float32)
+            rots[slot, 0] = c2l[:3, :3]
+            trans[slot, 0] = c2l[:3, 3]
+            found = True
+        if not found:
+            return None
+        return {"imgs": imgs, "intrinsics": intr, "rots": rots, "trans": trans,
+                "post_rots": np.broadcast_to(np.eye(3, dtype=np.float32),
+                                             (L, 1, 3, 3)).copy(),
+                "post_trans": np.zeros((L, 1, 3), np.float32)}

@@ -21,8 +21,13 @@ airv2x_tpu/data/opv2v_dataset.py, the LiDAR branch).
     in the current ego frame, every other key (``pairwise_t_full``
     included) the current frame's, and the current frame's gt.
 
-The camera branch (BM2CP, ROADMAP §1 item 5), radar points and the MDD
-clean-point mask (V2X-R, item 7) raise.
+  * where the model's vehicle config gives the ``cam`` modality, each
+    chosen cav's four cameras (``data/camera.py:load_opv2v_cam_inputs``)
+    stacked into ``cam_vehicle``. As in the JAX package, the ``*_bm2cp``
+    YAMLs (``img_params`` at the top of the model args) load no camera,
+    and no OPV2V sample carries ``depth_maps`` (ROADMAP §3).
+
+Radar points and the MDD clean-point mask (V2X-R, ROADMAP §1 item 7) raise.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import yaml
 
 from airv2x_tpu_torch.data.airv2x_dataset import (
     _CORNER_SIGNS, WildSettings, corner_to_center_hwl)
+from airv2x_tpu_torch.data.camera import load_opv2v_cam_inputs, stack_cam_slots
 from airv2x_tpu_torch.data.pcd import load_pcd_into
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.utils import transforms as tf
@@ -121,10 +127,10 @@ class OPV2VDataset:
             hypes.get("fusion", {}).get("args", {}).get("proj_first", True))
         margs = hypes.get("model", {}).get("args", {})
         veh = margs.get("vehicle") if isinstance(margs.get("vehicle"), dict) else {}
-        if "cam" in veh.get("modalities", []):
-            raise NotImplementedError(
-                "the OPV2V camera branch (BM2CP's) is not ported (ROADMAP §1 "
-                "item 5)")
+        # the camera branch: the vehicles' four cameras where the model's
+        # vehicle config gives the cam modality
+        self.cam_conf = (veh.get("cam", {}).get("data_aug_conf")
+                         if "cam" in veh.get("modalities", []) else None)
         core = str(hypes.get("model", {}).get("core_method", "")).lower()
         if "mdd" in core and train:
             raise NotImplementedError(
@@ -212,6 +218,7 @@ class OPV2VDataset:
         pairwise_full = np.tile(np.eye(4, dtype=np.float32), (L, L, 1, 1))
         lidar_range = np.asarray(self.lidar_range, np.float32)
         t_cav_ego_all = []
+        cam_slots = {}
         for slot, (_, cav) in enumerate(chosen):
             agent_mask[slot] = True
             t_cav_ego = tf.pose_a_to_b(metas[cav]["lidar_pose"], ego_pose)
@@ -227,6 +234,12 @@ class OPV2VDataset:
                                else None),
                     lidar_range=lidar_range, ego_mask=EGO_MASK)
                 points_mask[slot, :cnt] = True
+            if self.cam_conf is not None:
+                cam = load_opv2v_cam_inputs(os.path.join(spath, cav), stamp,
+                                            metas[cav], self.cam_conf,
+                                            self.train, rng)
+                if cam is not None:
+                    cam_slots[slot] = cam
         if not self.proj_first:
             for i, t_i in enumerate(t_cav_ego_all):
                 for j, t_j in enumerate(t_cav_ego_all):
@@ -251,5 +264,7 @@ class OPV2VDataset:
         batch = {"points": points, "points_mask": points_mask,
                  "agent_mask": agent_mask, "pairwise_t": pairwise,
                  "pairwise_t_full": pairwise_full, "prior_encoding": prior}
+        if cam_slots:
+            batch["cam_vehicle"] = stack_cam_slots(cam_slots, L)
         gt = {"boxes": boxes, "mask": mask, "classes": classes}
         return batch, gt, ego_pose

@@ -1,6 +1,7 @@
 """Synthetic multi-agent LiDAR scenes, their camera inputs and labelled
 training batches (copy of airv2x_tpu/data/synthetic.py ``make_scene``,
-``add_camera_inputs``, ``rasterize_seg_labels`` and ``make_batch``).
+``add_camera_inputs``, ``rasterize_seg_labels``, ``make_batch`` and
+``bm2cp_airv2x_batch``).
 
 numpy, seeded by the caller's ``np.random.Generator``: the same seed gives
 bit-identical scene arrays to the JAX package's generator, so both packages
@@ -297,6 +298,66 @@ def make_batch(
 PERTURB_MAX_DEG = 5.0
 PERTURB_MAX_SHIFT = 3.0
 PERTURB_MAX_DELAY = 3
+
+
+def bm2cp_airv2x_batch(hypes: dict, rng: np.random.Generator,
+                       batch_size: int = 1) -> dict:
+    """A synthetic batch of the AirV2X BM2CP contract: per-slot points and,
+    for each present type, one camera per slot; vehicle and rsu cameras
+    carry ``depth_maps`` in bin units (-1 = unobserved, every third row),
+    the drone is camera-only (with the metric depth as a 4th image channel
+    under ``use_depth_gt``). The JAX package's draws, in its order."""
+    args = hypes["model"]["args"]
+    layout = SlotLayout.from_args(args)
+    L, B, n_pts = layout.total, batch_size, 256
+    lr = hypes["preprocess"]["cav_lidar_range"]
+    pts = np.zeros((B, L, n_pts, 4), np.float32)
+    pts[..., 0] = rng.uniform(lr[0], lr[3], (B, L, n_pts))
+    pts[..., 1] = rng.uniform(lr[1], lr[4], (B, L, n_pts))
+    pts[..., 2] = rng.uniform(max(lr[2], -2.5), min(lr[5], 0.5), (B, L, n_pts))
+    pts[..., 3] = rng.uniform(0, 1, (B, L, n_pts))
+    batch = {
+        "points": pts,
+        "points_mask": np.ones((B, L, n_pts), bool),
+        "agent_mask": np.ones((B, L), bool),
+        "pairwise_t_full": np.broadcast_to(
+            np.eye(4, dtype=np.float32), (B, L, L, 4, 4)).copy(),
+    }
+    ncam = 1
+    for t in AGENT_TYPES:
+        if not layout.counts[AGENT_TYPES.index(t)]:
+            continue
+        cfg = args[t] if t == "drone" else args[t]["img_params"]
+        h, w = cfg["data_aug_conf"]["final_dim"]
+        nbins = int(cfg["grid_conf"]["ddiscr"][2])
+        c = 4 if t == "drone" and cfg.get("use_depth_gt") else 3
+        imgs = rng.uniform(0, 1, (B, L, ncam, h, w, c)).astype(np.float32)
+        if c == 4:
+            d_min, d_max = cfg["grid_conf"]["ddiscr"][:2]
+            imgs[..., 3] = rng.uniform(d_min, d_max, (B, L, ncam, h, w))
+        intr = np.zeros((B, L, ncam, 3, 3), np.float32)
+        intr[..., 0, 0] = intr[..., 1, 1] = w * 0.8
+        intr[..., 0, 2], intr[..., 1, 2] = w / 2, h / 2
+        intr[..., 2, 2] = 1.0
+        rots = np.zeros((B, L, ncam, 3, 3), np.float32)
+        rots[..., 0, 2] = 1.0
+        rots[..., 1, 0] = -1.0
+        rots[..., 2, 1] = -1.0
+        cam = {
+            "imgs": imgs,
+            "intrinsics": intr,
+            "rots": rots,
+            "trans": rng.uniform(-0.5, 0.5, (B, L, ncam, 3)).astype(np.float32),
+            "post_rots": np.broadcast_to(
+                np.eye(3, dtype=np.float32), (B, L, ncam, 3, 3)).copy(),
+            "post_trans": np.zeros((B, L, ncam, 3), np.float32),
+        }
+        if t != "drone":
+            dm = rng.integers(0, nbins, (B, L, ncam, h, w)).astype(np.float32)
+            dm[:, :, :, ::3] = -1.0
+            cam["depth_maps"] = dm
+        batch[f"cam_{t}"] = cam
+    return batch
 
 
 def perturb_poses(batch: dict, rng: np.random.Generator) -> dict:

@@ -1,6 +1,6 @@
 """Heterogeneous multi-agent base: slot layout + per-type LiDAR and camera
-encoders (counterpart of airv2x_tpu/models/base.py: the fast pillar branch
-and the LSS camera branch).
+encoders (counterpart of airv2x_tpu/models/base.py: the fast and the
+classic pillar branches and the LSS camera branch).
 
 Every sample carries a statically laid-out agent axis:
 
@@ -26,7 +26,9 @@ import torch
 from torch import nn
 
 from airv2x_tpu_torch.models.camera.lss import LSSCameraEncoder
+from airv2x_tpu_torch.models.pillar_vfe import PillarVFE, pillar_bev
 from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
+from airv2x_tpu_torch.ops.voxelize import Pillars, pillar_kwargs, pillarize_batch
 
 AGENT_TYPES = ("vehicle", "rsu", "drone")
 
@@ -63,7 +65,10 @@ class HeteroLidarEncoder(nn.Module):
     (B, L, ny, nx, C).
 
     A type with the ``lidar`` modality gets a FastPillarBEV (one K1 launch
-    per call), one with ``cam`` an LSSCameraEncoder; a type with both takes
+    per call) or, where a type has more than one PFN layer or the config
+    sets ``fast_pillars: false``, the classic path (one pillarization of
+    every cloud, the type's PillarVFE, the scatter); one with ``cam`` an
+    LSSCameraEncoder; a type with both takes
     the mean of the two BEV maps, and no pillar module is built for a type
     without LiDAR. The submodules are named ``<type>_pillar_vfe`` and
     ``<type>_lss`` as the flax scopes are.
@@ -74,6 +79,16 @@ class HeteroLidarEncoder(nn.Module):
         self.layout = layout
         lidar_range = preprocess["cav_lidar_range"]
         voxel_size = preprocess["args"]["voxel_size"]
+        self.pillar_kw = pillar_kwargs(preprocess)
+        self.grid = self.pillar_kw["grid_size"]
+        lidar_types = [t for t in AGENT_TYPES
+                       if layout.counts[AGENT_TYPES.index(t)]
+                       and "lidar" in args[t].get("modalities", ["lidar"])]
+        # the sort-free encoder when every LiDAR type has one PFN layer, as
+        # in the JAX package; else the classic voxel path for all of them
+        self.fast = bool(preprocess["args"].get("fast_pillars", True)) and all(
+            len(args[t]["lidar"]["pillar_vfe"]["num_filters"]) == 1
+            for t in lidar_types)
         self.types = []
         widths = set()
         for t in AGENT_TYPES:
@@ -84,21 +99,30 @@ class HeteroLidarEncoder(nn.Module):
                 raise NotImplementedError(
                     f"{t}: only the LiDAR and camera modalities are ported")
             if "lidar" in modalities:
-                if not preprocess["args"].get("fast_pillars", True):
-                    raise NotImplementedError("the classic voxel path is not ported")
                 cfg = args[t]["lidar"]
                 vfe = cfg["pillar_vfe"]
-                self.add_module(f"{t}_pillar_vfe", FastPillarBEV(
-                    num_filters=vfe["num_filters"],
-                    voxel_size=voxel_size,
-                    lidar_range=lidar_range,
-                    use_norm=vfe["use_norm"],
-                    with_distance=vfe["with_distance"],
-                    use_absolute_xyz=vfe["use_absolute_xyz"],
-                    offset_voxel_size=cfg["voxel_size"],
-                    offset_lidar_range=cfg["lidar_range"],
-                ))
-                widths.add(self.get_submodule(f"{t}_pillar_vfe").out_c)
+                if self.fast:
+                    module = FastPillarBEV(
+                        num_filters=vfe["num_filters"],
+                        voxel_size=voxel_size,
+                        lidar_range=lidar_range,
+                        use_norm=vfe["use_norm"],
+                        with_distance=vfe["with_distance"],
+                        use_absolute_xyz=vfe["use_absolute_xyz"],
+                        offset_voxel_size=cfg["voxel_size"],
+                        offset_lidar_range=cfg["lidar_range"],
+                    )
+                else:  # the type's own constants for the cell-centre offsets
+                    module = PillarVFE(
+                        num_filters=vfe["num_filters"],
+                        voxel_size=cfg["voxel_size"],
+                        lidar_range=cfg["lidar_range"],
+                        use_norm=vfe["use_norm"],
+                        with_distance=vfe["with_distance"],
+                        use_absolute_xyz=vfe["use_absolute_xyz"],
+                    )
+                self.add_module(f"{t}_pillar_vfe", module)
+                widths.add(module.out_c)
             if "cam" in modalities:
                 self.add_module(f"{t}_lss", LSSCameraEncoder(args[t]["cam"]))
                 widths.add(self.get_submodule(f"{t}_lss").out_channels)
@@ -109,13 +133,25 @@ class HeteroLidarEncoder(nn.Module):
 
     def forward(self, batch, mark=None):
         """``mark`` goes to the camera encoders (their stage boundaries)."""
+        pil = None
+        if not self.fast and any("lidar" in m for _, m in self.types):
+            # one pillarization of every cloud on the shared ego grid
+            pts = batch["points"]
+            pil = pillarize_batch(pts.flatten(0, 1),
+                                  batch["points_mask"].flatten(0, 1),
+                                  **self.pillar_kw)
+            pil = Pillars(*(v.unflatten(0, pts.shape[:2]) for v in pil))
         feats = []
         for t, modalities in self.types:
             sl = self.layout.slots(t)
             bevs = []
-            if "lidar" in modalities:
-                bevs.append(self.get_submodule(f"{t}_pillar_vfe")(
-                    batch["points"][:, sl], batch["points_mask"][:, sl]))
+            vfe = self.get_submodule(f"{t}_pillar_vfe") if "lidar" in modalities else None
+            if vfe is not None and pil is None:
+                bevs.append(vfe(batch["points"][:, sl], batch["points_mask"][:, sl]))
+            elif vfe is not None:
+                bev = pillar_bev(vfe, Pillars(*(v[:, sl].flatten(0, 1) for v in pil)),
+                                 self.grid)
+                bevs.append(bev.unflatten(0, (-1, sl.stop - sl.start)))
             if "cam" in modalities:
                 if f"cam_{t}" not in batch:
                     raise KeyError(f"the config gives {t} the cam modality but "

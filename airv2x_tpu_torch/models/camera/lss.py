@@ -122,14 +122,13 @@ def get_geometry(frustum, rots, trans, intrins, post_rots, post_trans):
     return _apply(combine, pts) + trans[:, :, None, None, None, :]
 
 
-def voxel_pooling(geom, feats, dx, lo, nx):
-    """Sum lifted features per BEV cell.
+def voxel_pooling_3d(geom, feats, dx, lo, nx):
+    """Sum lifted features per grid cell, Z kept.
 
     geom (B, ..., 3) agent-frame points and feats (B, ..., C) in the same
     point order; ``dx`` (3,) the cell size and ``lo`` (3,) the grid's low
     corner, f32 tensors on the points' device; ``nx`` the cell counts.
-    Returns (B, ny, nx, C * nz) channel-last BEV, z slices concatenated on
-    the channel axis. The cell index truncates toward zero, as the
+    Returns (B, nz, ny, nx, C). The cell index truncates toward zero, as the
     reference's ``.long()``, so points within one cell below the low corner
     land in cell 0; points outside the grid are dropped.
     """
@@ -148,8 +147,15 @@ def voxel_pooling(geom, feats, dx, lo, nx):
     canvas = torch.zeros((b * cells + 1, c), dtype=feats.dtype,
                          device=feats.device)
     canvas.index_add_(0, flat.reshape(-1), feats.reshape(-1, c))
-    out = canvas[:-1].reshape(b, nx_z, nx_y, nx_x, c)
-    return out.permute(0, 2, 3, 4, 1).reshape(b, nx_y, nx_x, c * nx_z)
+    return canvas[:-1].reshape(b, nx_z, nx_y, nx_x, c)
+
+
+def voxel_pooling(geom, feats, dx, lo, nx):
+    """``voxel_pooling_3d`` with the z slices concatenated on the channel
+    axis: (B, ny, nx, C * nz) channel-last BEV."""
+    out = voxel_pooling_3d(geom, feats, dx, lo, nx)
+    b, nz, ny, nxx, c = out.shape
+    return out.permute(0, 2, 3, 4, 1).reshape(b, ny, nxx, c * nz)
 
 
 class CamEncoder(nn.Module):

@@ -36,6 +36,9 @@ def _ema_(running: torch.Tensor, batch: torch.Tensor,
     running.copy_(momentum * running + (1 - momentum) * batch)
 
 
+CONV_KERNEL_MODES = ("auto", "xla", "pallas", "im2col")
+
+
 def _conv3x3_mode(shape, dtype, features: int) -> str:
     """Eval backend of a 3x3 stride-1 ``ConvBNReLU`` on NHWC ``shape``.
 
@@ -44,9 +47,13 @@ def _conv3x3_mode(shape, dtype, features: int) -> str:
     (Conv2d -> BatchNorm2d -> ReLU, as ``auto`` means XLA there);
     ``pallas`` gives ``"kernel"``, K4 with the BN folded in, and raises
     where the support gate refuses the shape; ``im2col`` the unfold +
-    matmul form.
+    matmul form. Any other value raises (the JAX package reads it as
+    ``auto``), so a mistyped mode cannot time cuDNN unnoticed.
     """
     mode = os.environ.get("AIRV2X_CONV_KERNEL", "auto")
+    if mode not in CONV_KERNEL_MODES:
+        raise ValueError(f"AIRV2X_CONV_KERNEL={mode!r}: expected one of "
+                         f"{', '.join(CONV_KERNEL_MODES)}")
     if mode == "im2col":
         return "im2col"
     if mode == "pallas":

@@ -26,8 +26,10 @@ The registered models and their fusion:
   * point_pillar_v2xvit / _cobevt / _v2vnet / _when2com: the ported fusion
     modules (comm_rate 1).
 
-Public outputs keep the JAX package's NHWC layout. The classic voxel
-encoder, the ``NaiveCompressor`` (``compression > 0``, and the per-stage
+Public outputs keep the JAX package's NHWC layout. A config with
+``fast_pillars: false`` or more than one PFN layer takes the classic voxel
+path (``ops/voxelize.py`` -> ``models/pillar_vfe.py`` -> ``ops/scatter.py``).
+The ``NaiveCompressor`` (``compression > 0``, and the per-stage
 ``base_bev_backbone.compression``) and radar points are not ported and
 raise.
 """
@@ -46,8 +48,10 @@ from airv2x_tpu_torch.models.fusion.v2xvit import V2XTransformer
 from airv2x_tpu_torch.models.fusion.when2com import When2comFusion
 from airv2x_tpu_torch.models.fusion.where2comm import Where2commFusion
 from airv2x_tpu_torch.models.nn import DownsampleConv
+from airv2x_tpu_torch.models.pillar_vfe import PillarVFE, pillar_bev
 from airv2x_tpu_torch.models.resnet_bev import ResNetBEVBackbone
 from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
+from airv2x_tpu_torch.ops.voxelize import pillar_kwargs, pillarize_batch
 from airv2x_tpu_torch.ops.warp import (
     normalized_pairwise_affine, warp_affine_normalized)
 
@@ -67,18 +71,28 @@ class PointPillarBase(nn.Module):
             max_cav = sum(max_cav.values())
         self.layout = SlotLayout(counts=(int(max_cav), 0, 0))
         pre = args["preprocess"]
-        pv = args["pillar_vfe"]
-        if not pre["args"].get("fast_pillars", True) or len(pv["num_filters"]) != 1:
-            raise NotImplementedError("the classic voxel path is not ported")
-        self.vfe = FastPillarBEV(
+        # BM2CP nests the trunk config (pc_params) and names its backbone and
+        # shrink under modality_fusion, its backbone always the ResNet one
+        pv = args.get("pillar_vfe") or args["pc_params"]["pillar_vfe"]
+        lidar_range, voxel_size = pre["cav_lidar_range"], pre["args"]["voxel_size"]
+        self.pillar_kw = pillar_kwargs(pre)
+        self.grid = self.pillar_kw["grid_size"]
+        # the sort-free encoder serves single-PFN-layer configs; the classic
+        # voxel path (pillarize -> PillarVFE -> scatter) the others
+        self.fast_pillars = (bool(pre["args"].get("fast_pillars", True))
+                             and len(pv["num_filters"]) == 1)
+        vfe_cls = FastPillarBEV if self.fast_pillars else PillarVFE
+        self.vfe = vfe_cls(
             num_filters=pv["num_filters"],
-            voxel_size=pre["args"]["voxel_size"],
-            lidar_range=pre["cav_lidar_range"],
+            voxel_size=voxel_size,
+            lidar_range=lidar_range,
             use_norm=pv["use_norm"],
             with_distance=pv["with_distance"],
             use_absolute_xyz=pv["use_absolute_xyz"],
         )
-        bb = args["base_bev_backbone"]
+        bb = args.get("base_bev_backbone")
+        if bb is None:
+            bb = dict(args["modality_fusion"]["bev_backbone"], resnet=True)
         kw = dict(layer_nums=bb["layer_nums"], layer_strides=bb["layer_strides"],
                   num_filters=bb["num_filters"],
                   upsample_strides=bb["upsample_strides"],
@@ -93,9 +107,12 @@ class PointPillarBase(nn.Module):
         # stage's output upsampled by its own stride
         self.feature_hw = tuple(
             g * int(bb["upsample_strides"][0]) // int(bb["layer_strides"][0])
-            for g in (self.vfe.ny, self.vfe.nx))
+            for g in (self.grid[1], self.grid[0]))
         # a shrink_header block without a 'use' key is on when it has dims
-        shrink = args.get("shrink_header") or {}
+        shrink = args.get("shrink_header")
+        if shrink is None and "modality_fusion" in args:
+            shrink = args["modality_fusion"].get("shrink_header")
+        shrink = shrink or {}
         self.shrink_conv = None
         if shrink.get("use", bool(shrink.get("dim"))):
             self.shrink_conv = DownsampleConv(
@@ -125,10 +142,17 @@ class PointPillarBase(nn.Module):
     def encode(self, batch):
         """points (B, L, N, 4), points_mask (B, L, N), agent_mask (B, L) ->
         (B, L, ny, nx, C) BEV features, zero for absent agents: one K1
-        launch over the B * L clouds in eval mode."""
+        launch over the B * L clouds in eval mode (the classic path: the
+        pillarization, the PFN layers and the scatter in PyTorch)."""
         if "radar_points" in batch:
             raise NotImplementedError("radar points are not ported")
-        bev = self.vfe(batch["points"], batch["points_mask"])
+        pts, mask = batch["points"], batch["points_mask"]
+        if self.fast_pillars:
+            bev = self.vfe(pts, mask)
+        else:
+            pil = pillarize_batch(pts.flatten(0, 1), mask.flatten(0, 1),
+                                  **self.pillar_kw)
+            bev = pillar_bev(self.vfe, pil, self.grid).unflatten(0, pts.shape[:2])
         return bev * batch["agent_mask"][:, :, None, None, None].to(bev.dtype)
 
     def backbone_2d(self, x):

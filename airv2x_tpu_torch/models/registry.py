@@ -9,13 +9,19 @@ family: ``point_pillar``, ``point_pillar_intermediate`` /
 ``point_pillar_where2comm``, ``point_pillar_v2xvit``,
 ``point_pillar_cobevt``, ``point_pillar_v2vnet``, ``point_pillar_when2com``,
 ``point_pillar_baseline_multiscale`` and ``point_pillar_scope`` (SCOPE
-temporal detection); and the heterogeneous-collaboration models
-``airv2x_heal``, ``airv2x_stamp`` and ``airv2x_sicp``."""
+temporal detection); the heterogeneous-collaboration models
+``airv2x_heal``, ``airv2x_stamp`` and ``airv2x_sicp``; early fusion
+(``point_pillar_early`` / ``airv2x_early`` and the DiscoNet teacher
+``point_pillar_disconet_teacher``); and BM2CP (``airv2x_bm2cp``, det or seg,
+and the flat ``point_pillar_bm2cp``)."""
 
 from __future__ import annotations
 
 import torch
 
+from airv2x_tpu_torch.models.bm2cp_model import Airv2xBM2CP
+from airv2x_tpu_torch.models.early_fusion_model import (
+    PointPillarDiscoNetTeacher, PointPillarEarly)
 from airv2x_tpu_torch.models.heal_model import Airv2xHEAL
 from airv2x_tpu_torch.models.intermediate_models import (
     Airv2xAttFusion, Airv2xCoBEVT, Airv2xMaxFusion, Airv2xV2VNet,
@@ -25,6 +31,7 @@ from airv2x_tpu_torch.models.point_pillar_models import (
     PointPillar, PointPillarBaselineMultiscale, PointPillarCoBEVT,
     PointPillarIntermediate, PointPillarMax, PointPillarV2VNet,
     PointPillarV2XViT, PointPillarWhen2com, PointPillarWhere2comm)
+from airv2x_tpu_torch.models.point_pillar_bm2cp_model import PointPillarBM2CP
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
 from airv2x_tpu_torch.models.stamp_model import Airv2xSiCP, Airv2xSTAMP
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
@@ -56,7 +63,12 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "point_pillar_scope": PointPillarScope,
                   "airv2x_heal": Airv2xHEAL,
                   "airv2x_stamp": Airv2xSTAMP,
-                  "airv2x_sicp": Airv2xSiCP}
+                  "airv2x_sicp": Airv2xSiCP,
+                  "point_pillar_early": PointPillarEarly,
+                  "airv2x_early": PointPillarEarly,
+                  "point_pillar_disconet_teacher": PointPillarDiscoNetTeacher,
+                  "airv2x_bm2cp": Airv2xBM2CP,
+                  "point_pillar_bm2cp": PointPillarBM2CP}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 

@@ -194,6 +194,13 @@ def make_train_step(loss_fn: Callable, sched: Callable[[int], float], *,
             (total / accum_steps).backward()
             for k, v in parts.items():
                 totals[k] = totals.get(k, 0.0) + v.detach().float()
+        # a parameter the loss does not reach (BM2CP's img_proj, behind a
+        # threshold) gets a zero gradient, as in JAX: AdamW then still
+        # decays it, where PyTorch would skip a parameter without one
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         opt.step()
         state.step += 1
         return {k: v / accum_steps for k, v in totals.items()}

@@ -3,7 +3,7 @@
     python -m airv2x_tpu_torch.tools.train --hypes_yaml <cfg>
         [--model_dir <run dir to resume>] [--epochs N] [--steps_per_epoch N]
         [--batch_size N] [--grad_accum N] [--seed N] [--num_workers N]
-        [--synthetic] [--device cuda|cpu]
+        [--synthetic] [--half] [--device cuda|cpu]
 
 When the config's ``root_dir`` exists on disk it trains on that AirV2X
 split (``data/airv2x_dataset.py`` through ``data/loader.py``: prefetch
@@ -19,7 +19,10 @@ lack). One optimizer update per batch, with the reference's run-dir layout:
 ``<log_dir>/<name>__<stamp>/config.yaml``, a checkpoint ``net_epoch{N}``
 per saved epoch, ``train_loss.txt`` and ``validation_loss.txt``.
 ``--model_dir`` resumes from the last checkpoint of that run dir, with its
-``config.yaml``. Radar and BM2CP configs raise before anything is built.
+``config.yaml``. ``--half`` is accepted and read nowhere, as in the JAX
+CLI. Radar configs raise before anything is built, and so does a BM2CP
+config without a dataset (the JAX CLI cannot train it on synthetic scenes
+either).
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ def parse_args(argv=None):
     p.add_argument("--steps_per_epoch", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--half", action="store_true",
+                   help="accepted for the JAX CLI's command lines and, as "
+                   "there, read nowhere: compute follows the config's dtype")
     p.add_argument(
         "--grad_accum", type=int, default=0,
         help="microbatches per optimizer step; 0 = auto: microbatches of 2 "
@@ -109,14 +115,20 @@ def build_real_loaders(hypes, opt, batch_size, device):
     return train_loader, val_loader
 
 
-def refuse_unported(hypes) -> None:
+def refuse_unported(hypes, synthetic: bool = False) -> None:
     """Raise NotImplementedError for a config the port cannot train: the
-    V2X-R radar families and BM2CP."""
+    V2X-R radar families; and, on synthetic scenes, BM2CP, which cannot
+    train there in the JAX CLI either (ROADMAP §3)."""
     core = hypes["model"]["core_method"].lower()
     if any(k in core for k in ("l4dr", "lrf", "interf", "mdd")):
         raise NotImplementedError("radar configs are not ported")
-    if "bm2cp" in core:
-        raise NotImplementedError("BM2CP is not ported (ROADMAP §1)")
+    if synthetic and "bm2cp" in core:
+        raise NotImplementedError(
+            "BM2CP trains on a dataset only: the synthetic batches carry no "
+            "camera blocks for it (its config gives no agent type the cam "
+            "modality) and no depth_maps, which BM2CP reads; the JAX CLI's "
+            "synthetic_batches builds the same batches, and its first step "
+            "fails on the missing cam_<type> inputs (ROADMAP §3)")
 
 
 def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
@@ -124,7 +136,7 @@ def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
     on ``device``; seg configs get rasterized seg labels, camera configs the
     per-type camera stacks at the first camera type's ``final_dim``, drawn
     per sample after its scene (the JAX CLI's order)."""
-    refuse_unported(hypes)
+    refuse_unported(hypes, synthetic=True)
     anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
     standup = anchor_standup_boxes(anchors)
     rng = np.random.default_rng(seed)
@@ -165,6 +177,7 @@ def main(argv=None) -> str:
               + (f"{len(val_loader.dataset)} val samples" if val_loader
                  else "no validate_dir") + f"; grad_accum {accum}")
     else:
+        refuse_unported(hypes, synthetic=True)
         train_loader = val_loader = None
         steps_per_epoch = opt.steps_per_epoch or int(tp.get("steps_per_epoch", 50))
         print(f"training on synthetic scenes on {dev}; grad_accum {accum}")

@@ -6,6 +6,7 @@ airv2x_tpu/utils/torch_convert.py (torch -> flax):
 
   * Dense kernel (in, out)                  -> Linear weight (out, in)
   * Conv kernel HWIO                        -> Conv2d weight OIHW
+  * 3D Conv kernel DHWIO                    -> Conv3d weight OIDHW
   * ConvTranspose kernel (kh, kw, in, out)  -> ConvTranspose2d weight
     (in, out, kh, kw) with the spatial taps flipped (torch scatters the
     kernel as is, ``lax.conv_transpose`` correlates)
@@ -93,6 +94,8 @@ def _leaf(module, scope, v: _Variables):
     kernel = None
     if isinstance(module, nn.Linear):
         kernel = v.take("params", scope, "kernel").T
+    elif isinstance(module, nn.Conv3d):
+        kernel = v.take("params", scope, "kernel").transpose(4, 3, 0, 1, 2)
     elif isinstance(module, nn.ConvTranspose2d):
         kernel = v.take("params", scope, "kernel")[::-1, ::-1].transpose(2, 3, 0, 1)
     elif isinstance(module, nn.Conv2d):
@@ -236,7 +239,8 @@ def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d,
+                                nn.ConvTranspose2d)):
                 w = mod.weight
                 fan_in = (w.shape[0] * w[0, 0].numel()
                           if isinstance(mod, nn.ConvTranspose2d) else w[0].numel())
@@ -288,7 +292,8 @@ def init_random_(model: nn.Module, seed: int, device="cpu") -> nn.Module:
             t.copy_(fn(torch.empty(t.shape, dtype=torch.float32, device=device)))
 
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d,
+                                nn.ConvTranspose2d)):
             w = mod.weight
             # a kernel == stride transposed conv gives each output one tap
             fan_in = w.shape[0] if isinstance(mod, nn.ConvTranspose2d) else w[0].numel()

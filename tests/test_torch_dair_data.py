@@ -244,10 +244,15 @@ def test_loaders_cannot_draw_dair_and_collate_matches_jax(roots):
 
 
 def test_camera_config_refused(roots):
-    """A config with a camera block raises and names its ROADMAP item;
-    JAX's dataset builds it."""
+    """A config whose vehicle args hold a ``cam`` block is no longer
+    refused: both packages give each slot's camera from the raw calib
+    chain (the image resized to ``final_dim``, cam_K, camera -> lidar,
+    identity post transforms), the same arrays."""
     h = hypes()
     h["model"]["args"]["vehicle"] = {"cam": {"data_aug_conf": {"final_dim": [64, 96]}}}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_dair.DAIRDataset(h, roots["raw-camera-calib"])
-    assert len(jax_dair.DAIRDataset(h, roots["raw-camera-calib"])) == 1
+    got = port_dair.DAIRDataset(h, roots["raw-camera-calib"])[0][0]["cam_vehicle"]
+    want = jax_dair.DAIRDataset(h, roots["raw-camera-calib"])[0][0]["cam_vehicle"]
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["imgs"].shape == (2, 1, 64, 96, 3) and got["imgs"][0].any()

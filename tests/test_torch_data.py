@@ -238,8 +238,9 @@ def test_dataset_temporal_frames_match_jax(fixture_root, crop_margins):
 
 
 def test_dataset_refuses_camera_configs(tmp_path):
-    """A BM2CP config is refused (its lidar-depth projection into the
-    cameras is not ported). A shipped camera YAML, whose ``data_aug_conf``
+    """A BM2CP config builds in both packages, its BM2CP branch on
+    (tests/test_torch_bm2cp_data.py holds its samples). A shipped camera
+    YAML, whose ``data_aug_conf``
     gives only ``final_dim``, is refused by both packages at the first
     camera read (KeyError on ``H``), the port naming every missing key;
     with the keys supplied (``cam_hypes``) both read the same sample
@@ -247,8 +248,7 @@ def test_dataset_refuses_camera_configs(tmp_path):
     root = make_fixture(str(tmp_path / "cam"), n_timestamps=1, with_camera=True)
     bm2cp = _tiny()
     bm2cp["model"]["core_method"] = "airv2x_bm2cp"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AirV2XDataset(bm2cp, root)
+    assert AirV2XDataset(bm2cp, root).bm2cp and JaxDataset(bm2cp, root).bm2cp
     shipped = os.path.join(os.path.dirname(TINY), "..", "airv2x", "camera",
                            "det", "where2comm.yaml")
     for load, dataset in ((jax_load_yaml, JaxDataset), (load_yaml, AirV2XDataset)):

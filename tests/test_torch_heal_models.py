@@ -113,7 +113,7 @@ def _port(name, var, task="det"):
 
 def test_registry_has_the_three_names():
     assert set(NAMES) <= set(MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 25
+    assert len(MODEL_REGISTRY) == 30  # with the five early / BM2CP names
 
 
 def test_tiny_scenes_exercise_the_warps(hetero_run):

@@ -617,7 +617,11 @@ def test_registry_has_the_family():
         "point_pillar_v2xvit", "point_pillar_cobevt", "point_pillar_v2vnet",
         "point_pillar_when2com", "point_pillar_baseline_multiscale",
         # HEAL, STAMP and SiCP (tests/test_torch_heal_models.py)
-        "airv2x_heal", "airv2x_stamp", "airv2x_sicp"}
+        "airv2x_heal", "airv2x_stamp", "airv2x_sicp",
+        # early fusion and BM2CP (tests/test_torch_early.py,
+        # tests/test_torch_bm2cp.py)
+        "point_pillar_early", "airv2x_early", "point_pillar_disconet_teacher",
+        "airv2x_bm2cp", "point_pillar_bm2cp"}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

@@ -1121,3 +1121,77 @@ def test_normalized_warp_on_card_matches_cpu(cuda, align_corners):
     assert torch.equal(outs["cuda"][0].cpu(), outs["cpu"][0])
     err = float((outs["cuda"][1].cpu() - outs["cpu"][1]).abs().max())
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_pillar_encode_kernel_on_a_merged_early_cloud(cuda, out_dtype):
+    """Early fusion's K1 input: six agents' clouds of 20,000 points each
+    merged into one cloud of 120,000 on the 704 x 200 grid (one map), the
+    agents overlapping so that hot cells gather points of several agents
+    (a cell of 600), against the plain version."""
+    from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
+
+    rng = np.random.default_rng(20)
+    lr = [-140.8, -40.0, -3.0, 140.8, 40.0, 1.0]
+    vfe = FastPillarBEV(num_filters=[64], voxel_size=[0.4, 0.4, 4],
+                        lidar_range=lr).to(cuda)
+    with torch.no_grad():
+        for p in vfe.parameters():
+            p.copy_(torch.from_numpy(rng.normal(0, 0.5, p.shape).astype(np.float32)))
+        vfe.bn.running_var.uniform_(0.5, 2.0)
+    vfe = vfe.to(out_dtype).eval()
+    vfe.bn.float()
+    pts = np.zeros((6, 20000, 4), np.float32)
+    for a in range(6):  # each agent's cloud around its own position
+        centre = rng.uniform([-60, -20], [60, 20])
+        pts[a, :, :2] = centre + rng.normal(0, 15, (20000, 2))
+        pts[a, :, 2] = rng.uniform(-2.5, 0.5, 20000)
+        pts[a, :, 3] = rng.uniform(0, 1, 20000)
+        pts[a, :100, :2] = [10.1, 5.1]  # the hot cell every agent hits
+    mask = rng.uniform(size=(6, 20000)) > 0.05
+    merged = torch.from_numpy(pts.reshape(1, 120000, 4)).to(cuda)
+    mmask = torch.from_numpy(mask.reshape(1, 120000)).to(cuda)
+    with torch.no_grad():
+        ids, feat, aux, params, kw = vfe.kernel_inputs(merged, mmask)
+        got = pillar_encode(ids, feat, aux, params, **kw)
+        ref = pillar_encode_plain(ids, feat, aux, params, **kw)
+    torch.cuda.synchronize()
+    cells = kw["cells"]
+    occ = _occupied(ids.cpu().numpy(), cells)
+    counts = np.bincount(ids.cpu().numpy().ravel(), minlength=cells + 1)[:cells]
+    assert counts.max() >= 500 and occ.sum() > 10000
+    _check_k1(got, ref, occ, out_dtype)
+
+
+def test_bm2cp_voxel_pooling_bf16_within_bound_of_f32(cuda):
+    """BM2CP's voxel pooling on the card: the scatter-add of bf16 lifted
+    features (a camera of 45 x 80 x 48 frustum points, 64 channels, over
+    the 704 x 200 grid) against the f32 sums of the same bf16 values. The
+    atomic adds sum in bf16 in no fixed order, each add rounding to bf16
+    (unit roundoff 2^-8) a partial sum no larger than the sum of the
+    cell's magnitudes: a cell of n points lies within 2^-8 x n x (the sum
+    of its points' magnitudes) of the exact sum, the bound asserted."""
+    from airv2x_tpu_torch.models.point_pillar_bm2cp_model import (
+        bm2cp_voxel_pooling)
+
+    rng = np.random.default_rng(21)
+    geom = np.zeros((1, 1, 48, 45, 80, 3), np.float32)
+    geom[..., 0] = rng.uniform(-2, 60, geom.shape[:-1])
+    geom[..., 1] = rng.uniform(-30, 30, geom.shape[:-1])
+    geom[..., 2] = rng.uniform(-3, 3, geom.shape[:-1])
+    g = torch.from_numpy(geom).to(cuda)
+    feats = torch.from_numpy(rng.normal(0, 1, (1, 1, 48, 45, 80, 64)).astype(
+        np.float32)).to(cuda).bfloat16()
+    dx = torch.tensor([0.4, 0.4, 20.0], device=cuda)
+    lo = torch.tensor([-140.8, -40.0, -10.0], device=cuda)
+    nx = (704, 200, 1)
+    got = bm2cp_voxel_pooling(g, feats, dx, lo, nx).float()
+    exact = bm2cp_voxel_pooling(g, feats.float(), dx, lo, nx)
+    mag = bm2cp_voxel_pooling(g, feats.float().abs(), dx, lo, nx)
+    count = bm2cp_voxel_pooling(g, torch.ones_like(feats[..., :1]).float(), dx,
+                                lo, nx)
+    bound = 2.0 ** -8 * mag * count + 1e-6
+    assert float(count.max()) > 10  # cells gather many frustum points
+    assert bool(((got - exact).abs() <= bound).all()), float(
+        ((got - exact).abs() / bound).max())

@@ -184,11 +184,14 @@ def test_point_pillar_base_matches_jax(resnet, num_class):
 
 
 def test_point_pillar_base_raises_on_unported_options():
+    """``compression`` raises; two PFN layers, once refused, take the
+    classic voxel path (tests/test_torch_voxel_path.py holds it)."""
     _, args = _tiny_args(True)
-    for patch in ({"compression": 4},
-                  {"pillar_vfe": dict(args["pillar_vfe"], num_filters=[16, 16])}):
-        with pytest.raises(NotImplementedError):
-            PointPillarBase(dict(args, **patch))
+    with pytest.raises(NotImplementedError):
+        PointPillarBase(dict(args, compression=4))
+    model = PointPillarBase(dict(args, pillar_vfe=dict(args["pillar_vfe"],
+                                                       num_filters=[16, 16])))
+    assert not model.fast_pillars and len(model.vfe.pfn) == 2
 
 
 # --- the deformable attention ----------------------------------------------
