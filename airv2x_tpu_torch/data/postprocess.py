@@ -1,5 +1,5 @@
 """Decode of the model outputs (counterpart of airv2x_tpu/data/postprocess.py:
-``decode_detections`` and ``decode_segmentation``).
+``decode_detections``, ``decode_late_fusion`` and ``decode_segmentation``).
 
 Detection: logits -> boxes -> filters -> rotated NMS.
 
@@ -81,6 +81,48 @@ def decode_detections(
     keep = keep & geo.mask_boxes_in_range_bev(corners, lidar_range)
     return Detections(boxes=boxes, corners=corners, scores=scores,
                       labels=labels, mask=keep, nms_passes=passes)
+
+
+def decode_late_fusion(psm, rm, obj, anchors, pairwise_t, agent_mask,
+                       lidar_range, *, num_class: int, obj_threshold: float,
+                       nms_thresh: float, top_k: int = 512) -> Detections:
+    """Late fusion's decode: every agent's own head outputs (leading axis L)
+    decoded at every anchor, projected into the ego frame by its
+    ``pairwise_t`` (L, 4, 4), gated by its objectness and ``agent_mask``
+    (L,) and the box filters, then one rotated NMS (K2) over the L agents'
+    pooled candidates. psm (L, H, W, A * num_class), rm (L, H, W, 7A), obj
+    (L, H, W, A).
+
+    Multiclass heads only, as in the JAX package: a binary head (one score
+    per anchor) has no class columns, and there the class argmax has
+    nothing to take (``num_class`` 1: ValueError) or the class reshape
+    does not fit the logits (TypeError)."""
+    l, h, w, a = obj.shape
+    if num_class < 2:
+        raise ValueError("late fusion needs class logits: the class argmax of "
+                         f"num_class={num_class} has an empty sequence")
+    if psm.shape[-1] != a * num_class:
+        raise TypeError(f"late fusion: psm of {psm.shape[-1]} channels does "
+                        f"not hold {a} anchors x {num_class} classes")
+    objness = torch.sigmoid(obj.float()).reshape(l, -1)
+    boxes = decode_boxes(rm.float().reshape(l, -1, 7),
+                         anchors.reshape(-1, 7)[None])  # (L, N, 7)
+    cls = torch.sigmoid(psm.float().reshape(l, -1, num_class))[..., 1:]
+    labels = cls.argmax(-1).to(torch.int32) + 1
+    corners = geo.boxes_to_corners_3d(boxes, order="hwl")  # (L, N, 8, 3)
+    corners = geo.project_corners(corners.reshape(l, -1, 3), pairwise_t
+                                  ).reshape(l, -1, 8, 3)
+    valid = (objness > obj_threshold) & agent_mask.bool()[:, None]
+    valid = valid & geo.keep_reasonable_boxes(
+        corners, z_min=lidar_range[2], z_max=lidar_range[5])
+    n = l * objness.shape[1]
+    corners, scores = corners.reshape(n, 8, 3), objness.reshape(n)
+    valid = valid.reshape(n)
+    keep, passes = rotated_nms(corners[:, :4, :2], scores, valid, nms_thresh,
+                               top_k=top_k)
+    keep = keep & geo.mask_boxes_in_range_bev(corners, lidar_range)
+    return Detections(boxes=boxes.reshape(n, 7), corners=corners, scores=scores,
+                      labels=labels.reshape(n), mask=keep, nms_passes=passes)
 
 
 def decode_segmentation(dynamic_logits: torch.Tensor,

@@ -1,6 +1,8 @@
-"""Binary-class PointPillar loss of the OPV2V / DAIR family (counterpart of
-airv2x_tpu/loss/point_pillar_binary.py: ``make_binary_loss``, registered as
-``point_pillar_loss`` and ``point_pillar_loss_opencood``).
+"""Binary-class PointPillar losses of the OPV2V / DAIR family (counterpart of
+airv2x_tpu/loss/point_pillar_binary.py): ``make_binary_loss``, registered as
+``point_pillar_loss`` and ``point_pillar_loss_opencood``, and the two that
+add a term to it, CoAlign's (``point_pillar_loss_coalign``) and DiscoNet's
+(``point_pillar_disconet_loss``).
 
   * focal loss (alpha 0.25, gamma 2) on one sigmoid score per anchor,
     weighted by (pos + neg) / num_pos per sample, summed over the batch and
@@ -19,6 +21,9 @@ import torch
 from airv2x_tpu_torch.loss.point_pillar_multiclass import (
     add_sin_difference, sigmoid_ce, smooth_l1)
 from airv2x_tpu_torch.loss.registry import register_loss
+from airv2x_tpu_torch.ops import geometry as geo
+from airv2x_tpu_torch.ops.boxes import decode_boxes
+from airv2x_tpu_torch.ops.rotated_iou import elementwise_quad_iou
 
 
 @register_loss("point_pillar_loss", "point_pillar_loss_opencood")
@@ -58,5 +63,67 @@ def make_binary_loss(args: dict):
         return total, {f"total_loss{prefix}": total,
                        f"conf_loss{prefix}": conf_loss,
                        f"reg_loss{prefix}": reg_loss}
+
+    return loss_fn
+
+
+def _with_term(parts: dict, total, prefix: str, name: str, value) -> dict:
+    parts = dict(parts)
+    parts[name] = value
+    parts[f"total_loss{prefix}"] = total
+    return parts
+
+
+@register_loss("point_pillar_loss_coalign")
+def make_coalign_loss(args: dict):
+    """The binary loss plus ``iou_weight`` x the mean of (1 - IoU) over the
+    positive anchors, the IoU that of the BEV quads of the decoded predicted
+    and target boxes (``ops/rotated_iou.py``, differentiable). The term
+    applies only where the labels carry the anchor grid (``anchors``,
+    (H, W, A, 7)); neither package's loaders put it there (ROADMAP §3)."""
+    base = make_binary_loss(args)
+    iou_weight = float(args.get("iou_weight", 1.0))
+
+    def loss_fn(output: dict, target: dict, prefix: str = ""):
+        total, parts = base(output, target, prefix)
+        if "anchors" not in target:
+            return total, parts
+        rm = output[f"rm{prefix}"].float()
+        b = rm.shape[0]
+        anchors = target["anchors"].reshape(-1, 7)[None]
+        pred = decode_boxes(rm.reshape(b, -1, 7), anchors)
+        gt = decode_boxes(target["targets"].reshape(b, -1, 7).float(), anchors)
+        iou = elementwise_quad_iou(geo.boxes_to_corners_bev(pred, order="hwl"),
+                                   geo.boxes_to_corners_bev(gt, order="hwl"))
+        pos = target["pos_equal_one"].reshape(b, -1).float()
+        iou_loss = ((1.0 - iou) * pos).sum() / pos.sum().clamp_min(1.0)
+        total = total + iou_weight * iou_loss
+        return total, _with_term(parts, total, prefix, "iou_loss", iou_loss)
+
+    return loss_fn
+
+
+@register_loss("point_pillar_disconet_loss")
+def make_disconet_loss(args: dict):
+    """The binary loss plus the weighted KL divergence of the student's
+    per-pixel channel distribution from the teacher's (softmax over the
+    channels of ``student_feature`` / ``teacher_feature``, NHWC), averaged
+    over the pixels. The weight is ``kd.weight`` (default 1e5) where ``kd``
+    is a block, else ``kd_weight`` (default 1). Without both features the
+    loss is the binary one."""
+    base = make_binary_loss(args)
+    kd = args.get("kd")
+    kd_weight = (float(kd.get("weight", 1e5)) if isinstance(kd, dict)
+                 else float(args.get("kd_weight", 1.0)))
+
+    def loss_fn(output: dict, target: dict, prefix: str = ""):
+        total, parts = base(output, target, prefix)
+        if "student_feature" not in output or "teacher_feature" not in output:
+            return total, parts
+        s = torch.log_softmax(output["student_feature"].float(), dim=-1)
+        t = torch.softmax(output["teacher_feature"].float(), dim=-1)
+        kd_loss = (t * (torch.log(t + 1e-9) - s)).sum(-1).mean()
+        total = total + kd_weight * kd_loss
+        return total, _with_term(parts, total, prefix, "kd_loss", kd_loss)
 
     return loss_fn

@@ -24,7 +24,14 @@ The registered models and their fusion:
   * point_pillar_where2comm: single-scale Where2comm (the confidence mask
     from the shared cls head gates the maps, then ego-query attention);
   * point_pillar_v2xvit / _cobevt / _v2vnet / _when2com: the ported fusion
-    modules (comm_rate 1).
+    modules (comm_rate 1);
+  * point_pillar_disconet: DiscoNet's student, a per-pixel softmax over the
+    present agents of weights that ``PixelWeightLayer`` predicts from
+    [agent map, ego map], with the fused map as ``student_feature`` (NHWC)
+    for the distillation loss.
+
+How2comm (``how2comm_model.py``) and CoAlign (``coalign_model.py``) build
+on the same spine; CoAlign names its ResNet backbone ``res_bev_backbone``.
 
 Public outputs keep the JAX package's NHWC layout. A config with
 ``fast_pillars: false`` or more than one PFN layer takes the classic voxel
@@ -47,7 +54,7 @@ from airv2x_tpu_torch.models.fusion.v2vnet import V2VNetFusion
 from airv2x_tpu_torch.models.fusion.v2xvit import V2XTransformer
 from airv2x_tpu_torch.models.fusion.when2com import When2comFusion
 from airv2x_tpu_torch.models.fusion.where2comm import Where2commFusion
-from airv2x_tpu_torch.models.nn import DownsampleConv
+from airv2x_tpu_torch.models.nn import BatchNorm2d, DownsampleConv
 from airv2x_tpu_torch.models.pillar_vfe import PillarVFE, pillar_bev
 from airv2x_tpu_torch.models.resnet_bev import ResNetBEVBackbone
 from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
@@ -90,7 +97,11 @@ class PointPillarBase(nn.Module):
             with_distance=pv["with_distance"],
             use_absolute_xyz=pv["use_absolute_xyz"],
         )
+        # CoAlign names its (ResNet) backbone res_bev_backbone, BM2CP its
+        # modality_fusion.bev_backbone (ResNet too)
         bb = args.get("base_bev_backbone")
+        if bb is None and "res_bev_backbone" in args:
+            bb = dict(args["res_bev_backbone"], resnet=True)
         if bb is None:
             bb = dict(args["modality_fusion"]["bev_backbone"], resnet=True)
         kw = dict(layer_nums=bb["layer_nums"], layer_strides=bb["layer_strides"],
@@ -358,3 +369,53 @@ class PointPillarWhen2com(PointPillarBase):
     def fuse(self, grouped, batch):
         return (self.fusion_net(grouped, batch["agent_mask"],
                                 batch["pairwise_t_full"]), _rate(1.0, grouped))
+
+
+class PixelWeightLayer(nn.Module):
+    """1x1 convs 2C -> 128 -> 32 -> 8 -> 1, BN and ReLU between, a final
+    ReLU and no final BN: one weight logit per pixel."""
+
+    FLAX_NAMES = {"conv0": "Conv_0", "bn0": "BatchNorm_0", "conv1": "Conv_1",
+                  "bn1": "BatchNorm_1", "conv2": "Conv_2", "bn2": "BatchNorm_2",
+                  "conv3": "Conv_3"}
+
+    def __init__(self, in_ch: int):
+        super().__init__()
+        widths = (in_ch, 128, 32, 8)
+        for i in range(3):
+            self.add_module(f"conv{i}", nn.Conv2d(widths[i], widths[i + 1], 1))
+            self.add_module(f"bn{i}", BatchNorm2d(widths[i + 1]))
+        self.conv3 = nn.Conv2d(8, 1, 1)
+
+    def forward(self, x):
+        for i in range(3):
+            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+        return torch.relu(self.conv3(x))
+
+
+class PointPillarDiscoNet(PointPillarBase):
+    """DiscoNet's student (``point_pillar_disconet``); the frozen
+    early-fusion teacher supervises ``student_feature`` through
+    ``point_pillar_disconet_loss`` (``tools/train_w_kd.py``)."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        self.pixel_weight = PixelWeightLayer(2 * self.head_in)
+
+    def fuse(self, grouped, batch):
+        b, l = grouped.shape[:2]
+        x = grouped.to(self.compute_dtype)
+        cat = torch.cat([x, x[:, :1].expand_as(x)], dim=2)
+        logits = self.pixel_weight(cat.flatten(0, 1)).unflatten(0, (b, l))
+        mask = batch["agent_mask"][:, :, None, None, None].bool()
+        logits = logits.masked_fill(~mask, -1e9)
+        w = torch.exp(logits - logits.amax(1, keepdim=True)) * mask.to(logits.dtype)
+        w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
+        return (grouped * w).sum(1), _rate(1.0, grouped)
+
+    def forward(self, batch):
+        fused, rate = self.fuse(self.backbone_2d(self.encode(batch)), batch)
+        out = self.heads(fused)
+        out["comm_rate"] = rate
+        out["student_feature"] = fused.permute(0, 2, 3, 1)
+        return out

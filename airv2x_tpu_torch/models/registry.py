@@ -8,8 +8,9 @@ family: ``point_pillar``, ``point_pillar_intermediate`` /
 ``point_pillar_attfusion``, ``point_pillar_max`` / ``point_pillar_fcooper``,
 ``point_pillar_where2comm``, ``point_pillar_v2xvit``,
 ``point_pillar_cobevt``, ``point_pillar_v2vnet``, ``point_pillar_when2com``,
-``point_pillar_baseline_multiscale`` and ``point_pillar_scope`` (SCOPE
-temporal detection); the heterogeneous-collaboration models
+``point_pillar_baseline_multiscale``, ``point_pillar_disconet`` (DiscoNet's
+student), ``point_pillar_how2comm``, ``point_pillar_coalign`` and
+``point_pillar_scope`` (SCOPE temporal detection); the heterogeneous-collaboration models
 ``airv2x_heal``, ``airv2x_stamp`` and ``airv2x_sicp``; early fusion
 (``point_pillar_early`` / ``airv2x_early`` and the DiscoNet teacher
 ``point_pillar_disconet_teacher``); and BM2CP (``airv2x_bm2cp``, det or seg,
@@ -20,16 +21,18 @@ from __future__ import annotations
 import torch
 
 from airv2x_tpu_torch.models.bm2cp_model import Airv2xBM2CP
+from airv2x_tpu_torch.models.coalign_model import PointPillarCoAlign
 from airv2x_tpu_torch.models.early_fusion_model import (
     PointPillarDiscoNetTeacher, PointPillarEarly)
 from airv2x_tpu_torch.models.heal_model import Airv2xHEAL
+from airv2x_tpu_torch.models.how2comm_model import PointPillarHow2comm
 from airv2x_tpu_torch.models.intermediate_models import (
     Airv2xAttFusion, Airv2xCoBEVT, Airv2xMaxFusion, Airv2xV2VNet,
     Airv2xWhen2com)
 from airv2x_tpu_torch.models.lss_model import LiftSplatShoot
 from airv2x_tpu_torch.models.point_pillar_models import (
     PointPillar, PointPillarBaselineMultiscale, PointPillarCoBEVT,
-    PointPillarIntermediate, PointPillarMax, PointPillarV2VNet,
+    PointPillarDiscoNet, PointPillarIntermediate, PointPillarMax, PointPillarV2VNet,
     PointPillarV2XViT, PointPillarWhen2com, PointPillarWhere2comm)
 from airv2x_tpu_torch.models.point_pillar_bm2cp_model import PointPillarBM2CP
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
@@ -60,6 +63,9 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "point_pillar_when2com": PointPillarWhen2com,
                   "point_pillar_baseline_multiscale":
                       PointPillarBaselineMultiscale,
+                  "point_pillar_disconet": PointPillarDiscoNet,
+                  "point_pillar_how2comm": PointPillarHow2comm,
+                  "point_pillar_coalign": PointPillarCoAlign,
                   "point_pillar_scope": PointPillarScope,
                   "airv2x_heal": Airv2xHEAL,
                   "airv2x_stamp": Airv2xSTAMP,

@@ -12,6 +12,13 @@ not read), decodes each scene's detections (objectness gate -> filters ->
 rotated NMS), and reports VOC AP at IoU 0.3 / 0.5 / 0.7 and the mean
 communication rate, appending to ``results.txt`` and writing
 ``eval_epoch{N}.yaml`` in the run dir as the JAX CLI does.
+
+``--fusion_method late`` runs the model once per agent instead (``late_batch``:
+the scene replicated L times, replica i with only agent i live and identity
+pairwise transforms, batch L), then fuses the agents' boxes in the ego frame
+(``decode_late_fusion``: one joint rotated NMS). Like the JAX CLI it needs a
+multiclass config: a binary-head config has no ``num_class`` (KeyError) and
+its heads no class logits (``decode_late_fusion`` raises).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 
 from airv2x_tpu_torch.config import load_yaml, save_yaml
 from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset
-from airv2x_tpu_torch.data.postprocess import decode_detections
+from airv2x_tpu_torch.data.postprocess import decode_detections, decode_late_fusion
 from airv2x_tpu_torch.data.synthetic import batch_to_torch, make_scene
 from airv2x_tpu_torch.eval.ap import (
     accumulate_scene, eval_final_results, new_result_stat)
@@ -123,10 +130,34 @@ class SceneDets(NamedTuple):
     rate: float  # communication rate
 
 
-def det_step(hypes, model, device, obj_threshold: float = 0.0):
+def late_batch(batch: dict) -> dict:
+    """A batch of one scene -> its late-fusion batch of L replicas: replica i
+    holds the scene's points with only agent i live (where present) and
+    identity ``pairwise_t`` (L, L, 4, 4) / ``pairwise_t_full``
+    (L, L, L, 4, 4)."""
+    l = batch["points"].shape[1]
+    dev = batch["points"].device
+
+    def rep(a):
+        return a[0][None].expand((l,) + a[0].shape)
+
+    eye = torch.eye(4, device=dev)
+    out = {k: rep(batch[k]) for k in ("points", "points_mask", "prior_encoding")
+           if k in batch}
+    out["agent_mask"] = (torch.eye(l, dtype=torch.bool, device=dev)
+                         & batch["agent_mask"][0].bool()[None])
+    out["pairwise_t"] = eye.expand(l, l, 4, 4)
+    out["pairwise_t_full"] = eye.expand(l, l, l, 4, 4)
+    return out
+
+
+def det_step(hypes, model, device, obj_threshold: float = 0.0,
+             late: bool = False):
     """``step(scene, gt) -> SceneDets``: one numpy scene through the model,
     ``decode_detections`` (rotated NMS) and the gt's BEV corners, all on
-    ``device``."""
+    ``device``. With ``late``, late fusion: the scene's ``late_batch``
+    through the model, then ``decode_late_fusion`` with the scene's own
+    ``pairwise_t`` (one joint NMS)."""
     dev = resolve_device(device)
     anchors = torch.from_numpy(
         generate_anchor_grid(hypes["postprocess"]["anchor_args"])).to(dev)
@@ -140,10 +171,18 @@ def det_step(hypes, model, device, obj_threshold: float = 0.0):
 
     def step(scene, gt):
         with torch.inference_mode():
-            out = model(model_batch(scene, dev))
-            det = decode_detections(out["psm"][0], out["rm"][0],
-                                    out.get("obj", out["psm"])[0], anchors, eye,
-                                    lidar_range, **kw)
+            batch = model_batch(scene, dev)
+            if late:
+                out = model(late_batch(batch))
+                det = decode_late_fusion(
+                    out["psm"], out["rm"], out.get("obj", out["psm"]), anchors,
+                    batch["pairwise_t"][0], batch["agent_mask"][0], lidar_range,
+                    **kw)
+            else:
+                out = model(batch)
+                det = decode_detections(out["psm"][0], out["rm"][0],
+                                        out.get("obj", out["psm"])[0], anchors,
+                                        eye, lidar_range, **kw)
             keep = det.mask
             gm = gt["mask"].astype(bool)
             gt_c = geo.boxes_to_corners_bev(
@@ -152,7 +191,7 @@ def det_step(hypes, model, device, obj_threshold: float = 0.0):
             corners=det.corners[keep][:, :4, :2], scores=det.scores[keep].cpu().numpy(),
             labels=det.labels[keep].cpu().numpy(), gt_corners=gt_c,
             gt_labels=np.asarray(gt["classes"])[gm],
-            rate=float(out.get("comm_rate", 1.0)))
+            rate=float(out.get("comm_rate", 0.0 if late else 1.0)))
 
     return step
 
@@ -171,11 +210,10 @@ def report_time(n: int, t0: float, device) -> float:
 def main(argv=None) -> dict:
     """Run the evaluation; returns the result dict it writes."""
     opt = parse_args(argv)
-    if opt.fusion_method == "late":
-        raise NotImplementedError("late fusion (decode_late_fusion) is not ported")
     dev = resolve_device(opt.device)
     hypes, model, epoch = load_run(opt.model_dir, dev, opt.epoch, opt.hypes_yaml)
-    step = det_step(hypes, model, dev, opt.obj_threshold)
+    step = det_step(hypes, model, dev, opt.obj_threshold,
+                    late=opt.fusion_method == "late")
     source, it = scenes(hypes, model.layout, "", opt.num_scenes, opt.seed,
                         num_objects=8)
     print(source)

@@ -265,6 +265,34 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      ``airv2x_early`` and BM2CP LiDAR det trained as phase 17 trains,
      EB_TRAIN_STEPS timed steps and the repeated-batch check; an
      ``early_bm2cp_train`` JSON line;
+  21. the flat family's rest and late fusion (run after phase 20's serving,
+     on phase 18's splits): (a0) the tiny DiscoNet, How2comm (T = 2) and
+     CoAlign models (``tiny_flat_rest_hypes``) on the card against the CPU,
+     f32, pinned cuDNN, both modes: outputs within TINY_TOL, equal keep
+     sets, the NMS margin bounded, launches asserted; (a) the six FLAT_REST YAMLs
+     (``{opv2v,dair}_{disconet,how2comm,coalign}``) at full width, bf16,
+     seeded random weights (How2comm's BN statistics from one scene,
+     ``calibrate_bn_``), batch 1, through their datasets (How2comm on
+     OPV2V's 2-frame samples; on DAIR, whose loader has no frames, on
+     2-frame batches built from consecutive loaded frames,
+     ``dair_frame_pairs``), each in ``auto`` and ``pallas`` as phase 18
+     runs its configs: the ``pallas`` warm-up's kernel inputs held to their
+     plain versions, FLAT_REST_RUNS timed runs with the launches asserted
+     per scene (K1 once per frame, K4a 16 on DiscoNet's plain backbone in
+     ``pallas``, 0 on the ResNet ones, K2 1 + 1 where the AP matched), a
+     ``pallas`` profile window, the AP; (b) the inference CLI's late
+     fusion (``--fusion_method late``) on the cut flagship over LATE_SCENES
+     synthetic scenes in both modes, a warm-up run's kernel inputs held to
+     their plain versions, the counted run's launches asserted (K1 3, K4a
+     32 in ``pallas``, K2 1 + 1 where the AP matched, per scene), ms/scene
+     and the AP table; a ``flat_rest`` JSON line; (c) (after phase 20's
+     training) ``train_w_kd``: a teacher run dir from the train CLI (one
+     step of ``opv2v_disconet_teacher``), then KD_STEPS steps of the
+     OPV2V DiscoNet student under ``point_pillar_disconet_loss`` (the
+     teacher's K1 launch per step, its inputs held to the plain version),
+     and CoAlign trained COALIGN_STEPS steps at batch 2 on the OPV2V split
+     with the anchor grid in the labels (the IoU term finite); ms/step and
+     peak memory; a ``flat_rest_train`` JSON line;
   4b. (run after phase 16, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
@@ -5148,10 +5176,11 @@ def disk_items(hypes, dataset, root):
     return items
 
 
-def disk_model(hypes):
+def disk_model(hypes, calibrate_on=None):
     """The config's model on the card with seeded random weights
-    (``init_random_`` seed 0, drawn on the card; SCOPE's cls head scaled
-    by SCOPE_CLS_SCALE as in phase 12), cast to bf16."""
+    (``init_random_`` seed 0, drawn on the card; SCOPE's cls head scaled by
+    SCOPE_CLS_SCALE as in phase 12), its BatchNorm statistics set from the
+    batch ``calibrate_on`` where given (``calibrate_bn_``), cast to bf16."""
     from airv2x_tpu_torch.models import build_model
     from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
 
@@ -5160,6 +5189,8 @@ def disk_model(hypes):
     if hypes["model"]["core_method"] == "point_pillar_scope":
         with torch.no_grad():
             model.cls_head.weight.mul_(SCOPE_CLS_SCALE)
+    if calibrate_on is not None:
+        calibrate_bn_(model, calibrate_on)
     return cast_weights_(model, torch.bfloat16)
 
 
@@ -6390,6 +6421,400 @@ def phase_early_bm2cp_train(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: DiscoNet, How2comm, CoAlign and late fusion
+# ---------------------------------------------------------------------------
+
+FLAT_REST = tuple((d, n) for d in ("opv2v", "dair")
+                  for n in ("disconet", "how2comm", "coalign"))
+FLAT_REST_RUNS = 1  # timed runs per config and mode, after a warm-up
+LATE_SCENES = 2  # synthetic scenes of each counted late-fusion CLI run
+KD_STEPS = 3  # train_w_kd steps of the OPV2V DiscoNet student, batch 2
+COALIGN_STEPS = 2  # timed CoAlign steps at batch 2, after one warm-up step
+
+
+# the tiny models' random-weight seed (init_random_): the first from 0 up
+# whose NMS margin on the tiny scene exceeds ROI_MARGIN in every model on
+# the CPU (``phase_tiny_flat_rest("cpu", device="cpu")``)
+TINY_FLAT_REST_SEED = 0
+TINY_FLAT_REST = ("point_pillar_disconet", "point_pillar_how2comm",
+                  "point_pillar_coalign")
+
+
+def tiny_flat_rest_hypes(name):
+    """SCOPE's tiny config (``tiny_scope_hypes``, 3 slots, 64 x 64 grid,
+    16 / 32 channels) as DiscoNet (plain backbone), How2comm (ResNet, a
+    query budget of every cell, so no query cut decides the outputs) or
+    CoAlign (ResNet under ``res_bev_backbone``, no shrink)."""
+    hypes = tiny_scope_hypes(resnet=name != "point_pillar_disconet")
+    hypes["model"]["core_method"] = name
+    args = hypes["model"]["args"]
+    fa = args.pop("fusion_args")
+    if name == "point_pillar_how2comm":
+        args.update(flow_flag=True, delay=1, fusion_args={
+            "voxel_size": fa["voxel_size"], "downsample_rate": 1,
+            "communication": dict(fa["communication"], request_flag=True),
+            "communication_flag": True, "num_queries": 32 * 32,
+            "layer_nums": fa["layer_nums"], "num_filters": fa["num_filters"]})
+    elif name == "point_pillar_coalign":
+        args["res_bev_backbone"] = args.pop("base_bev_backbone")
+        del args["shrink_header"]
+        args["voxel_size"] = fa["voxel_size"]
+    return hypes
+
+
+def tiny_flat_rest_scene(name):
+    """Two frames of ``scope_scene`` (distinct draws, perturbed history and
+    poses, seeds 0 / 1), the third slot absent: the temporal batch for
+    How2comm, its current frame for the others."""
+    from airv2x_tpu_torch.models.base import SlotLayout
+
+    b = scope_scene(np.random.default_rng(0), SlotLayout(counts=(3, 0, 0)), 2,
+                    TINY_SCOPE_RANGE, pose_rng=np.random.default_rng(1),
+                    points_per_agent=512)
+    b["agent_mask"][:, :, 2] = False
+    b["points_mask"][:, :, 2] = False
+    if name == "point_pillar_how2comm":
+        return b
+    return {k: v[:, -1] for k, v in b.items() if k != "history_t"}
+
+
+def phase_tiny_flat_rest(card, device="cuda"):
+    """Phase 21 (a0): the tiny DiscoNet, How2comm and CoAlign models
+    (``tiny_flat_rest_hypes``) on the card against the same weights on the
+    CPU, f32, TF32 off, pinned cuDNN, in ``auto`` and ``pallas``: outputs
+    within TINY_TOL x (1 + scale), keep sets equal, the NMS margin bounded,
+    launches asserted (K1 1, How2comm 2; K4a 2 on DiscoNet's plain
+    backbone in ``pallas``; K2 1). ``device`` "cpu" runs the CPU against
+    itself (the margins, without a card)."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    out = {}
+    try:
+        for name in TINY_FLAT_REST:
+            hypes = tiny_flat_rest_hypes(name)
+            scene = tiny_flat_rest_scene(name)
+            batch = {d: batch_to_torch(scene, d) for d in ("cpu", device)}
+            models = {d: init_random_(build_model(hypes, device=d),
+                                      seed=TINY_FLAT_REST_SEED)
+                      for d in ("cpu", device)}
+            keys = ("psm", "rm", "comm_rate") + {
+                "point_pillar_disconet": ("student_feature",),
+                "point_pillar_how2comm": ("offset_loss", "commu_loss")}.get(
+                    name, ())
+            for mode in ("auto", "pallas"):
+                res = {}
+                for d in ("cpu", device):
+                    decode, _ = det_decoder(hypes, d, TINY_SCOPE_TOP_K)
+                    kernels.reset_launch_counts()
+                    with conv_mode(mode), torch.inference_mode():
+                        o = models[d](batch[d])
+                        dets = decode(o)
+                    if d == "cuda":
+                        torch.cuda.synchronize()
+                    res[d] = (o, dets, dict(kernels.LAUNCHES))
+                if device == "cuda":
+                    want = {"pillar_encode": 2 if "how2comm" in name else 1,
+                            "conv3x3": 2 if "disconet" in name and mode == "pallas"
+                            else 0, "quad_iou": 1}
+                    n = res["cuda"][2]
+                    if n != {k: want.get(k, 0) for k in n}:
+                        raise AssertionError(f"tiny {name} {mode}: launches {n}")
+                margin = nms_margin(res["cpu"][1], hypes["postprocess"]["nms_thresh"])
+                label = (f"phase 21 tiny {name} {mode} card vs CPU [{card}] "
+                         f"(NMS margin {margin:.3e}, limit {ROI_MARGIN})")
+                errs = compare(label, res[device][0], res["cpu"][0], keys)
+                same = bool(torch.equal(res[device][1].mask.cpu(),
+                                        res["cpu"][1].mask))
+                kept = int(res["cpu"][1].mask.sum())
+                print(f"phase 21 tiny {name} {mode}: keep sets card == CPU "
+                      f"{same}, {kept} kept")
+                if not same or not kept or margin <= ROI_MARGIN:
+                    raise AssertionError(f"tiny {name} {mode}: keep sets {same}, "
+                                         f"{kept} kept, NMS margin {margin}")
+                out[f"{name} {mode}"] = {"nms_margin": margin, "kept": kept,
+                                         "max_abs_err": errs}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    return out
+
+
+def dair_frame_pairs(items):
+    """DAIR's loaded one-frame batches as How2comm's 2-frame batches: frame
+    i current, frame i - 1 its history (frame 0 its own), each frame's
+    points, masks and ``pairwise_t_full`` stacked on a time axis; the gt of
+    the current frame."""
+    out = []
+    for i, (cur, quads) in enumerate(items):
+        prev = items[max(i - 1, 0)][0]
+        batch = dict(cur)
+        for k in ("points", "points_mask", "agent_mask", "pairwise_t_full"):
+            batch[k] = torch.stack([prev[k], cur[k]], dim=1)
+        out.append((batch, quads))
+    return out
+
+
+def phase_flat_rest(card, disk_roots):
+    """Phase 21 (a): the FLAT_REST YAMLs at full width on phase 18's
+    splits, each config as phase 18 runs its own (``time_disk``), every
+    config's ``pallas`` kernel inputs held to the plain versions (not only
+    shapes no earlier config gave)."""
+    from airv2x_tpu_torch.eval.ap import eval_final_results, new_result_stat
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = False, False  # heuristics
+    res = {"card": card, "configs": {}, "kernel_checks": []}
+    launches = {}
+    for dataset, name in FLAT_REST:
+        t_cfg = time.perf_counter()
+        hypes = disk_hypes(dataset, name)
+        label = f"phase 21 {dataset}_{name}"
+        checked = set()  # each config's own kernel inputs, equal shapes too
+        t0 = time.perf_counter()
+        items = disk_items(hypes, dataset, disk_roots[dataset])
+        if dataset == "dair" and name == "how2comm":
+            items = dair_frame_pairs(items)
+        torch.cuda.synchronize()
+        r = {"load_ms": (time.perf_counter() - t0) * 1e3 / len(items),
+             "frames": tuple(items[0][0]["points"].shape[:-2])}
+        # How2comm's ~24 random residual blocks (its ResNet's and the flow
+        # backbone's) push every logit far below the score threshold under
+        # init_random_'s statistics: its decode kept nothing
+        model = disk_model(hypes, items[0][0] if name == "how2comm" else None)
+        for mode in ("auto", "pallas"):
+            stat = new_result_stat()
+            with conv_mode(mode):
+                r[mode] = time_disk(f"{label} {mode} [{card}]",
+                                    disk_step(hypes, model, stat), items, hypes,
+                                    mode, checked if mode == "pallas" else None)
+            res["kernel_checks"] += r[mode].pop("kernel_checks")
+            r[mode]["ap"] = eval_final_results(stat)
+            for k, v in r[mode]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        with conv_mode("pallas"):
+            r["profile"] = phase_profile(
+                f"{label} pallas [{card}]", disk_step(hypes, model,
+                                                      new_result_stat()),
+                items, top=6, n=PROFILED_SCENES)
+        prof = r["profile"] or {}
+        r["seconds"] = time.perf_counter() - t_cfg
+        print(f"{label} [{card}]: batch {r['frames']}; ms/scene auto "
+              f"{r['auto']['ms']:.3f}, pallas {r['pallas']['ms']:.3f}; busy "
+              f"{prof.get('busy_ms', float('nan')):.3f} ms/scene, idle "
+              f"{prof.get('idle_share', float('nan')):.3f} (pallas); peak "
+              f"{max(r[m]['peak_mib'] for m in ('auto', 'pallas')):.1f} MiB; "
+              f"launches per scene {r['pallas']['launches_per_scene']}; kept "
+              f"{r['pallas']['kept']}; AP {r['pallas']['ap']}; load "
+              f"{r['load_ms']:.1f} ms/scene; {r['seconds']:.1f} s")
+        res["configs"][f"{dataset}_{name}"] = r
+        del model, items
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21 serving [{card}] in {res['seconds']:.1f} s; launches: "
+          f"{launches}")
+    return res
+
+
+def phase_late(card):
+    """Phase 21 (b): ``inference --fusion_method late`` on the cut flagship
+    (phase 5's seeded weights as a run dir's epoch 1) over LATE_SCENES
+    synthetic scenes in ``auto`` and ``pallas``: a warm-up run of one scene
+    (in ``pallas`` its kernel inputs held to their plain versions), then
+    the counted run with its launches asserted."""
+    import shutil
+
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.tools import inference
+
+    t_phase = time.perf_counter()
+    work = scratch_dir("chip_smoke_late_")
+    res = {"card": card, "kernel_checks": [], "launches": {}}
+    try:
+        hypes, run_dir = eval_run_dir(FLAGSHIP, os.path.join(work, "none"), work)
+        convs = 2 * sum(hypes["model"]["args"]["modality_fusion"][
+            "base_bev_backbone"]["layer_nums"])
+        argv = ["--model_dir", run_dir, "--fusion_method", "late", "--seed", "21"]
+        checked = set()
+        for mode in ("auto", "pallas"):
+            seen = {}
+            with conv_mode(mode), (recorded_kernel_inputs(seen) if mode == "pallas"
+                                   else contextlib.nullcontext()):
+                inference.main(argv + ["--num_scenes", "1"])
+            res["kernel_checks"] += check_kernel_inputs(
+                f"phase 21 late {mode} [{card}]", seen, checked)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with conv_mode(mode):
+                out = inference.main(argv + ["--num_scenes", str(LATE_SCENES)])
+            torch.cuda.synchronize()
+            got = dict(kernels.LAUNCHES)
+            n = LATE_SCENES
+            want = {"pillar_encode": 3 * n,
+                    "conv3x3": convs * n if mode == "pallas" else 0}
+            k2 = got.get("quad_iou", 0)
+            if ({k: got.get(k, 0) for k in want} != want or not n <= k2 <= 2 * n
+                    or got.get("pillar_reduce", 0)):
+                raise AssertionError(f"phase 21 late {mode}: launches {got}, "
+                                     f"expected {want} and K2 {n}-{2 * n}")
+            for k, v in got.items():
+                res["launches"][k] = res["launches"].get(k, 0) + v
+            res[mode] = dict(ms=out["ms_per_scene"], launches=got,
+                             ap={k: out[k] for k in ("ap_30", "ap_50", "ap_70")},
+                             comm_rate=out["comm_rate"])
+            print(f"phase 21 late fusion {mode} [{card}]: "
+                  f"{out['ms_per_scene']:.3f} ms/scene (load + the "
+                  f"{sum(NUM_AGENTS.values())} replicas' forward + decode + AP, "
+                  f"host clock), AP "
+                  f"{res[mode]['ap']}, launches {got} over {n} scenes")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def timed_steps(label, card, step, state, batches, steps):
+    """A warm-up step per batch (at most two), then ``steps`` timed ones:
+    ms/step, peak memory and every step's loss parts (all finite)."""
+    for b in batches[:2]:
+        step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, parts = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts.append({k: float(v) for k, v in
+                      step(state, batches[i % len(batches)]).items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"{label} [{card}]: {statistics.median(ms):.3f} ms/step median of "
+          f"{steps} ({[round(t, 3) for t in ms]}), peak memory {peak:.1f} MiB; "
+          "loss parts per step: " + json.dumps(
+              [{k: round(v, 5) for k, v in p.items()} for p in parts]))
+    if not all(np.isfinite(v) for p in parts for v in p.values()):
+        raise AssertionError(f"{label}: a non-finite loss part")
+    return dict(ms_per_step=statistics.median(ms), ms_runs=ms, peak_mib=peak,
+                parts=parts)
+
+
+def phase_flat_rest_train(card, disk_roots):
+    """Phase 21 (c): KD training through ``train_w_kd`` from a teacher run
+    dir of the train CLI, and CoAlign training on the OPV2V split with its
+    IoU term."""
+    import shutil
+
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.config import save_yaml
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.data.opv2v_dataset import OPV2VDataset
+    from airv2x_tpu_torch.loss import build_loss
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.models.registry import compute_dtype
+    from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
+    from airv2x_tpu_torch.parallel.train import (
+        TrainState, make_optimizer, make_train_step)
+    from airv2x_tpu_torch.tools import train, train_w_kd
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic = False
+    res = {"card": card, "kernel_checks": []}
+    work = scratch_dir("chip_smoke_kd_")
+    try:
+        t0 = time.perf_counter()
+        paths = {}
+        for name in ("disconet_teacher", "disconet"):
+            hypes = disk_hypes("opv2v", name)
+            if name == "disconet":  # the KD term applies (ROADMAP §3)
+                hypes["loss"]["core_method"] = "point_pillar_disconet_loss"
+            paths[name] = os.path.join(work, f"opv2v_{name}.yaml")
+            save_yaml(hypes, paths[name])
+        teacher_dir = train.main(["--hypes_yaml", paths["disconet_teacher"],
+                                  "--epochs", "1", "--steps_per_epoch", "1",
+                                  "--synthetic", "--log_dir", work])
+        t1 = time.perf_counter()
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with recorded_kernel_inputs(seen):
+            kd = train_w_kd.main(["--hypes_yaml", paths["disconet"],
+                                  "--teacher_dir", teacher_dir, "--epochs", "1",
+                                  "--steps_per_epoch", str(KD_STEPS),
+                                  "--log_dir", work])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        res["kernel_checks"] += check_kernel_inputs(
+            f"phase 21 train_w_kd teacher [{card}]", seen, set())
+        kd_losses = [p["kd_loss"] for p in kd["parts"]]
+        if (not all(np.isfinite(v) for p in kd["parts"] for v in p.values())
+                or not min(kd_losses) > 0
+                or launches.get("pillar_encode", 0) != KD_STEPS
+                or launches.get("quad_iou", 0) or launches.get("conv3x3", 0)):
+            raise AssertionError(f"phase 21 train_w_kd: parts {kd['parts']}, "
+                                 f"launches {launches}")
+        res["train_w_kd"] = dict(
+            ms_per_step=statistics.median(kd["step_ms"]), ms_runs=kd["step_ms"],
+            peak_mib=peak, parts=kd["parts"], launches=launches,
+            teacher_cli_s=t1 - t0, seconds=time.perf_counter() - t1)
+        res["launches"] = launches
+        print(f"phase 21 train_w_kd [{card}]: teacher run dir by the train CLI "
+              f"in {t1 - t0:.1f} s; {KD_STEPS} student steps of batch "
+              f"{TRAIN_BATCH}: {[round(t, 3) for t in kd['step_ms']]} ms (the "
+              f"first with the warm-up), peak {peak:.1f} MiB, kd_loss "
+              f"{[round(v, 6) for v in kd_losses]}, total "
+              f"{[round(p['total_loss'], 4) for p in kd['parts']]}; the "
+              f"teacher's launches {launches}")
+
+        t0 = time.perf_counter()
+        hypes = disk_hypes("opv2v", "coalign")
+        loader = RealDataLoader(OPV2VDataset(hypes, disk_roots["opv2v"],
+                                             train=True, seed=0),
+                                hypes, TRAIN_BATCH, seed=0, num_workers=2,
+                                device="cuda")
+        anchors = torch.from_numpy(generate_anchor_grid(
+            hypes["postprocess"]["anchor_args"])).to("cuda")
+        batches = []
+        for b in loader.batches(0):
+            b["labels"]["anchors"] = anchors  # the IoU term's (ROADMAP §3)
+            batches.append(b)
+        model = init_flax_like_(build_model(hypes, device="cuda", train=True),
+                                seed=0)
+        opt, sched = make_optimizer(hypes, model.parameters(), 50)
+        step = make_train_step(build_loss(hypes), sched,
+                               compute_dtype=compute_dtype(hypes), seed=0)
+        kernels.reset_launch_counts()
+        r = timed_steps("phase 21 opv2v_coalign training", card, step,
+                        TrainState(model, opt), batches, COALIGN_STEPS)
+        if any(kernels.LAUNCHES.values()) or not all(
+                0 < p["iou_loss"] <= 1 for p in r["parts"]):
+            raise AssertionError(f"phase 21 CoAlign training: {r['parts']}, "
+                                 f"launches {kernels.LAUNCHES}")
+        r["seconds"] = time.perf_counter() - t0
+        res["coalign"] = r
+        del model, batches
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21 training [{card}] in {res['seconds']:.1f} s")
+    return res
+
+
 def k4_row(name, launches, k4, form):
     """The kernels-line row of K4a (``form`` "a") or K4b ("b"): per scene
     of 32 launches, bf16 as the main path runs it, and f32 beside it."""
@@ -6532,6 +6957,18 @@ def main() -> int:
                          for m, r in c.items()} for name, c in v.items()}
                  if k == "configs" else v) for k, v in eb.items()},
             tiny_card_vs_cpu=tiny_eb)}))
+        t0 = time.perf_counter()
+        tiny_flat_rest = phase_tiny_flat_rest(card)
+        flat_rest = phase_flat_rest(card, {d: os.path.join(disk_work, d)
+                                           for d in ("opv2v", "dair")})
+        late = phase_late(card)
+        marks["phase 21 serving and late"] = time.perf_counter() - t0
+        print(json.dumps({"flat_rest": dict(
+            {k: ({name: {m: ({kk: vv for kk, vv in r.items() if kk != "launches"}
+                             if m in ("auto", "pallas") else r)
+                         for m, r in c.items()} for name, c in v.items()}
+                 if k == "configs" else v) for k, v in flat_rest.items()},
+            late=late, tiny_card_vs_cpu=tiny_flat_rest)}))
         # the training phases run after every serving phase, so that nothing
         # they leave on the card shows in the serving paths' peak memory
         t0 = time.perf_counter()
@@ -6555,6 +6992,12 @@ def main() -> int:
         eb_train = phase_early_bm2cp_train(card)
         marks["phase 20 training"] = eb_train["seconds"]
         print(json.dumps({"early_bm2cp_train": eb_train}))
+        flat_train = phase_flat_rest_train(card, {
+            d: os.path.join(disk_work, d) for d in ("opv2v", "dair")})
+        marks["phase 21 training"] = flat_train["seconds"]
+        marks["phase 21"] = (marks["phase 21 serving and late"]
+                             + flat_train["seconds"])
+        print(json.dumps({"flat_rest_train": flat_train}))
     finally:
         shutil.rmtree(disk_work, ignore_errors=True)
         shutil.rmtree(cam_work, ignore_errors=True)
@@ -6574,7 +7017,8 @@ def main() -> int:
                 + cam_disk["launches"][k] + train_models["launches"].get(k, 0)
                 + disk["launches"].get(k, 0) + disk_train["launches"].get(k, 0)
                 + hetero["launches"].get(k, 0) + hetero_train["launches"].get(k, 0)
-                + eb["launches"].get(k, 0)
+                + eb["launches"].get(k, 0) + flat_rest["launches"].get(k, 0)
+                + late["launches"].get(k, 0) + flat_train["launches"].get(k, 0)
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
           f"15's on-disk V2VNet run: {v2v_disk}; in phase 16's timed and CLI "
@@ -6584,10 +7028,14 @@ def main() -> int:
           f"models: {disk_train['launches']}; in phase 19's timed runs: "
           f"{hetero['launches']}; in phase 19's evaluations of the trained "
           f"models: {hetero_train['launches']}; in phase 20's timed runs: "
-          f"{eb['launches']}")
+          f"{eb['launches']}; in phase 21's timed runs: "
+          f"{flat_rest['launches']}, its counted late-fusion CLI runs: "
+          f"{late['launches']} and its KD teacher's forwards: "
+          f"{flat_train['launches']}")
     print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15, "
-          "16, 18, 19 and 20), the counted phase 13, 15 and 16 CLI runs and "
-          f"phase 17's, 18's and 19's evaluations: {launches}")
+          "16, 18, 19, 20 and 21), the counted phase 13, 15, 16 and 21 CLI runs, "
+          "phase 17's, 18's and 19's evaluations and phase 21's KD teacher: "
+          f"{launches}")
     marks["whole script"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in marks.items()}}))
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16

@@ -308,7 +308,8 @@ def test_multi_scenario_cli_matches_jax(det_dirs, fixture_root, ap_ious,
 
 def test_inference_cli(det_dirs, ap_ious):
     """The synthetic-scene CLI (the JAX twin's scenes: 8 objects) writes the
-    JAX CLI's ``results.txt`` line and yaml; late fusion raises."""
+    JAX CLI's ``results.txt`` line and yaml; late fusion runs on the same
+    scenes (its parity: tests/test_torch_late.py)."""
     port_dir = det_dirs[1]
     got = inference.main(["--model_dir", port_dir, "--device", "cpu",
                           "--num_scenes", "2", "--seed", "5"])
@@ -319,9 +320,11 @@ def test_inference_cli(det_dirs, ap_ious):
     saved = load_yaml(os.path.join(port_dir, "eval_epoch1.yaml"))
     assert saved == {k: v for k, v in got.items() if k != "ms_per_scene"}
     assert 0.0 <= got["ap_70"] <= got["ap_50"] <= got["ap_30"] <= 1.0
-    with pytest.raises(NotImplementedError, match="late"):
-        inference.main(["--model_dir", port_dir, "--device", "cpu",
-                        "--fusion_method", "late"])
+    late = inference.main(["--model_dir", port_dir, "--device", "cpu",
+                           "--num_scenes", "2", "--seed", "5",
+                           "--fusion_method", "late"])
+    assert set(late) == set(got)
+    assert 0.0 <= late["ap_70"] <= late["ap_50"] <= late["ap_30"] <= 1.0
 
 
 @pytest.mark.parametrize("source", SOURCES)

@@ -113,7 +113,8 @@ def _port(name, var, task="det"):
 
 def test_registry_has_the_three_names():
     assert set(NAMES) <= set(MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 30  # with the five early / BM2CP names
+    assert len(MODEL_REGISTRY) == 33  # with the five early / BM2CP names and
+    # DiscoNet, How2comm, CoAlign
 
 
 def test_tiny_scenes_exercise_the_warps(hetero_run):

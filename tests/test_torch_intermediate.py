@@ -621,7 +621,10 @@ def test_registry_has_the_family():
         # early fusion and BM2CP (tests/test_torch_early.py,
         # tests/test_torch_bm2cp.py)
         "point_pillar_early", "airv2x_early", "point_pillar_disconet_teacher",
-        "airv2x_bm2cp", "point_pillar_bm2cp"}
+        "airv2x_bm2cp", "point_pillar_bm2cp",
+        # DiscoNet, How2comm and CoAlign (tests/test_torch_disconet.py,
+        # tests/test_torch_how2comm.py, tests/test_torch_coalign.py)
+        "point_pillar_disconet", "point_pillar_how2comm", "point_pillar_coalign"}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

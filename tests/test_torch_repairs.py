@@ -1,7 +1,8 @@
 """Repairs of the port's own faults, each held by a test:
 
   * CLI parity: every option that a JAX CLI (train, the four eval CLIs, the
-    multi-stage recipe, the AP gate) accepts, the port's CLI accepts too,
+    multi-stage recipe, the AP gate, KD training, the pose-graph precompute)
+    accepts, the port's CLI accepts too,
     with two named exceptions; the port's ``--half`` parses and, as in
     JAX, changes nothing;
   * a mistyped ``AIRV2X_CONV_KERNEL`` raises and names the value.
@@ -20,7 +21,8 @@ from airv2x_tpu_torch.models.nn import CONV_KERNEL_MODES, ConvBNReLU
 from airv2x_tpu_torch.tools import train as port_train
 
 CLIS = ("train", "inference", "inference_airv2x", "inference_airv2x_seg",
-        "inference_multi_scenario", "train_multi_stage", "chip_ap_gate")
+        "inference_multi_scenario", "train_multi_stage", "chip_ap_gate",
+        "train_w_kd", "pose_graph_pre_calc")
 # JAX options the port leaves out on purpose
 EXCEPTIONS = {
     # rematerialisation of the backbone stages: torch checkpointing is queued
