@@ -26,8 +26,15 @@ airv2x_tpu/data/opv2v_dataset.py, the LiDAR branch).
     stacked into ``cam_vehicle``. As in the JAX package, the ``*_bm2cp``
     YAMLs (``img_params`` at the top of the model args) load no camera,
     and no OPV2V sample carries ``depth_maps`` (ROADMAP §3).
+  * with ``use_radar`` (V2X-R), each chosen cav's ``<timestamp>_radar.pcd``
+    into an (L, max_points // 4, 4) buffer through the same transform and
+    range crop, without the ego mask: ``radar_points`` /
+    ``radar_points_mask``, the current frame's in a temporal sample. The
+    configs' ``fusion.args.use_radar`` is read by neither package: the
+    caller passes ``use_radar`` (ROADMAP §3).
 
-Radar points and the MDD clean-point mask (V2X-R, ROADMAP §1 item 7) raise.
+The MDD clean-point mask of V2X-R training samples (ROADMAP §1 item 7)
+raises.
 """
 
 from __future__ import annotations
@@ -110,10 +117,8 @@ class OPV2VDataset:
     def __init__(self, hypes: dict, split_dir: str, train: bool = True,
                  use_radar: bool = False, seed: int = 0,
                  wild: WildSettings | None = None):
-        if use_radar:
-            raise NotImplementedError(
-                "V2X-R radar points are not ported (ROADMAP §1 item 7)")
         self.train = train
+        self.use_radar = use_radar
         self.seed = seed
         self.wild = wild or WildSettings()
         max_cav = hypes["train_params"]["max_cav"]
@@ -212,6 +217,8 @@ class OPV2VDataset:
         L, n = self.layout.total, self.max_points
         points = np.zeros((L, n, 4), np.float32)
         points_mask = np.zeros((L, n), bool)
+        radar_points = np.zeros((L, n // 4, 4), np.float32)
+        radar_mask = np.zeros((L, n // 4), bool)
         agent_mask = np.zeros((L,), bool)
         prior = np.zeros((L, 3), np.float32)
         pairwise = np.tile(np.eye(4, dtype=np.float32), (L, 1, 1))
@@ -240,6 +247,14 @@ class OPV2VDataset:
                                             self.train, rng)
                 if cam is not None:
                     cam_slots[slot] = cam
+            rpcd = os.path.join(spath, cav, f"{stamp}_radar.pcd")
+            if self.use_radar and os.path.isfile(rpcd):
+                cnt = load_pcd_into(
+                    rpcd, radar_points[slot],
+                    transform=(t_cav_ego.astype(np.float32) if self.proj_first
+                               else None),
+                    lidar_range=lidar_range, ego_mask=0.0)
+                radar_mask[slot, :cnt] = True
         if not self.proj_first:
             for i, t_i in enumerate(t_cav_ego_all):
                 for j, t_j in enumerate(t_cav_ego_all):
@@ -264,6 +279,9 @@ class OPV2VDataset:
         batch = {"points": points, "points_mask": points_mask,
                  "agent_mask": agent_mask, "pairwise_t": pairwise,
                  "pairwise_t_full": pairwise_full, "prior_encoding": prior}
+        if self.use_radar:
+            batch["radar_points"] = radar_points
+            batch["radar_points_mask"] = radar_mask
         if cam_slots:
             batch["cam_vehicle"] = stack_cam_slots(cam_slots, L)
         gt = {"boxes": boxes, "mask": mask, "classes": classes}

@@ -28,17 +28,22 @@ The registered models and their fusion:
   * point_pillar_disconet: DiscoNet's student, a per-pixel softmax over the
     present agents of weights that ``PixelWeightLayer`` predicts from
     [agent map, ego map], with the fused map as ``student_feature`` (NHWC)
-    for the distillation loss.
+    for the distillation loss;
+  * point_pillar_sicp: SiCP's gated pairwise fusion (``fusion/sicp.py``);
+    in train mode the ego alone through the shared heads as well.
 
-How2comm (``how2comm_model.py``) and CoAlign (``coalign_model.py``) build
-on the same spine; CoAlign names its ResNet backbone ``res_bev_backbone``.
+How2comm (``how2comm_model.py``), CoAlign (``coalign_model.py``), the
+attention backbones (``att_backbone_models.py``) and the V2X-R LiDAR +
+4D-radar models (``radar_models.py``) build on the same spine; CoAlign
+names its ResNet backbone ``res_bev_backbone``.
 
 Public outputs keep the JAX package's NHWC layout. A config with
 ``fast_pillars: false`` or more than one PFN layer takes the classic voxel
 path (``ops/voxelize.py`` -> ``models/pillar_vfe.py`` -> ``ops/scatter.py``).
 The ``NaiveCompressor`` (``compression > 0``, and the per-stage
-``base_bev_backbone.compression``) and radar points are not ported and
-raise.
+``base_bev_backbone.compression``) is not ported and raises. A radar cloud
+in the batch (``radar_points`` / ``radar_points_mask``) is read only by the
+models that fuse it.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.models.bev_backbone import BaseBEVBackbone
 from airv2x_tpu_torch.models.fusion.cobevt import SwapFusionEncoder
 from airv2x_tpu_torch.models.fusion.common import ego_agent_attention, max_fusion
+from airv2x_tpu_torch.models.fusion.sicp import SpatialFusion
 from airv2x_tpu_torch.models.fusion.v2vnet import V2VNetFusion
 from airv2x_tpu_torch.models.fusion.v2xvit import V2XTransformer
 from airv2x_tpu_torch.models.fusion.when2com import When2comFusion
@@ -69,7 +75,13 @@ def _rate(value: float, like: torch.Tensor) -> torch.Tensor:
 
 class PointPillarBase(nn.Module):
     """The shared spine; without a fusion the ego slot's map goes to the
-    heads."""
+    heads. A subclass may set ``_force_classic_vfe`` (the classic voxel path
+    whatever the config says) or ``_force_resnet_backbone`` (the ResNet
+    backbone whatever ``base_bev_backbone.resnet`` says), and override
+    ``backbone_in`` (the width of the map the backbone receives)."""
+
+    _force_classic_vfe = False
+    _force_resnet_backbone = False
 
     def __init__(self, args: dict):
         super().__init__()
@@ -81,22 +93,14 @@ class PointPillarBase(nn.Module):
         # BM2CP nests the trunk config (pc_params) and names its backbone and
         # shrink under modality_fusion, its backbone always the ResNet one
         pv = args.get("pillar_vfe") or args["pc_params"]["pillar_vfe"]
-        lidar_range, voxel_size = pre["cav_lidar_range"], pre["args"]["voxel_size"]
         self.pillar_kw = pillar_kwargs(pre)
         self.grid = self.pillar_kw["grid_size"]
         # the sort-free encoder serves single-PFN-layer configs; the classic
         # voxel path (pillarize -> PillarVFE -> scatter) the others
         self.fast_pillars = (bool(pre["args"].get("fast_pillars", True))
-                             and len(pv["num_filters"]) == 1)
-        vfe_cls = FastPillarBEV if self.fast_pillars else PillarVFE
-        self.vfe = vfe_cls(
-            num_filters=pv["num_filters"],
-            voxel_size=voxel_size,
-            lidar_range=lidar_range,
-            use_norm=pv["use_norm"],
-            with_distance=pv["with_distance"],
-            use_absolute_xyz=pv["use_absolute_xyz"],
-        )
+                             and len(pv["num_filters"]) == 1
+                             and not self._force_classic_vfe)
+        self.vfe = self.make_vfe(args)
         # CoAlign names its (ResNet) backbone res_bev_backbone, BM2CP its
         # modality_fusion.bev_backbone (ResNet too)
         bb = args.get("base_bev_backbone")
@@ -108,23 +112,53 @@ class PointPillarBase(nn.Module):
                   num_filters=bb["num_filters"],
                   upsample_strides=bb["upsample_strides"],
                   num_upsample_filters=bb["num_upsample_filter"])
-        if bb.get("resnet"):
+        in_ch = self.backbone_in(args)
+        if bb.get("resnet") or self._force_resnet_backbone:
             self.backbone = ResNetBEVBackbone(
-                inplanes=int(bb.get("inplanes", pv["num_filters"][-1])), **kw)
+                inplanes=int(bb.get("inplanes", pv["num_filters"][-1])),
+                in_ch=in_ch, **kw)
         else:
-            self.backbone = BaseBEVBackbone(in_ch=self.vfe.out_c, **kw)
-        head_in = self.backbone.out_channels
+            self.backbone = BaseBEVBackbone(in_ch=in_ch, **kw)
         # the map's (H, W) after the backbone: every deblock meets the first
         # stage's output upsampled by its own stride
-        self.feature_hw = tuple(
+        self.backbone_hw = tuple(
             g * int(bb["upsample_strides"][0]) // int(bb["layer_strides"][0])
             for g in (self.grid[1], self.grid[0]))
+        if int(args.get("compression", 0)) > 0:
+            raise NotImplementedError("NaiveCompressor is not ported")
+        self.build_heads(args, self.backbone.out_channels)
+
+    def make_vfe(self, args: dict, classic: bool = False) -> nn.Module:
+        """A pillar encoder of the config's ``pillar_vfe`` on the shared
+        grid: ``FastPillarBEV`` (K1) on the fast path unless ``classic``,
+        else ``PillarVFE``."""
+        pre = args["preprocess"]
+        pv = args.get("pillar_vfe") or args["pc_params"]["pillar_vfe"]
+        vfe_cls = FastPillarBEV if self.fast_pillars and not classic else PillarVFE
+        return vfe_cls(
+            num_filters=pv["num_filters"],
+            voxel_size=pre["args"]["voxel_size"],
+            lidar_range=pre["cav_lidar_range"],
+            use_norm=pv["use_norm"],
+            with_distance=pv["with_distance"],
+            use_absolute_xyz=pv["use_absolute_xyz"],
+        )
+
+    def backbone_in(self, args: dict) -> int:
+        """The width of the map the backbone receives: the VFE's."""
+        return self.vfe.out_c
+
+    def build_heads(self, args: dict, head_in: int) -> None:
+        """The shrink (where the config has one) on maps of ``head_in``
+        channels, then the heads on its output; ``feature_hw`` is the (H, W)
+        of the maps the heads see."""
         # a shrink_header block without a 'use' key is on when it has dims
         shrink = args.get("shrink_header")
         if shrink is None and "modality_fusion" in args:
             shrink = args["modality_fusion"].get("shrink_header")
         shrink = shrink or {}
         self.shrink_conv = None
+        self.feature_hw = self.backbone_hw
         if shrink.get("use", bool(shrink.get("dim"))):
             self.shrink_conv = DownsampleConv(
                 head_in, dims=shrink["dim"], kernels=shrink["kernal_size"],
@@ -134,8 +168,6 @@ class PointPillarBase(nn.Module):
             for k, s, p in zip(shrink["kernal_size"], shrink["stride"], pads):
                 self.feature_hw = tuple((n + 2 * p - k) // s + 1
                                         for n in self.feature_hw)
-        if int(args.get("compression", 0)) > 0:
-            raise NotImplementedError("NaiveCompressor is not ported")
         self.head_in = head_in
         self.num_class = int(args.get("num_class", 1))
         anchors = int(args["anchor_number"])
@@ -150,20 +182,24 @@ class PointPillarBase(nn.Module):
         """The dtype the convolutions run in (bf16 after the serving cast)."""
         return self.cls_head.weight.dtype
 
+    def encode_cloud(self, points, mask, vfe):
+        """One cloud per agent, points (B, L, N, 4) and mask (B, L, N),
+        through ``vfe`` -> (B, L, ny, nx, C): one K1 launch over the B * L
+        clouds where ``vfe`` is a ``FastPillarBEV`` in eval mode (the classic
+        path: the pillarization, the PFN layers and the scatter in
+        PyTorch)."""
+        if isinstance(vfe, FastPillarBEV):
+            return vfe(points, mask)
+        pil = pillarize_batch(points.flatten(0, 1), mask.flatten(0, 1),
+                              **self.pillar_kw)
+        return pillar_bev(vfe, pil, self.grid).unflatten(0, points.shape[:2])
+
     def encode(self, batch):
         """points (B, L, N, 4), points_mask (B, L, N), agent_mask (B, L) ->
-        (B, L, ny, nx, C) BEV features, zero for absent agents: one K1
-        launch over the B * L clouds in eval mode (the classic path: the
-        pillarization, the PFN layers and the scatter in PyTorch)."""
-        if "radar_points" in batch:
-            raise NotImplementedError("radar points are not ported")
-        pts, mask = batch["points"], batch["points_mask"]
-        if self.fast_pillars:
-            bev = self.vfe(pts, mask)
-        else:
-            pil = pillarize_batch(pts.flatten(0, 1), mask.flatten(0, 1),
-                                  **self.pillar_kw)
-            bev = pillar_bev(self.vfe, pil, self.grid).unflatten(0, pts.shape[:2])
+        (B, L, ny, nx, C) BEV features, zero for absent agents. A radar
+        cloud in the batch is not read here (only the LiDAR + radar models
+        read it)."""
+        bev = self.encode_cloud(batch["points"], batch["points_mask"], self.vfe)
         return bev * batch["agent_mask"][:, :, None, None, None].to(bev.dtype)
 
     def backbone_2d(self, x):
@@ -418,4 +454,42 @@ class PointPillarDiscoNet(PointPillarBase):
         out = self.heads(fused)
         out["comm_rate"] = rate
         out["student_feature"] = fused.permute(0, 2, 3, 1)
+        return out
+
+
+class PointPillarSiCP(PointPillarBase):
+    """Flat SiCP (``point_pillar_sicp``): ``SpatialFusion`` of the ego with
+    each sender warped into its frame. The config puts ``in_channels`` (the
+    pair's width, twice an agent's) and ``out_channels`` at the top of the
+    model args (or under ``fusion``). In train mode the outputs also carry
+    the ego alone through the shared heads (``psm1`` / ``rm1``) and the
+    fused heads again (``psm2`` / ``rm2``) for SiCP's dual loss."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        fcfg = args.get("fusion") or {
+            k: args[k] for k in ("in_channels", "out_channels", "voxel_size",
+                                 "downsample_rate") if k in args}
+        self.fusion_net = SpatialFusion(int(fcfg["in_channels"]),
+                                        int(fcfg["out_channels"]))
+        vs = fcfg.get("voxel_size") or args["preprocess"]["args"]["voxel_size"]
+        self.discrete_ratio = vs[0]
+        self.downsample_rate = fcfg.get("downsample_rate", 2)
+
+    def fuse(self, grouped, batch):
+        return (self.fusion_net(grouped, batch["agent_mask"],
+                                batch["pairwise_t_full"],
+                                discrete_ratio=self.discrete_ratio,
+                                downsample_rate=self.downsample_rate),
+                _rate(1.0, grouped))
+
+    def forward(self, batch):
+        grouped = self.backbone_2d(self.encode(batch))
+        fused, rate = self.fuse(grouped, batch)
+        out = self.heads(fused)
+        out["comm_rate"] = rate
+        if self.training:
+            solo = self.heads(grouped[:, 0])
+            out["psm1"], out["rm1"] = solo["psm"], solo["rm"]
+            out["psm2"], out["rm2"] = out["psm"], out["rm"]
         return out

@@ -13,13 +13,21 @@ student), ``point_pillar_how2comm``, ``point_pillar_coalign`` and
 ``point_pillar_scope`` (SCOPE temporal detection); the heterogeneous-collaboration models
 ``airv2x_heal``, ``airv2x_stamp`` and ``airv2x_sicp``; early fusion
 (``point_pillar_early`` / ``airv2x_early`` and the DiscoNet teacher
-``point_pillar_disconet_teacher``); and BM2CP (``airv2x_bm2cp``, det or seg,
-and the flat ``point_pillar_bm2cp``)."""
+``point_pillar_disconet_teacher``); BM2CP (``airv2x_bm2cp``, det or seg,
+and the flat ``point_pillar_bm2cp``); and V2X-R: the flat SiCP
+(``point_pillar_sicp``), the attention backbones
+(``point_pillar_spatialcooper`` / ``point_pillar_adafusion``, ``PFA_net`` /
+``pfanet`` / ``pfa_net``, ``point_pillar_attresnet``), the eight LiDAR +
+4D-radar ``*_lrf`` twins, L4DR (``point_pillar_l4dr`` /
+``point_pillar_L4DR``) and InterFusion (``point_pillar_interf`` /
+``point_pillar_InterF``). RTNH and MDD (``UNPORTED``) raise."""
 
 from __future__ import annotations
 
 import torch
 
+from airv2x_tpu_torch.models.att_backbone_models import (
+    PFAnet, PointPillarAttResNet, PointPillarSpatialCooper)
 from airv2x_tpu_torch.models.bm2cp_model import Airv2xBM2CP
 from airv2x_tpu_torch.models.coalign_model import PointPillarCoAlign
 from airv2x_tpu_torch.models.early_fusion_model import (
@@ -32,9 +40,12 @@ from airv2x_tpu_torch.models.intermediate_models import (
 from airv2x_tpu_torch.models.lss_model import LiftSplatShoot
 from airv2x_tpu_torch.models.point_pillar_models import (
     PointPillar, PointPillarBaselineMultiscale, PointPillarCoBEVT,
-    PointPillarDiscoNet, PointPillarIntermediate, PointPillarMax, PointPillarV2VNet,
-    PointPillarV2XViT, PointPillarWhen2com, PointPillarWhere2comm)
+    PointPillarDiscoNet, PointPillarIntermediate, PointPillarMax, PointPillarSiCP,
+    PointPillarV2VNet, PointPillarV2XViT, PointPillarWhen2com,
+    PointPillarWhere2comm)
 from airv2x_tpu_torch.models.point_pillar_bm2cp_model import PointPillarBM2CP
+from airv2x_tpu_torch.models.radar_models import (
+    LRF_MODELS, PointPillarInterF, PointPillarL4DR)
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
 from airv2x_tpu_torch.models.stamp_model import Airv2xSiCP, Airv2xSTAMP
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
@@ -74,7 +85,21 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "airv2x_early": PointPillarEarly,
                   "point_pillar_disconet_teacher": PointPillarDiscoNetTeacher,
                   "airv2x_bm2cp": Airv2xBM2CP,
-                  "point_pillar_bm2cp": PointPillarBM2CP}
+                  "point_pillar_bm2cp": PointPillarBM2CP,
+                  "point_pillar_sicp": PointPillarSiCP,
+                  "point_pillar_spatialcooper": PointPillarSpatialCooper,
+                  "point_pillar_adafusion": PointPillarSpatialCooper,
+                  "PFA_net": PFAnet, "pfanet": PFAnet, "pfa_net": PFAnet,
+                  "point_pillar_attresnet": PointPillarAttResNet,
+                  **LRF_MODELS,
+                  "point_pillar_l4dr": PointPillarL4DR,
+                  "point_pillar_L4DR": PointPillarL4DR,
+                  "point_pillar_interf": PointPillarInterF,
+                  "point_pillar_InterF": PointPillarInterF}
+# JAX names the port has not ported yet: RTNH's sparse 3-D backbone and the
+# MDD diffusion denoiser (ROADMAP §1 item 7)
+UNPORTED = ("RTNH_intermediate", "rtnh_intermediate",
+            "point_pillar_intermediate_lrf_MDD", "point_pillar_mdd")
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 
@@ -96,6 +121,9 @@ def build_model(hypes: dict, *, device="cuda", train: bool = False):
     """
     dev = resolve_device(device)
     name = hypes["model"]["core_method"]
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"'{name}' is not ported yet (ROADMAP §1 item 7)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(MODEL_REGISTRY)}")
     args = dict(hypes["model"]["args"])

@@ -92,14 +92,17 @@ class PointPillarScope(PointPillarBase):
 
     @staticmethod
     def _frame(batch, i):
-        return {k: batch[k][:, i]
-                for k in ("points", "points_mask", "agent_mask")}
+        """Frame i's batch. A radar cloud is sliced ``[:, i]`` as the JAX
+        package slices it: the datasets give the current frame's radar only
+        (no time axis), so there the slice takes agent i's cloud, which no
+        model but a ``_lrf`` twin reads."""
+        keys = ("points", "points_mask", "agent_mask", "radar_points",
+                "radar_points_mask")
+        return {k: batch[k][:, i] for k in keys if k in batch}
 
     def frame_features(self, batch):
         """Stage 1: per frame (BEV features (B, L, ny, nx, C), backbone +
         shrink maps (B, L, C', H, W))."""
-        if "radar_points" in batch:
-            raise NotImplementedError("radar points are not ported")
         frames = []
         for i in range(batch["points"].shape[1]):
             spatial = self.encode(self._frame(batch, i))

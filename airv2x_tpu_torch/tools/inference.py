@@ -41,6 +41,7 @@ from airv2x_tpu_torch.models import build_model
 from airv2x_tpu_torch.models.registry import compute_dtype
 from airv2x_tpu_torch.ops import geometry as geo
 from airv2x_tpu_torch.ops.anchors import generate_anchor_grid
+from airv2x_tpu_torch.tools.train import needs_radar
 from airv2x_tpu_torch.utils.checkpoint import find_best_epoch, load_model_weights
 from airv2x_tpu_torch.utils.device import resolve_device
 from airv2x_tpu_torch.utils.weights import cast_weights_
@@ -86,9 +87,11 @@ def scenes(hypes, layout, test_dir: str, num_scenes: int, seed: int,
     """(source line, iterator of (scenario, batch, gt)): the samples of
     the AirV2X split at ``test_dir`` (at most ``max_samples``, 0 = all)
     when it exists, else ``num_scenes`` synthetic ``make_scene`` scenes in
-    four scenario buckets (LiDAR only, as the JAX CLIs' fallback: a camera
-    config needs the dataset)."""
+    four scenario buckets (LiDAR, plus a radar cloud for the models that
+    read one, as the JAX CLIs' fallback: a camera config needs the
+    dataset)."""
     max_points = int(hypes["preprocess"].get("max_points", 8192))
+    radar = needs_radar(hypes)
     if test_dir and os.path.isdir(test_dir):
         ds = AirV2XDataset(hypes, test_dir, train=False)
         n = min(len(ds), max_samples) if max_samples else len(ds)
@@ -104,7 +107,8 @@ def scenes(hypes, layout, test_dir: str, num_scenes: int, seed: int,
         for i in range(num_scenes):
             batch, gt = make_scene(
                 rng, layout, num_objects=num_objects, points_per_agent=max_points,
-                lidar_range=hypes["preprocess"]["cav_lidar_range"])
+                lidar_range=hypes["preprocess"]["cav_lidar_range"],
+                radar_points_per_agent=max_points // 8 if radar else 0)
             yield f"synthetic_{i % 4}", batch, gt
 
     absent = f" (no dataset at {test_dir})" if test_dir else ""

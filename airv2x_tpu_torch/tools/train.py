@@ -20,9 +20,11 @@ lack). One optimizer update per batch, with the reference's run-dir layout:
 per saved epoch, ``train_loss.txt`` and ``validation_loss.txt``.
 ``--model_dir`` resumes from the last checkpoint of that run dir, with its
 ``config.yaml``. ``--half`` is accepted and read nowhere, as in the JAX
-CLI. Radar configs raise before anything is built, and so does a BM2CP
-config without a dataset (the JAX CLI cannot train it on synthetic scenes
-either).
+CLI. The LiDAR + 4D-radar models (``needs_radar``) get a radar cloud of
+``max_points // 8`` points per agent on synthetic scenes, as the JAX CLI
+draws it. RTNH and MDD configs raise before anything is built, and so do a
+radar-only AdaFusion config and a BM2CP config without a dataset (the JAX
+CLI cannot train either on synthetic scenes).
 """
 
 from __future__ import annotations
@@ -115,13 +117,35 @@ def build_real_loaders(hypes, opt, batch_size, device):
     return train_loader, val_loader
 
 
-def refuse_unported(hypes, synthetic: bool = False) -> None:
-    """Raise NotImplementedError for a config the port cannot train: the
-    V2X-R radar families; and, on synthetic scenes, BM2CP, which cannot
-    train there in the JAX CLI either (ROADMAP §3)."""
+def needs_radar(hypes) -> bool:
+    """Whether the model reads a radar cloud, by its name as the JAX CLIs
+    decide it (``l4dr``, ``lrf``, ``interf``, ``mdd``): those get
+    ``max_points // 8`` radar points per agent on synthetic scenes."""
     core = hypes["model"]["core_method"].lower()
-    if any(k in core for k in ("l4dr", "lrf", "interf", "mdd")):
-        raise NotImplementedError("radar configs are not ported")
+    return any(k in core for k in ("l4dr", "lrf", "interf", "mdd"))
+
+
+def refuse_unported(hypes, synthetic: bool = False) -> None:
+    """Raise NotImplementedError for a config the port cannot train: RTNH and
+    MDD (ROADMAP §1 item 7); and, on synthetic scenes, a radar-only
+    SpatialCooper / PFA-Net (``use_modality: processed_radar`` among the
+    model args, ``4DRadar/V2XR_adafusion.yaml``), whose name the JAX CLI's
+    ``needs_radar`` leaves out, so its batches carry no radar cloud for the
+    model to read, and BM2CP, which cannot train there in the JAX CLI either
+    (ROADMAP §3)."""
+    core = hypes["model"]["core_method"].lower()
+    if any(k in core for k in ("mdd", "rtnh")):
+        raise NotImplementedError(
+            f"'{hypes['model']['core_method']}' is not ported yet "
+            "(ROADMAP §1 item 7)")
+    radar_only = (str(hypes["model"]["args"].get("use_modality", ""))
+                  == "processed_radar")
+    if synthetic and radar_only and not needs_radar(hypes):
+        raise NotImplementedError(
+            "this config encodes the radar cloud (model.args.use_modality: "
+            "processed_radar), but synthetic scenes carry radar points only "
+            "for the l4dr / lrf / interf / mdd models, as the JAX CLI draws "
+            "them: it trains and serves on a V2X-R dataset (ROADMAP §3)")
     if synthetic and "bm2cp" in core:
         raise NotImplementedError(
             "BM2CP trains on a dataset only: the synthetic batches carry no "
@@ -152,6 +176,9 @@ def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
             points_per_agent=int(hypes["preprocess"].get("max_points", 8192)),
             lidar_range=hypes["preprocess"]["cav_lidar_range"],
             max_boxes=hypes["postprocess"]["max_num"],
+            radar_points_per_agent=(
+                int(hypes["preprocess"].get("max_points", 8192)) // 8
+                if needs_radar(hypes) else 0),
         )
         yield add_camera_batch(batch, hypes, layout, rng)
 

@@ -68,7 +68,7 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      agents and on the outputs of the scene with only the ego agent;
   5. the full flagship Where2comm det path (vehicle 3 / rsu 2 / drone 1,
      20,000 points per agent, bf16, seeded random weights, top_k 512) on
-     8 scenes, timed N_RUNS (2) times after a warm-up: forward, decode and rotated
+     8 scenes, timed N_RUNS (1) times after a warm-up: forward, decode and rotated
      NMS per scene; median ms/scene and scenes/s, median per-stage ms, peak
      memory, kept detections, NMS passes, and the kernels' launch counts
      during the timed runs (K1 3x, K2 1x per scene), and the kept
@@ -293,6 +293,25 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      and CoAlign trained COALIGN_STEPS steps at batch 2 on the OPV2V split
      with the anchor grid in the labels (the IoU term finite); ms/step and
      peak memory; a ``flat_rest_train`` JSON line;
+  22. V2X-R (``phase_v2xr``, ``phase_v2xr_train``): phase 18's OPV2V split
+     written again with a ``<stamp>_radar.pcd`` per cav (every 16th LiDAR
+     point, jittered by 0.15 m: ~3,100 points, a few thousand in range);
+     the 27 in-scope V2X-R YAMLs (``V2XR_YAMLS``: all but RTNH and MDD)
+     whole at full width, bf16, batch 1, random weights, through
+     ``OPV2VDataset(use_radar=True)``: the new model classes
+     (``V2XR_TIMED``: SpatialCooper on LiDAR and on radar, PFA-Net, flat
+     SiCP, the eight ``_lrf`` twins, L4DR, InterF with its pillar cap cut
+     to INTERF_VOXELS, AttResNet on the LiDAR CoAlign YAML) timed on the 4
+     loaded scenes as phase 18 times its configs, with a one-scene profile
+     window; the other YAMLs (the LiDAR and 4DRadar twins of ported
+     models, SCOPE) on one loaded scene in ``pallas``; every config's
+     kernel inputs held to the plain versions (K1 on the radar clouds, K4a
+     on each of L4DR's three stacks), its launches per scene asserted
+     (``v2xr_per_scene``: K1 2 per frame on an ``_lrf`` twin, 1 on L4DR, 0
+     on InterF; K4a 16, 48 on L4DR, 0 on the ResNet backbones; K2 for the
+     NMS and the AP) and its outputs finite; then L4DR and the LiDAR +
+     radar AttFusion twin trained at batch 2 on the split with the
+     repeated-batch check; ``v2xr`` and ``v2xr_train`` JSON lines;
   4b. (run after phase 16, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
@@ -340,9 +359,9 @@ next of up to REPEAT_BATCHES batches is taken the same way, and the
 training fails when it learned none (``learned_a_batch``).
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11, 12, 15, 16, 18 and 19), each counted CLI run of phases 13, 15 and 16
-and each evaluation of phases 17, 18 and 19, and read just after; the ``kernels`` line sums them
-over those runs. Every profile window
+11, 12, 15, 16 and 18-22), each counted CLI run of phases 13, 15, 16 and 21,
+each evaluation of phases 17, 18 and 19 and each single run of phase 22,
+and read just after; the ``kernels`` line sums them over those runs. Every profile window
 gives each kernel, copy and memset PyTorch launched to the one stage whose
 host range holds its launch (``launch_ranges``), counts the port's own
 kernels (K1 / K2 / K4, launched through ctypes) apart, and requires the
@@ -386,7 +405,7 @@ NUM_AGENTS = {"vehicle": 3, "rsu": 2, "drone": 1}
 NCAM = {"vehicle": 6, "rsu": 4, "drone": 1}  # the reference's camera rigs
 POINTS_PER_AGENT = 20000
 N_SCENES = 8
-N_RUNS = 2  # timed runs over the scenes (3 until PR 14)
+N_RUNS = 1  # timed runs over the scenes
 # scenes in each profile window of the serving phases 6, 7, 10-12, 15, 16,
 # 18 and 19 (3, or 4 in phase 18, until PR 14): processing a window's trace
 # takes seconds per scene it holds
@@ -1046,7 +1065,9 @@ def phase_build():
 
     print(smi("name,power.limit"))
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
+          f"CUDA {torch.version.cuda}; host {os.cpu_count()} CPUs, torch "
+          f"{torch.get_num_threads()} threads (the full-width CPU forwards of "
+          "phases 11, 12 and 15)")
     t0 = time.perf_counter()
     logs = kernels.build_all()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s for "
@@ -3775,7 +3796,7 @@ def phase_eval(card):
 # Phase 16: the camera configs on disk. CAMERA_SCENES timestamps of
 # write_scenario's scenario with cameras, each a timed scene, CAMERA_RUNS
 # timed runs per path and mode after a warm-up
-CAMERA_SCENES = 3
+CAMERA_SCENES = 2
 CAMERA_RUNS = 1  # 2 until PR 14
 # the tiny camera scene of phase 16 and tests/test_torch_camera_models.py:
 # tests/test_torch_camera.py's two scenes (seed 3: every frustum point more
@@ -4346,14 +4367,19 @@ def launch_ranges(prof, prefixes):
     return out
 
 
-def phase_profile(label, run, scenes, top=15, unit="scene", n=3):
+def phase_profile(label, run, scenes, top=15, unit="scene", n=3,
+                  device_only=False):
     """Device time by kernel over ``n`` scenes (or train steps: ``unit``)
     of a path, the device's idle share of that window (torch.profiler /
-    CUPTI), and the device time of the kernels launched in each stage."""
+    CUPTI), and the device time of the kernels launched in each stage.
+    ``device_only`` records the device's activity alone (no host ranges,
+    so no stages: a train step's window, whose host events are many and
+    were most of the window's processing time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = ([ProfilerActivity.CUDA] if device_only
+            else [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4364,7 +4390,8 @@ def phase_profile(label, run, scenes, top=15, unit="scene", n=3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     stage_busy = {}
-    for key, us in launch_ranges(prof, ("stage ",)).items():
+    for key, us in ({} if device_only else
+                    launch_ranges(prof, ("stage ",))).items():
         i = int(key.split()[1])
         if i < len(marks.names):
             name = marks.names[i]
@@ -4676,7 +4703,8 @@ def phase_train(label, card, hypes, model, batches, steps=TRAIN_STEPS,
         raise AssertionError(f"{label}: a non-finite loss part")
     window = [batches[i % len(batches)] for i in range(profiled)]
     prof = (phase_profile(f"{label} [{card}]", lambda b, mark: step(state, b),
-                          window, top=10, unit="step", n=profiled)
+                          window, top=10, unit="step", n=profiled,
+                          device_only=True)
             if profiled else None)
     kw = {}
     if getattr(model, "DRAWS_KEEP_FRACTION", False):
@@ -4760,7 +4788,7 @@ TRAIN_MODEL_PATHS = (
     ("lidar", "det", "v2vnet"), ("lidar", "det", "when2com"),
     ("lidar", "seg", "v2xvit"), ("camera", "det", "where2comm"),
     ("camera", "det", "lss"))
-TRAIN_MODEL_STEPS = 3  # timed, after a warm-up of 2
+TRAIN_MODEL_STEPS = 2  # timed, after a warm-up of 2
 TRAIN_MODEL_REPEATS = 16
 TRAIN_MODEL_BATCHES = 2
 CLI_CAMERA_STAMPS = 2  # the camera train CLI's on-disk scenario
@@ -5145,24 +5173,29 @@ def dair_raw_check(card, hypes, root, raw_root, work):
     return out
 
 
-def disk_items(hypes, dataset, root):
-    """Every sample of the split through the config's dataset and
-    ``RealDataLoader`` (batch 1, eval) on the card: (batch, gt quads)
-    pairs. OPV2V batches come from the loader's iterator; DAIR samples
-    through its collate (its ``__getitem__`` takes no epoch: ROADMAP §3).
-    A temporal batch gets its pairwise transforms repeated over the frames
-    (``pairwise_over_frames``)."""
+def disk_items(hypes, dataset, root, use_radar=False, limit=None):
+    """Every sample (the first ``limit``) of the split through the config's
+    dataset and ``RealDataLoader`` (batch 1, eval) on the card: (batch, gt
+    quads) pairs. OPV2V batches come from the loader's iterator (one sample
+    only: its collate); DAIR samples through its collate (its
+    ``__getitem__`` takes no epoch: ROADMAP §3). ``use_radar`` reads the
+    V2X-R radar clouds too. A temporal batch gets its pairwise transforms
+    repeated over the frames (``pairwise_over_frames``)."""
     from airv2x_tpu_torch.data.dair_dataset import DAIRDataset
     from airv2x_tpu_torch.data.loader import RealDataLoader
     from airv2x_tpu_torch.data.opv2v_dataset import (
         OPV2VDataset, pairwise_over_frames)
     from airv2x_tpu_torch.ops import geometry as geo
 
-    if dataset == "opv2v":
-        ds = OPV2VDataset(hypes, root, train=False)
+    if dataset == "opv2v" and limit == 1:
+        ds = OPV2VDataset(hypes, root, train=False, use_radar=use_radar)
+        loader = RealDataLoader(ds, hypes, 1, train=False, device="cuda")
+        pairs = [loader._collate([ds[0]])]
+    elif dataset == "opv2v":
+        ds = OPV2VDataset(hypes, root, train=False, use_radar=use_radar)
         loader = RealDataLoader(ds, hypes, 1, train=False, num_workers=2,
                                 device="cuda")
-        pairs = list(loader.batches(0, with_gt=True))
+        pairs = list(loader.batches(0, with_gt=True))[:limit]
     else:
         ds = DAIRDataset(hypes, root, train=False)
         loader = RealDataLoader(ds, hypes, 1, train=False, device="cuda")
@@ -5186,7 +5219,7 @@ def disk_model(hypes, calibrate_on=None):
 
     model = init_random_(build_model(hypes, device="cuda"), seed=0,
                          device="cuda")
-    if hypes["model"]["core_method"] == "point_pillar_scope":
+    if hypes["model"]["core_method"].startswith("point_pillar_scope"):
         with torch.no_grad():
             model.cls_head.weight.mul_(SCOPE_CLS_SCALE)
     if calibrate_on is not None:
@@ -5234,12 +5267,15 @@ KERNEL_CALL_SITES = (("airv2x_tpu_torch.ops.fast_pillars", "pillar_encode"),
 
 
 @contextlib.contextmanager
-def recorded_kernel_inputs(seen: dict):
+def recorded_kernel_inputs(seen: dict, every: bool = False):
     """Within the block every call of a KERNEL_CALL_SITES wrapper passes
     through, and the first call of each wrapper and input (shapes, types,
-    options) leaves its arguments in ``seen``."""
+    options) leaves its arguments in ``seen``; with ``every``, each call
+    does (inputs of one shape from several modules, as L4DR's three conv
+    stacks give)."""
     import importlib
 
+    calls = itertools.count()
     saved = []
     for mod_name, attr in KERNEL_CALL_SITES:
         mod = importlib.import_module(mod_name)
@@ -5252,6 +5288,8 @@ def recorded_kernel_inputs(seen: dict):
                 if torch.is_tensor(a)) + tuple(sorted(
                     (k, str(v)) for k, v in kw.items()
                     if not torch.is_tensor(v) and v is not None))
+            if every:
+                key += (next(calls),)
             seen.setdefault(key, (args, kw))
             return _fn(*args, **kw)
 
@@ -5343,14 +5381,15 @@ def check_kernel_inputs(label, seen: dict, done: set) -> list:
     return rows
 
 
-def time_disk(label, run, items, hypes, mode, checked=None):
+def time_disk(label, run, items, hypes, mode, checked=None, per_scene=None):
     """Warm-up, then DISK_RUNS timed runs over ``items``: ms/scene, peak
     memory, kept detections, and the launches asserted per scene (K1 once
     per frame, K4a ``disk_convs`` in ``pallas``, K2 once for the NMS and
     once more where the AP had detections and gt to match). Where
     ``checked`` is given, the warm-up's kernel inputs not in it are held to
     the plain versions before the counts and the peak are reset
-    (``check_kernel_inputs``; its rows under "kernel_checks")."""
+    (``check_kernel_inputs``; its rows under "kernel_checks").
+    ``per_scene`` gives other K1 / K4a (``pallas``) launches per scene."""
     from airv2x_tpu_torch import kernels
     from airv2x_tpu_torch.data.opv2v_dataset import temporal_frames
 
@@ -5376,8 +5415,8 @@ def time_disk(label, run, items, hypes, mode, checked=None):
         run_ms.append((time.perf_counter() - t0) / len(items) * 1e3)
     launches = dict(kernels.LAUNCHES)
     n = DISK_RUNS * len(items)
-    want = {"pillar_encode": temporal_frames(hypes) * n,
-            "conv3x3": disk_convs(hypes) * n if mode == "pallas" else 0,
+    k1, k4 = per_scene or (temporal_frames(hypes), disk_convs(hypes))
+    want = {"pillar_encode": k1 * n, "conv3x3": k4 * n if mode == "pallas" else 0,
             "quad_iou": n + ap}
     got = {k: launches.get(k, 0) for k in want}
     if got != want or launches.get("pillar_reduce", 0):
@@ -5608,7 +5647,7 @@ HETERO_PATHS = tuple(
     for m, t in (("lidar", "det"), ("lidar", "seg"), ("camera", "det"))
 ) + (("lidar", "det", "sicp"), ("lidar", "seg", "sicp"),
      ("camera", "det", "sicp"), ("camera", "seg", "sicp"))
-HETERO_SCENES = 4  # LiDAR scenes with perturbed poses (camera: phase 16's 3)
+HETERO_SCENES = 2  # LiDAR scenes with perturbed poses (camera: phase 16's)
 HETERO_RUNS = 1  # timed runs per config and mode, after a warm-up
 # phase 19's tiny models: init_random_'s seed, the first from 3 up whose
 # decoded IoUs on the CPU lie more than 10 x ROI_MARGIN from the NMS
@@ -6815,6 +6854,268 @@ def phase_flat_rest_train(card, disk_roots):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: V2X-R (LiDAR, 4D radar and LiDAR + radar fusion)
+
+V2XR_DIR = "hypes_yaml/V2X-R"
+# the 27 YAMLs the port serves (RTNH and MDD are ROADMAP §1 item 7)
+V2XR_YAMLS = tuple(f"LiDAR/V2XR_{n}.yaml" for n in (
+    "adafusion", "attfuse", "coalign", "cobevt", "scope", "sicp", "v2xvit",
+    "where2comm")) + tuple(f"4DRadar/V2XR_{n}.yaml" for n in (
+        "PFA_net", "adafusion", "attfuse", "coalign", "cobevt", "scope", "sicp",
+        "v2xvit", "where2comm")) + tuple(f"L_4DR_Fusion/V2XR_{n}.yaml" for n in (
+            "AdaFusion", "AttFuse", "CoAlign", "Cobevt", "InterFusion", "L4DR",
+            "Scope", "Sicp", "V2XViT", "where2comm"))
+# the new model classes, timed: (name, YAML, core_method in its place or
+# None); AttResNet and SCOPE's LRF twin have no YAML of their own
+V2XR_TIMED = (
+    ("spatialcooper", "LiDAR/V2XR_adafusion.yaml", None),
+    ("spatialcooper radar", "4DRadar/V2XR_adafusion.yaml", None),
+    ("pfa_net", "4DRadar/V2XR_PFA_net.yaml", None),
+    ("sicp", "LiDAR/V2XR_sicp.yaml", None),
+    ("intermediate_lrf", "L_4DR_Fusion/V2XR_AttFuse.yaml", None),
+    ("v2xvit_lrf", "L_4DR_Fusion/V2XR_V2XViT.yaml", None),
+    ("cobevt_lrf", "L_4DR_Fusion/V2XR_Cobevt.yaml", None),
+    ("where2comm_lrf", "L_4DR_Fusion/V2XR_where2comm.yaml", None),
+    ("coalign_lrf", "L_4DR_Fusion/V2XR_CoAlign.yaml", None),
+    ("spatialcooper_lrf", "L_4DR_Fusion/V2XR_AdaFusion.yaml", None),
+    ("sicp_lrf", "L_4DR_Fusion/V2XR_Sicp.yaml", None),
+    ("scope_lrf", "L_4DR_Fusion/V2XR_Scope.yaml", "point_pillar_scope_lrf"),
+    ("l4dr", "L_4DR_Fusion/V2XR_L4DR.yaml", None),
+    ("interf", "L_4DR_Fusion/V2XR_InterFusion.yaml", None),
+    ("attresnet", "LiDAR/V2XR_coalign.yaml", "point_pillar_attresnet"))
+V2XR_TRAIN = ("L_4DR_Fusion/V2XR_L4DR.yaml", "L_4DR_Fusion/V2XR_AttFuse.yaml")
+V2XR_RADAR_EVERY = 16  # the radar cloud: every 16th LiDAR point (~3,100)
+V2XR_RADAR_NOISE = 0.15  # m, on x, y and z
+# InterF's pillar cap per agent, cut from its YAML's 32,000: its attention
+# energy is (B, 32, N, N) with N = 5 agents x the cap (ROADMAP §3); at 4,000
+# one point slot's (1, N, N) is 0.8 GB in bf16
+INTERF_VOXELS = 4000
+
+
+def write_v2xr_split(root, rng):
+    """A V2X-R split: phase 18's OPV2V split (``write_opv2v_split``) plus a
+    ``<stamp>_radar.pcd`` per cav and stamp, every V2XR_RADAR_EVERY-th
+    point of its LiDAR cloud jittered by N(0, V2XR_RADAR_NOISE) m."""
+    from airv2x_tpu_torch.data.pcd import read_pcd, write_pcd
+
+    write_opv2v_split(root, rng)
+    scen = os.path.join(root, DISK_SCENARIO)
+    for cav in sorted(os.listdir(scen)):
+        for t in range(DISK_STAMPS):
+            pts = read_pcd(os.path.join(scen, cav, f"{t:06d}.pcd"))
+            radar = pts[::V2XR_RADAR_EVERY].copy()
+            radar[:, :3] += rng.normal(0, V2XR_RADAR_NOISE, (len(radar), 3))
+            write_pcd(os.path.join(scen, cav, f"{t:06d}_radar.pcd"), radar)
+
+
+def v2xr_hypes(path, core=None):
+    """A V2X-R YAML as ``disk_hypes`` reads an OPV2V one (bf16; SCOPE's
+    ``fusion_args.frame`` as ``num_sweep_frames``), ``core`` in place of
+    its model's core_method, InterF's pillar cap cut to INTERF_VOXELS."""
+    from airv2x_tpu_torch.config import load_yaml
+
+    hypes = load_yaml(os.path.join(REPO, V2XR_DIR, path))
+    args = hypes["model"]["args"]
+    args["dtype"] = "bf16"
+    fa = args.get("fusion_args")
+    if fa and "frame" in fa:
+        hypes.setdefault("fusion", {}).setdefault("args", {})[
+            "num_sweep_frames"] = int(fa["frame"])
+    if core:
+        hypes["model"]["core_method"] = core
+    if "interf" in hypes["model"]["core_method"]:
+        hypes["preprocess"]["args"]["max_voxel_train"] = INTERF_VOXELS
+    return hypes
+
+
+def v2xr_per_scene(hypes):
+    """(K1, K4a in ``pallas``) launches per scene, from the code: a K1 per
+    frame for each ``FastPillarBEV`` the model calls (the ``_lrf`` twins'
+    LiDAR and radar; L4DR's LiDAR only, its radar on the classic path;
+    none for InterF, whose attention reads the pillars' points); K4a the
+    plain backbone's stride-1 ConvBNReLUs, three stacks in L4DR's MGF."""
+    from airv2x_tpu_torch.data.opv2v_dataset import temporal_frames
+
+    core = hypes["model"]["core_method"].lower()
+    clouds = 0 if "interf" in core else 2 if "lrf" in core else 1
+    return (clouds * temporal_frames(hypes),
+            disk_convs(hypes) * (3 if "l4dr" in core else 1))
+
+
+def radar_over_frames(items):
+    """Loaded temporal batches with the current frame's radar cloud (the
+    dataset reads no other) repeated on a time axis after the batch axis,
+    where SCOPE's LRF twin takes frame i's as ``radar_points[:, i]``."""
+    out = []
+    for batch, quads in items:
+        t = batch["points"].shape[1]
+        batch = dict(batch)
+        for k in ("radar_points", "radar_points_mask"):
+            v = batch[k][:, None]
+            batch[k] = v.expand((v.shape[0], t) + v.shape[2:]).contiguous()
+        out.append((batch, quads))
+    return out
+
+
+def v2xr_once(label, card, hypes, item, checked):
+    """One loaded scene through the whole config in ``pallas`` (bf16,
+    random weights): its launches asserted (``v2xr_per_scene``, K2 for the
+    NMS and the AP), finite psm / rm, and every kernel input held to its
+    plain version (L4DR's every conv call: its three stacks give inputs of
+    equal shapes)."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.eval.ap import new_result_stat
+
+    model = disk_model(hypes)
+    run = disk_step(hypes, model, new_result_stat())
+    seen = {}
+    every = "l4dr" in hypes["model"]["core_method"]
+    kernels.reset_launch_counts()
+    with conv_mode("pallas"), recorded_kernel_inputs(seen, every=every):
+        out, kept, ap = run(item, no_mark)
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    k1, k4 = v2xr_per_scene(hypes)
+    want = {"pillar_encode": k1, "conv3x3": k4, "quad_iou": 1 + int(ap)}
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in ("psm", "rm"))
+    if {k: got.get(k, 0) for k in want} != want or not finite:
+        raise AssertionError(f"{label}: launches {got}, expected {want}, "
+                             f"finite {finite}")
+    rows = check_kernel_inputs(f"{label} [{card}]", seen, checked)
+    print(f"{label} [{card}]: one loaded scene in pallas, {kept} kept, "
+          f"launches {want}, {len(rows)} kernel inputs held to the plain "
+          "versions")
+    del model
+    return got, rows
+
+
+def phase_v2xr(card, work):
+    """Phase 22 (a) and (b): a V2X-R split (``write_v2xr_split``) under
+    ``work``; every V2XR_YAMLS config whole at full width (5 vehicles,
+    704 x 200, a 60,000-point LiDAR and a 15,000-point radar buffer per
+    agent), bf16, batch 1, random weights: the V2XR_TIMED classes on every
+    loaded scene as phase 18 runs its configs (``time_disk``: both modes,
+    every ``pallas`` kernel input held to the plain versions, a one-scene
+    profile window), the others once (``v2xr_once``)."""
+    from airv2x_tpu_torch.eval.ap import eval_final_results, new_result_stat
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = False, False  # heuristics
+    root = os.path.join(work, "v2xr")
+    t0 = time.perf_counter()
+    write_v2xr_split(root, np.random.default_rng(22))
+    res = {"card": card, "split_s": time.perf_counter() - t0, "configs": {},
+           "once": {}, "kernel_checks": [], "interf_voxels": INTERF_VOXELS}
+    print(f"phase 22 [{card}]: V2X-R split ({len(DISK_CAVS)} cavs x "
+          f"{DISK_STAMPS} stamps, {DISK_POINTS} LiDAR points and every "
+          f"{V2XR_RADAR_EVERY}th as radar per cloud) written in "
+          f"{res['split_s']:.2f} s; InterF's pillar cap cut to "
+          f"{INTERF_VOXELS} per agent (its YAML: 32000)")
+    launches = {}
+    timed_paths = {p for _, p, core in V2XR_TIMED if core is None}
+    for path in V2XR_YAMLS:
+        if path in timed_paths:
+            continue
+        hypes = v2xr_hypes(path)
+        item = disk_items(hypes, "opv2v", root, use_radar=True, limit=1)[0]
+        got, rows = v2xr_once(f"phase 22 {path}", card, hypes, item, set())
+        res["once"][path] = got
+        res["kernel_checks"] += rows
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    for name, path, core in V2XR_TIMED:
+        t_cfg = time.perf_counter()
+        hypes = v2xr_hypes(path, core)
+        label = f"phase 22 {name} ({path})"
+        items = disk_items(hypes, "opv2v", root, use_radar=True)
+        if name == "scope_lrf":
+            items = radar_over_frames(items)
+        r = {"yaml": path, "core_method": hypes["model"]["core_method"],
+             "radar_points": [int(b["radar_points_mask"].sum()) for b, _ in items]}
+        model = disk_model(hypes)
+        checked = set()
+        for mode in ("auto", "pallas"):
+            stat = new_result_stat()
+            with conv_mode(mode):
+                r[mode] = time_disk(f"{label} {mode} [{card}]",
+                                    disk_step(hypes, model, stat), items, hypes,
+                                    mode, checked if mode == "pallas" else None,
+                                    per_scene=v2xr_per_scene(hypes))
+            res["kernel_checks"] += r[mode].pop("kernel_checks")
+            r[mode]["ap"] = eval_final_results(stat)
+            for k, v in r[mode]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        with conv_mode("pallas"):
+            r["profile"] = phase_profile(
+                f"{label} pallas [{card}]", disk_step(hypes, model,
+                                                      new_result_stat()),
+                items, top=6, n=PROFILED_SCENES)
+        prof = r["profile"] or {}
+        r["seconds"] = time.perf_counter() - t_cfg
+        print(f"{label} [{card}]: ms/scene auto {r['auto']['ms']:.3f}, pallas "
+              f"{r['pallas']['ms']:.3f}; busy "
+              f"{prof.get('busy_ms', float('nan')):.3f} ms/scene, idle "
+              f"{prof.get('idle_share', float('nan')):.3f} (pallas); peak "
+              f"{max(r[m]['peak_mib'] for m in ('auto', 'pallas')):.1f} MiB; "
+              f"launches per scene {r['pallas']['launches_per_scene']}; radar "
+              f"points {r['radar_points']}; kept {r['pallas']['kept']}; "
+              f"{r['seconds']:.1f} s")
+        res["configs"][name] = r
+        del model, items
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22 serving [{card}] in {res['seconds']:.1f} s; launches: "
+          f"{launches}")
+    return res
+
+
+def phase_v2xr_train(card, work):
+    """Phase 22 (c): V2XR_TRAIN (L4DR, the LiDAR + radar AttFusion twin)
+    trained at full width on phase 22's split, batch 2 through
+    ``RealDataLoader`` with the radar clouds, as phase 21 trains
+    (``phase_train``: 2 warm-up steps, TRAIN_MODEL_STEPS timed, no profile
+    window, the repeated-batch check; no kernel launches in training)."""
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.data.opv2v_dataset import OPV2VDataset
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "v2xr")
+    res = {"card": card, "configs": {}}
+    for path in V2XR_TRAIN:
+        t0 = time.perf_counter()
+        hypes = v2xr_hypes(path)
+        assert int(hypes["train_params"]["batch_size"]) == TRAIN_BATCH
+        loader = RealDataLoader(OPV2VDataset(hypes, root, train=True, seed=0,
+                                             use_radar=True),
+                                hypes, TRAIN_BATCH, seed=0, num_workers=2,
+                                device="cuda")
+        batches = list(loader.batches(0))
+        model = init_flax_like_(build_model(hypes, device="cuda", train=True),
+                                seed=0)
+        t1 = time.perf_counter()
+        r = phase_train(f"phase 22 {path} training", card, hypes, model, batches,
+                        steps=TRAIN_MODEL_STEPS, repeats=TRAIN_MODEL_REPEATS,
+                        autotune=False, profiled=0)
+        r.pop("losses")
+        r["setup_s"], r["seconds"] = t1 - t0, time.perf_counter() - t0
+        print(f"phase 22 {path} [{card}]: trained in {r['seconds']:.1f} s "
+              f"(loader and model {r['setup_s']:.1f})")
+        res["configs"][path] = r
+        del model, batches
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22 training [{card}] in {res['seconds']:.1f} s")
+    return res
+
+
 def k4_row(name, launches, k4, form):
     """The kernels-line row of K4a (``form`` "a") or K4b ("b"): per scene
     of 32 launches, bf16 as the main path runs it, and f32 beside it."""
@@ -6969,6 +7270,14 @@ def main() -> int:
                          for m, r in c.items()} for name, c in v.items()}
                  if k == "configs" else v) for k, v in flat_rest.items()},
             late=late, tiny_card_vs_cpu=tiny_flat_rest)}))
+        t0 = time.perf_counter()
+        v2xr = phase_v2xr(card, disk_work)
+        marks["phase 22 serving"] = time.perf_counter() - t0
+        print(json.dumps({"v2xr": dict(
+            {k: ({name: {m: ({kk: vv for kk, vv in r.items() if kk != "launches"}
+                             if m in ("auto", "pallas") else r)
+                         for m, r in c.items()} for name, c in v.items()}
+                 if k == "configs" else v) for k, v in v2xr.items()})}))
         # the training phases run after every serving phase, so that nothing
         # they leave on the card shows in the serving paths' peak memory
         t0 = time.perf_counter()
@@ -6998,6 +7307,10 @@ def main() -> int:
         marks["phase 21"] = (marks["phase 21 serving and late"]
                              + flat_train["seconds"])
         print(json.dumps({"flat_rest_train": flat_train}))
+        v2xr_train = phase_v2xr_train(card, disk_work)
+        marks["phase 22 training"] = v2xr_train["seconds"]
+        marks["phase 22"] = marks["phase 22 serving"] + v2xr_train["seconds"]
+        print(json.dumps({"v2xr_train": v2xr_train}))
     finally:
         shutil.rmtree(disk_work, ignore_errors=True)
         shutil.rmtree(cam_work, ignore_errors=True)
@@ -7019,6 +7332,7 @@ def main() -> int:
                 + hetero["launches"].get(k, 0) + hetero_train["launches"].get(k, 0)
                 + eb["launches"].get(k, 0) + flat_rest["launches"].get(k, 0)
                 + late["launches"].get(k, 0) + flat_train["launches"].get(k, 0)
+                + v2xr["launches"].get(k, 0)
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
           f"15's on-disk V2VNet run: {v2v_disk}; in phase 16's timed and CLI "
@@ -7031,11 +7345,12 @@ def main() -> int:
           f"{eb['launches']}; in phase 21's timed runs: "
           f"{flat_rest['launches']}, its counted late-fusion CLI runs: "
           f"{late['launches']} and its KD teacher's forwards: "
-          f"{flat_train['launches']}")
+          f"{flat_train['launches']}; in phase 22's timed and single runs: "
+          f"{v2xr['launches']}")
     print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15, "
-          "16, 18, 19, 20 and 21), the counted phase 13, 15, 16 and 21 CLI runs, "
-          "phase 17's, 18's and 19's evaluations and phase 21's KD teacher: "
-          f"{launches}")
+          "16, 18, 19, 20, 21 and 22), the counted phase 13, 15, 16 and 21 CLI "
+          "runs, phase 17's, 18's and 19's evaluations, phase 21's KD teacher "
+          f"and phase 22's single runs: {launches}")
     marks["whole script"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in marks.items()}}))
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16

@@ -113,8 +113,8 @@ def _port(name, var, task="det"):
 
 def test_registry_has_the_three_names():
     assert set(NAMES) <= set(MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 33  # with the five early / BM2CP names and
-    # DiscoNet, How2comm, CoAlign
+    assert len(MODEL_REGISTRY) == 52  # with the five early / BM2CP names,
+    # DiscoNet, How2comm, CoAlign and V2X-R's 19
 
 
 def test_tiny_scenes_exercise_the_warps(hetero_run):

@@ -624,7 +624,15 @@ def test_registry_has_the_family():
         "airv2x_bm2cp", "point_pillar_bm2cp",
         # DiscoNet, How2comm and CoAlign (tests/test_torch_disconet.py,
         # tests/test_torch_how2comm.py, tests/test_torch_coalign.py)
-        "point_pillar_disconet", "point_pillar_how2comm", "point_pillar_coalign"}
+        "point_pillar_disconet", "point_pillar_how2comm", "point_pillar_coalign",
+        # V2X-R (tests/test_torch_v2xr_models.py)
+        "point_pillar_sicp", "point_pillar_spatialcooper",
+        "point_pillar_adafusion", "PFA_net", "pfanet", "pfa_net",
+        "point_pillar_attresnet", "point_pillar_l4dr", "point_pillar_L4DR",
+        "point_pillar_interf", "point_pillar_InterF",
+        *(f"point_pillar_{n}_lrf" for n in (
+            "intermediate", "v2xvit", "cobevt", "where2comm", "coalign",
+            "scope", "spatialcooper", "sicp"))}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

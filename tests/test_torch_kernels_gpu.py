@@ -1164,6 +1164,48 @@ def test_pillar_encode_kernel_on_a_merged_early_cloud(cuda, out_dtype):
     _check_k1(got, ref, occ, out_dtype)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_pillar_encode_kernel_on_radar_clouds(cuda, out_dtype):
+    """The ``_lrf`` twins' second K1 launch: five agents' radar buffers of
+    ``max_points // 4`` = 15,000 rows each on the 704 x 200 grid, of which
+    2,000-4,000 are valid (the V2X-R dataset's radar clouds: a few thousand
+    points in range, noisier than the LiDAR), against the plain version."""
+    from airv2x_tpu_torch.ops.fast_pillars import FastPillarBEV
+
+    rng = np.random.default_rng(22)
+    lr = [-140.8, -40.0, -3.0, 140.8, 40.0, 1.0]
+    vfe = FastPillarBEV(num_filters=[64], voxel_size=[0.4, 0.4, 4],
+                        lidar_range=lr).to(cuda)
+    with torch.no_grad():
+        for p in vfe.parameters():
+            p.copy_(torch.from_numpy(rng.normal(0, 0.5, p.shape).astype(np.float32)))
+        vfe.bn.running_var.uniform_(0.5, 2.0)
+    vfe = vfe.to(out_dtype).eval()
+    vfe.bn.float()
+    pts = np.zeros((1, 5, 15000, 4), np.float32)
+    mask = np.zeros((1, 5, 15000), bool)
+    for a in range(5):
+        n = int(rng.integers(2000, 4001))
+        pts[0, a, :n, :2] = rng.uniform([-70, -40], [70, 40], (n, 2))
+        pts[0, a, :n, :2] += rng.normal(0, 0.15, (n, 2))
+        pts[0, a, :n, 2] = rng.uniform(-2.5, 0.5, n)
+        pts[0, a, :n, 3] = rng.uniform(0, 1, n)
+        mask[0, a, :n] = True
+    with torch.no_grad():
+        ids, feat, aux, params, kw = vfe.kernel_inputs(
+            torch.from_numpy(pts).to(cuda), torch.from_numpy(mask).to(cuda))
+        before = kernels.LAUNCHES["pillar_encode"]
+        got = pillar_encode(ids, feat, aux, params, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["pillar_encode"] == before + 1
+        ref = pillar_encode_plain(ids, feat, aux, params, **kw)
+    assert got.shape[0] == 5 and ids.shape[-1] == 15000
+    occ = _occupied(ids.cpu().numpy(), kw["cells"])
+    assert 1500 < occ.sum(1).min() and occ.sum(1).max() < 4001
+    _check_k1(got, ref, occ, out_dtype)
+
+
 def test_bm2cp_voxel_pooling_bf16_within_bound_of_f32(cuda):
     """BM2CP's voxel pooling on the card: the scatter-add of bf16 lifted
     features (a camera of 45 x 80 x 48 frustum points, 64 channels, over

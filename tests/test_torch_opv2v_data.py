@@ -160,15 +160,17 @@ def test_dataset_matches_jax(root, crop_margins, kind):
 
 
 def test_dataset_refusals(root):
-    """Radar points and the MDD clean-point mask raise and name their
-    ROADMAP item; JAX serves both. The camera branch, once refused, builds
-    (tests/test_torch_bm2cp_data.py holds its samples)."""
+    """The MDD clean-point mask raises and names its ROADMAP item; JAX
+    serves it. The camera branch and the radar branch, once refused, build
+    (tests/test_torch_bm2cp_data.py and tests/test_torch_v2xr_data.py hold
+    their samples)."""
     cam = hypes()
     cam["model"]["args"]["vehicle"] = {"modalities": ["lidar", "cam"],
                                        "cam": {"data_aug_conf": {}}}
     assert OPV2VDataset(cam, root).cam_conf == {}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        OPV2VDataset(hypes(), root, use_radar=True)
+    radar = OPV2VDataset(hypes(), root, use_radar=True)
+    assert len(radar) == 2 and radar.use_radar
+    assert radar[0][0]["radar_points"].shape == (4, 2048 // 4, 4)
     mdd = hypes()
     mdd["model"]["core_method"] = "point_pillar_mdd"
     with pytest.raises(NotImplementedError, match="item 7"):

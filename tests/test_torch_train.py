@@ -624,10 +624,11 @@ def test_cli_refuses_real_root_dir_and_missing_card(tmp_path):
     root = tmp_path / "dataset"
     root.mkdir()
     hypes["root_dir"] = str(root)
-    # radar configs are not ported: the CLI refuses one before it builds a
-    # loader or a run dir (camera configs train since camera training was
-    # ported: tests/test_torch_train_camera.py)
-    hypes["model"]["core_method"] = "point_pillar_lrf"
+    # MDD (the one LiDAR + radar ``_lrf`` model not ported) is refused
+    # before the CLI builds a loader or a run dir (camera configs train since
+    # camera training was ported, the other radar configs since V2X-R was:
+    # tests/test_torch_train_camera.py, tests/test_torch_v2xr_data.py)
+    hypes["model"]["core_method"] = "point_pillar_intermediate_lrf_MDD"
     cfg = tmp_path / "cfg.yaml"
     with open(cfg, "w") as f:
         yaml.safe_dump(jax.tree.map(lambda v: v.tolist() if hasattr(v, "tolist")
