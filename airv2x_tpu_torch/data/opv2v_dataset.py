@@ -32,9 +32,10 @@ airv2x_tpu/data/opv2v_dataset.py, the LiDAR branch).
     ``radar_points_mask``, the current frame's in a temporal sample. The
     configs' ``fusion.args.use_radar`` is read by neither package: the
     caller passes ``use_radar`` (ROADMAP §3).
-
-The MDD clean-point mask of V2X-R training samples (ROADMAP §1 item 7)
-raises.
+  * for MDD's training samples (an ``mdd`` model, ``train``), each LiDAR
+    point's weather label read with the cloud: ``de_points_mask`` is
+    ``points_mask`` where the label is 0 (the real points; the rest are
+    simulated weather noise), the current frame's in a temporal sample.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import yaml
 from airv2x_tpu_torch.data.airv2x_dataset import (
     _CORNER_SIGNS, WildSettings, corner_to_center_hwl)
 from airv2x_tpu_torch.data.camera import load_opv2v_cam_inputs, stack_cam_slots
-from airv2x_tpu_torch.data.pcd import load_pcd_into
+from airv2x_tpu_torch.data.pcd import load_pcd_into, load_pcd_label_into
 from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.utils import transforms as tf
 
@@ -137,10 +138,7 @@ class OPV2VDataset:
         self.cam_conf = (veh.get("cam", {}).get("data_aug_conf")
                          if "cam" in veh.get("modalities", []) else None)
         core = str(hypes.get("model", {}).get("core_method", "")).lower()
-        if "mdd" in core and train:
-            raise NotImplementedError(
-                "the MDD clean-point mask of V2X-R clouds is not ported "
-                "(ROADMAP §1 item 7)")
+        self.with_de = "mdd" in core and train
         self.frames = temporal_frames(hypes)
 
         self.samples = []  # (scenario path, sorted cav ids, stamps, t index)
@@ -217,6 +215,7 @@ class OPV2VDataset:
         L, n = self.layout.total, self.max_points
         points = np.zeros((L, n, 4), np.float32)
         points_mask = np.zeros((L, n), bool)
+        clean = np.ones((L, n), bool)
         radar_points = np.zeros((L, n // 4, 4), np.float32)
         radar_mask = np.zeros((L, n // 4), bool)
         agent_mask = np.zeros((L,), bool)
@@ -235,11 +234,11 @@ class OPV2VDataset:
             prior[slot, 0] = float(metas[cav].get("ego_speed", 0.0))
             pcd = os.path.join(spath, cav, f"{stamp}.pcd")
             if os.path.isfile(pcd):
-                cnt = load_pcd_into(
-                    pcd, points[slot],
-                    transform=(t_cav_ego.astype(np.float32) if self.proj_first
-                               else None),
-                    lidar_range=lidar_range, ego_mask=EGO_MASK)
+                kw = dict(transform=(t_cav_ego.astype(np.float32)
+                                     if self.proj_first else None),
+                          lidar_range=lidar_range, ego_mask=EGO_MASK)
+                cnt = (load_pcd_label_into(pcd, points[slot], clean[slot], **kw)
+                       if self.with_de else load_pcd_into(pcd, points[slot], **kw))
                 points_mask[slot, :cnt] = True
             if self.cam_conf is not None:
                 cam = load_opv2v_cam_inputs(os.path.join(spath, cav), stamp,
@@ -282,6 +281,8 @@ class OPV2VDataset:
         if self.use_radar:
             batch["radar_points"] = radar_points
             batch["radar_points_mask"] = radar_mask
+        if self.with_de:
+            batch["de_points_mask"] = points_mask & clean
         if cam_slots:
             batch["cam_vehicle"] = stack_cam_slots(cam_slots, L)
         gt = {"boxes": boxes, "mask": mask, "classes": classes}

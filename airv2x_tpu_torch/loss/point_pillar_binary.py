@@ -1,8 +1,8 @@
 """Binary-class PointPillar losses of the OPV2V / DAIR family (counterpart of
 airv2x_tpu/loss/point_pillar_binary.py): ``make_binary_loss``, registered as
 ``point_pillar_loss`` and ``point_pillar_loss_opencood``, and the two that
-add a term to it, CoAlign's (``point_pillar_loss_coalign``) and DiscoNet's
-(``point_pillar_disconet_loss``).
+add a term to it, CoAlign's (``point_pillar_loss_coalign``), DiscoNet's
+(``point_pillar_disconet_loss``) and MDD's (``point_pillar_loss_mdd``).
 
   * focal loss (alpha 0.25, gamma 2) on one sigmoid score per anchor,
     weighted by (pos + neg) / num_pos per sample, summed over the batch and
@@ -125,5 +125,30 @@ def make_disconet_loss(args: dict):
         kd_loss = (t * (torch.log(t + 1e-9) - s)).sum(-1).mean()
         total = total + kd_weight * kd_loss
         return total, _with_term(parts, total, prefix, "kd_loss", kd_loss)
+
+    return loss_fn
+
+
+@register_loss("point_pillar_loss_mdd")
+def make_mdd_loss(args: dict):
+    """The binary loss plus MDD's denoising term: the squared error of
+    ``pred_feature`` against ``gt_feature`` (NHWC) summed over the
+    channels and averaged over the pixels, times the epoch schedule
+    1.5 (1 - tanh(epoch / 4 - 5)), the epoch (1-based) from the labels'
+    ``epoch`` (default 1). Without both features (eval) the loss is the
+    binary one."""
+    base = make_binary_loss(args)
+
+    def loss_fn(output: dict, target: dict, prefix: str = ""):
+        total, parts = base(output, target, prefix)
+        if "pred_feature" not in output or "gt_feature" not in output:
+            return total, parts
+        epoch = torch.as_tensor(target.get("epoch", 1), dtype=torch.float32,
+                                device=total.device)
+        weight = 1.5 * (1.0 - torch.tanh(epoch / 4.0 - 5.0))
+        diff = output["gt_feature"].float() - output["pred_feature"].float()
+        diff_loss = (diff ** 2).sum(-1).mean() * weight
+        total = total + diff_loss
+        return total, _with_term(parts, total, prefix, "diff_loss", diff_loss)
 
     return loss_fn

@@ -10,15 +10,17 @@ The stage methods ``encode`` / ``backbone`` / ``fuse`` / ``heads`` split
 ``forward`` for per-stage timing, as ``PostBackboneFusionModel``'s do. The
 multi-stage recipe's freezing is ``parallel/train.py:freeze_by_path``.
 
-The JAX package builds an ``AlignNet`` only where the args hold an
-``alignnet`` key, which no shipped config has; that module is not ported
-and such a config raises.
+Where the args hold an ``alignnet`` key (no shipped config has one), an
+``AlignNet`` (``models/alignnet.py``) aligns each agent's backbone map
+before the pyramid, as the JAX package's HEAL applies it; STAMP reads no
+such key.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
+from airv2x_tpu_torch.models.alignnet import AlignNet
 from airv2x_tpu_torch.models.base import HeteroLidarEncoder, SlotLayout
 from airv2x_tpu_torch.models.fusion.pyramid import PyramidFusion
 from airv2x_tpu_torch.models.heads import BevSegHead, DetectionHeads
@@ -32,9 +34,6 @@ class Airv2xHEAL(nn.Module):
 
     def __init__(self, args: dict):
         super().__init__()
-        if "alignnet" in args:
-            raise NotImplementedError(
-                "AlignNet (the 'alignnet' key) is not ported (ROADMAP §1 item 6)")
         self.args = args
         self.task = args["task"]
         if self.task not in ("det", "seg"):
@@ -57,6 +56,7 @@ class Airv2xHEAL(nn.Module):
             inplanes=64,
             in_ch=self.encoder.out_channels,
         )
+        self.alignnet = self.make_alignnet(args)
         self.make_adapters(args)
         self.pyramid = PyramidFusion(args["fusion_backbone"],
                                      inplanes=bb["num_filters"][-1],
@@ -82,6 +82,12 @@ class Airv2xHEAL(nn.Module):
                 static_class=args["static_class"], seg_res=args["seg_res"],
                 cav_range=args["cav_range"])
 
+    def make_alignnet(self, args: dict):
+        """The ``alignnet`` key's AlignNet on the backbone's maps, or None."""
+        if "alignnet" not in args:
+            return None
+        return AlignNet(dict(args["alignnet"]), self.modality_backbone.out_channels)
+
     def make_adapters(self, args: dict) -> None:
         """STAMP's per-type adapters; HEAL has none."""
 
@@ -97,10 +103,12 @@ class Airv2xHEAL(nn.Module):
         return self.encoder(batch, mark)
 
     def backbone(self, x):
-        """Stage 2: the modality backbone per agent (and STAMP's adapters)
-        -> (B, L, C, H, W)."""
+        """Stage 2: the modality backbone per agent (then HEAL's AlignNet,
+        STAMP's adapters) -> (B, L, C, H, W)."""
         b, l, h, w, c = x.shape
         feats = self.modality_backbone(x.reshape(b * l, h, w, c).permute(0, 3, 1, 2))[0]
+        if self.alignnet is not None:
+            feats = self.alignnet(feats)
         return self.adapt(feats.reshape((b, l) + feats.shape[1:]))
 
     def fuse(self, feats, batch):

@@ -67,7 +67,7 @@ def _conv3x3_mode(shape, dtype, features: int) -> str:
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the last axis of a padded point set (flax
-    ``MaskedBatchNorm``). In train mode the statistics are taken over the
+    ``MaskedBatchNorm``, flax ``momentum``). In train mode the statistics are taken over the
     rows where ``mask`` is True only, in f32: the masked mean, then the
     masked mean of squared deviations (two passes, as the JAX package).
     Each sum accumulates in f64 and rounds once to f32, so the statistics
@@ -75,9 +75,11 @@ class MaskedBatchNorm(nn.Module):
     downstream of them a train step's gradients can amplify a one-ulp
     difference in a statistic a thousandfold."""
 
-    def __init__(self, num_features: int, eps: float = BN_EPS):
+    def __init__(self, num_features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.flax_momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -99,8 +101,8 @@ class MaskedBatchNorm(nn.Module):
             var = (((xf - mean) ** 2 * m).sum(dims, dtype=torch.float64)
                    / cnt).float()
             with torch.no_grad():
-                _ema_(self.running_mean, mean)
-                _ema_(self.running_var, var)
+                _ema_(self.running_mean, mean, self.flax_momentum)
+                _ema_(self.running_var, var, self.flax_momentum)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps).to(x.dtype)

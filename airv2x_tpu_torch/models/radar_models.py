@@ -1,5 +1,5 @@
-"""The V2X-R LiDAR + 4D-radar models, in eval and train mode (counterpart of
-airv2x_tpu/models/radar_models.py, less RTNH and MDD: ROADMAP §1 item 7).
+"""The V2X-R 4D-radar and LiDAR + 4D-radar models, in eval and train mode
+(counterpart of airv2x_tpu/models/radar_models.py).
 
 The batch carries a second cloud per agent, ``radar_points`` (B, L, Nr, 4)
 and ``radar_points_mask`` (B, L, Nr), on the LiDAR's grid.
@@ -20,7 +20,22 @@ and ``radar_points_mask`` (B, L, Nr), on the LiDAR's grid.
     shared weights: cross-pillar attention over the sample's flat pillar
     list of every agent. Its energy is (B, K, N, N) with N = L x the pillar
     cap, so the port loops over the K point slots (each slot's attention
-    is independent of the others') to hold one slot's (B, N, N) at a time.
+    is independent of the others') to hold one slot's (B, N, N) at a time;
+  * RTNH_intermediate / rtnh_intermediate (``RTNHIntermediate``): the
+    radar cloud (the LiDAR's where the batch has none) voxelized on the
+    classic path at 4 points per voxel, a bias-free Linear and a max over
+    the point slots (the zero padding rows included), the dense (Z, Y, X)
+    grid through ``sparse3d.RadarSparseBackbone`` with per-level ego
+    attention, two 1x1 heads; no K1, no ``ConvBNReLU``;
+  * point_pillar_intermediate_lrf_MDD / point_pillar_mdd
+    (``PointPillarLRFMDD``): both clouds through ``FastPillarBEV`` (two K1
+    launches per scene), the LiDAR map denoised by ``fusion/mdd.py``'s
+    radar-conditioned reverse chain and masked to the LiDAR map's nonzero
+    entries, [denoised, radar] into the per-stage AttFusion backbone. In
+    train mode it emits ``pred_feature`` and ``gt_feature`` (NHWC): the
+    LiDAR cloud under the batch's clean-point mask ``de_points_mask``
+    through the same encoder without a gradient (the LiDAR map itself
+    where the batch has no such mask), for ``point_pillar_loss_mdd``.
 """
 
 from __future__ import annotations
@@ -28,10 +43,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from airv2x_tpu_torch.models.base import SlotLayout
 from airv2x_tpu_torch.models.bev_backbone import BEVStage
 from airv2x_tpu_torch.models.coalign_model import PointPillarCoAlign
 from airv2x_tpu_torch.models.att_backbone_models import PointPillarSpatialCooper
 from airv2x_tpu_torch.models.fusion.common import NEG_INF, ego_agent_attention
+from airv2x_tpu_torch.models.fusion.mdd import CondDiffDenoise
 from airv2x_tpu_torch.models.nn import DeconvBNReLU, MaskedBatchNorm
 from airv2x_tpu_torch.models.pillar_vfe import augment_pillar_points
 from airv2x_tpu_torch.models.point_pillar_models import (
@@ -39,8 +56,10 @@ from airv2x_tpu_torch.models.point_pillar_models import (
     PointPillarSiCP, PointPillarV2XViT, PointPillarWhere2comm,
     _PerStageFusionBase, _rate)
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
-from airv2x_tpu_torch.ops.scatter import scatter_pillars_to_bev_batch
-from airv2x_tpu_torch.ops.voxelize import pillarize_batch
+from airv2x_tpu_torch.models.sparse3d import RadarSparseBackbone
+from airv2x_tpu_torch.ops.scatter import (
+    scatter_pillars_to_bev_batch, scatter_voxels_to_grid_batch)
+from airv2x_tpu_torch.ops.voxelize import pillar_kwargs, pillarize_batch
 
 
 def encode_radar(model: PointPillarBase, batch) -> torch.Tensor:
@@ -258,3 +277,126 @@ class PointPillarInterF(_PerStageFusionBase):
                 feats, pil.coords, pil.mask, ny=self.grid[1], nx=self.grid[0]))
         out = torch.cat(bev, dim=-1).unflatten(0, (b, l))
         return out * batch["agent_mask"][:, :, None, None, None].to(out.dtype)
+
+
+class RTNHIntermediate(nn.Module):
+    """RTNH: radar voxels through the masked dense 3-D backbone, the levels
+    fused by ego attention per agent slot, two 1x1 heads (comm_rate 1).
+    The YAML has no ``BACKBONE`` block, so the code's defaults hold:
+    encoder 64 / 128 / 256 at stride 2, BEV 256 x 3 from transposed convs
+    of kernels 3 / 6 / 12 at strides 1 / 2 / 4."""
+
+    FLAX_NAMES = {"cls_head": "conv_cls", "reg_head": "conv_reg"}
+    POINTS_PER_VOXEL = 4  # RTNH's PointToVoxel cap
+
+    def __init__(self, args: dict):
+        super().__init__()
+        max_cav = args.get("max_cav", 5)
+        if isinstance(max_cav, dict):
+            max_cav = sum(max_cav.values())
+        self.layout = SlotLayout(counts=(int(max_cav), 0, 0))
+        self.pillar_kw = dict(pillar_kwargs(args["preprocess"]),
+                              max_points_per_pillar=self.POINTS_PER_VOXEL)
+        self.grid = self.pillar_kw["grid_size"]  # (nx, ny, nz)
+        bb = dict(args.get("BACKBONE") or {})
+        enc, bev = dict(bb.get("ENCODING") or {}), dict(bb.get("TO_BEV") or {})
+        out_dim = int(args.get("PRE_PROCESSOR", {}).get("OUT_DIM", 64))
+        self.simplified_pointnet = nn.Linear(4, out_dim, bias=False)
+        self.backbone = RadarSparseBackbone(
+            out_dim,
+            enc_channels=enc.get("CHANNEL", (64, 128, 256)),
+            enc_strides=enc.get("STRIDE", (2, 2, 2)),
+            enc_paddings=enc.get("PADDING", (1, 1, 1)),
+            bev_channels=bev.get("CHANNEL", (256, 256, 256)),
+            bev_kernels=bev.get("KERNEL_SIZE", (3, 6, 12)),
+            bev_strides=bev.get("STRIDE", (1, 2, 4)),
+            bev_paddings=bev.get("PADDING", (1, 2, 4)),
+            z_shape=self.grid[2])
+        anchors = int(args.get("anchor_num", args.get("anchor_number", 2)))
+        self.cls_head = nn.Conv2d(self.backbone.out_channels, anchors, 1)
+        self.reg_head = nn.Conv2d(self.backbone.out_channels, 7 * anchors, 1)
+
+    def forward(self, batch):
+        pts = batch.get("radar_points")
+        mask = batch.get("radar_points_mask")
+        if pts is None:
+            pts, mask = batch["points"], batch["points_mask"]
+        b, l = pts.shape[:2]
+        pil = pillarize_batch(pts.flatten(0, 1), mask.flatten(0, 1),
+                              **self.pillar_kw)
+        dt = self.simplified_pointnet.weight.dtype
+        slot = torch.arange(pil.voxels.shape[-2], device=pts.device)
+        live = slot < pil.num_points[..., None]
+        vox = torch.where(live[..., None], pil.voxels.to(dt),
+                          torch.zeros((), dtype=dt, device=pts.device))
+        vf = self.simplified_pointnet(vox).amax(-2)
+        vf = vf * pil.mask[..., None].to(vf.dtype)
+        nx, ny, nz = self.grid
+        dense = scatter_voxels_to_grid_batch(vf, pil.coords, pil.mask, nz=nz,
+                                             ny=ny, nx=nx)
+        occ = scatter_voxels_to_grid_batch(
+            pil.mask[..., None].to(torch.uint8), pil.coords, pil.mask, nz=nz,
+            ny=ny, nx=nx)[..., 0] > 0
+        am = batch["agent_mask"]
+        occ = occ & am.reshape(b * l)[:, None, None, None]
+
+        def fuse(f):
+            return ego_agent_attention(f.unflatten(0, (b, l)), am)
+
+        bev = self.backbone(dense.permute(0, 4, 1, 2, 3), occ, fuse)
+        out = {"psm": self.cls_head(bev).permute(0, 2, 3, 1),
+               "rm": self.reg_head(bev).permute(0, 2, 3, 1)}
+        out["comm_rate"] = _rate(1.0, bev)
+        return out
+
+
+class PointPillarLRFMDD(_PerStageFusionBase):
+    """LiDAR + radar with the MDD denoiser (comm_rate 1): both clouds
+    through the config's pillar encoder, the LiDAR map denoised and
+    masked, [denoised, radar] through the backbone's stages with per-stage
+    ego attention before each deblock. In training the train step passes
+    its per-step CPU ``generator``, from which the chain's noise is seeded."""
+
+    DRAWS_NOISE = True
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        self.radar_vfe = self.make_vfe(args)
+        mdd = args["mdd_block"]
+        self.mdd = CondDiffDenoise(
+            mdd["model"], int(mdd["diffusion"]["num_diffusion_timesteps"]))
+
+    def backbone_in(self, args: dict) -> int:
+        return 2 * super().backbone_in(args)
+
+    def forward(self, batch, generator=None):
+        lidar = self.encode_cloud(batch["points"], batch["points_mask"], self.vfe)
+        radar = encode_radar(self, batch)
+        b, l = lidar.shape[:2]
+        lid = lidar.flatten(0, 1).permute(0, 3, 1, 2)
+        rad = radar.flatten(0, 1).permute(0, 3, 1, 2)
+        pred = self.mdd(lid, rad, batch.get("mdd_noises"), generator)
+        pred = pred * (lid != 0).to(pred.dtype)
+        out = {"pred_feature": pred.permute(0, 2, 3, 1)}
+        if self.training:
+            de_mask = batch.get("de_points_mask")
+            if de_mask is None:
+                gt = lidar.flatten(0, 1)
+            else:
+                with torch.no_grad():
+                    gt = self.encode_cloud(batch.get("de_points", batch["points"]),
+                                           de_mask, self.vfe).flatten(0, 1)
+            out["gt_feature"] = gt.detach()
+        dt = self.compute_dtype
+        h = torch.cat([pred.to(dt), rad.to(dt)], dim=1)
+        ups = []
+        for i in range(len(self.backbone.stages)):
+            h = self.backbone.stage(i, h)
+            fused = self._fuse_scale(h.unflatten(0, (b, l)), batch["agent_mask"])
+            ups.append(self.backbone.deblock(i, fused))
+        fused = self.backbone.finish(ups)
+        if self.shrink_conv is not None:
+            fused = self.shrink_conv(fused)
+        out.update(self.heads(fused))
+        out["comm_rate"] = _rate(1.0, fused)
+        return out

@@ -20,7 +20,10 @@ and the flat ``point_pillar_bm2cp``); and V2X-R: the flat SiCP
 ``pfanet`` / ``pfa_net``, ``point_pillar_attresnet``), the eight LiDAR +
 4D-radar ``*_lrf`` twins, L4DR (``point_pillar_l4dr`` /
 ``point_pillar_L4DR``) and InterFusion (``point_pillar_interf`` /
-``point_pillar_InterF``). RTNH and MDD (``UNPORTED``) raise."""
+``point_pillar_InterF``), RTNH (``RTNH_intermediate`` /
+``rtnh_intermediate``) and the MDD denoiser
+(``point_pillar_intermediate_lrf_MDD`` / ``point_pillar_mdd``). Every name
+of the JAX package's registry is ported."""
 
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ from airv2x_tpu_torch.models.point_pillar_models import (
     PointPillarWhere2comm)
 from airv2x_tpu_torch.models.point_pillar_bm2cp_model import PointPillarBM2CP
 from airv2x_tpu_torch.models.radar_models import (
-    LRF_MODELS, PointPillarInterF, PointPillarL4DR)
+    LRF_MODELS, PointPillarInterF, PointPillarL4DR, PointPillarLRFMDD,
+    RTNHIntermediate)
 from airv2x_tpu_torch.models.scope_model import PointPillarScope
 from airv2x_tpu_torch.models.stamp_model import Airv2xSiCP, Airv2xSTAMP
 from airv2x_tpu_torch.models.v2xvit_model import Airv2xV2XViT
@@ -95,11 +99,11 @@ MODEL_REGISTRY = {"airv2x_where2comm": Airv2xWhere2comm,
                   "point_pillar_l4dr": PointPillarL4DR,
                   "point_pillar_L4DR": PointPillarL4DR,
                   "point_pillar_interf": PointPillarInterF,
-                  "point_pillar_InterF": PointPillarInterF}
-# JAX names the port has not ported yet: RTNH's sparse 3-D backbone and the
-# MDD diffusion denoiser (ROADMAP §1 item 7)
-UNPORTED = ("RTNH_intermediate", "rtnh_intermediate",
-            "point_pillar_intermediate_lrf_MDD", "point_pillar_mdd")
+                  "point_pillar_InterF": PointPillarInterF,
+                  "RTNH_intermediate": RTNHIntermediate,
+                  "rtnh_intermediate": RTNHIntermediate,
+                  "point_pillar_intermediate_lrf_MDD": PointPillarLRFMDD,
+                  "point_pillar_mdd": PointPillarLRFMDD}
 DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16}
 
@@ -121,9 +125,6 @@ def build_model(hypes: dict, *, device="cuda", train: bool = False):
     """
     dev = resolve_device(device)
     name = hypes["model"]["core_method"]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"'{name}' is not ported yet (ROADMAP §1 item 7)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(MODEL_REGISTRY)}")
     args = dict(hypes["model"]["args"])

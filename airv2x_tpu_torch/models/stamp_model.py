@@ -26,6 +26,10 @@ from airv2x_tpu_torch.models.intermediate_models import PostBackboneFusionModel
 
 
 class Airv2xSTAMP(Airv2xHEAL):
+    def make_alignnet(self, args: dict):
+        """None: the JAX package's STAMP reads no ``alignnet`` key."""
+        return None
+
     def make_adapters(self, args: dict) -> None:
         self.adapter_types = []
         for i, t in enumerate(AGENT_TYPES):

@@ -25,7 +25,7 @@ from airv2x_tpu_torch import kernels
 # (pallas_conv.py:53-66, :128-144) against its 100 MiB budget, so both
 # packages accept and refuse the same shapes. The budget is the TPU's; the
 # CUDA kernel itself only needs channels that are multiples of 8.
-_VMEM_BUDGET = 100 * 1024 * 1024
+VMEM_BUDGET = 100 * 1024 * 1024
 
 
 def _itemsize(dtype) -> int:
@@ -37,6 +37,19 @@ def _padded_w(w: int, dtype) -> int:
     return -(-w // t) * t
 
 
+def grid_block_bytes(shape, dtype, features: int) -> int:
+    """The grid-over-maps form's block estimate, in bytes, for NHWC
+    ``shape`` -> ``features`` channels in ``dtype``, which its gate holds
+    against ``VMEM_BUDGET``."""
+    _, h, w, c = shape
+    item = _itemsize(dtype)
+    wp = _padded_w(w, dtype)
+    xblk = (h + 2) * wp * 3 * c * item
+    oblk = h * wp * features * item
+    acc = h * wp * features * 4
+    return 2 * xblk + 2 * oblk + acc + 3 * 3 * c * features * item
+
+
 def supports_conv3x3(shape, dtype, features: int) -> bool:
     """Whether the grid-over-maps kernel takes NHWC ``shape`` -> ``features``
     channels in ``dtype`` (the JAX ``supports_pallas_conv3x3``)."""
@@ -45,13 +58,7 @@ def supports_conv3x3(shape, dtype, features: int) -> bool:
     _, h, w, c = shape
     if c % 8 or features % 8 or h < 2 or w < 2:
         return False
-    item = _itemsize(dtype)
-    wp = _padded_w(w, dtype)
-    xblk = (h + 2) * wp * 3 * c * item
-    oblk = h * wp * features * item
-    acc = h * wp * features * 4
-    est = 2 * xblk + 2 * oblk + acc + 3 * 3 * c * features * item
-    return est <= _VMEM_BUDGET
+    return grid_block_bytes(shape, dtype, features) <= VMEM_BUDGET
 
 
 def supports_conv3x3_allmaps(shape, dtype, features: int) -> bool:
@@ -70,7 +77,7 @@ def supports_conv3x3_allmaps(shape, dtype, features: int) -> bool:
         + h * wp * features * 4
         + 3 * 3 * c * features * item
     )
-    return est <= _VMEM_BUDGET
+    return est <= VMEM_BUDGET
 
 
 # The card the tile plan fills (an H100 SXM's 132 SMs) and the shared memory

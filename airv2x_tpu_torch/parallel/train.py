@@ -163,9 +163,10 @@ def make_train_step(loss_fn: Callable, sched: Callable[[int], float], *,
     ``generator`` keywords: ``comm_u`` (B,) gives the keep fractions of the
     whole batch (microbatch i takes its rows); without it they are drawn
     from a CPU generator seeded by (``seed``, ``state.step``), so a resumed
-    run draws what an uninterrupted one would. Every other model is called
-    as ``model(batch)``, and ``comm_u`` must be None. ``parts`` are
-    detached f32 tensors."""
+    run draws what an uninterrupted one would. A model whose class sets
+    ``DRAWS_NOISE`` (MDD's diffusion chain) gets that ``generator`` alone.
+    Every other model is called as ``model(batch)``, and ``comm_u`` must be
+    None. ``parts`` are detached f32 tensors."""
 
     def step(state: TrainState, batch: dict, comm_u=None):
         model, opt = state.model, state.optimizer
@@ -187,6 +188,8 @@ def make_train_step(loss_fn: Callable, sched: Callable[[int], float], *,
                 n = mb["points"].shape[0]
                 kw = dict(generator=generator, comm_u=None if comm_u is None
                           else comm_u[i * n:(i + 1) * n])
+            elif getattr(model, "DRAWS_NOISE", False):
+                kw = dict(generator=generator)
             with torch.autocast(dev.type, dtype=compute_dtype,
                                 enabled=compute_dtype != torch.float32):
                 out = model(mb, **kw)

@@ -20,11 +20,14 @@ lack). One optimizer update per batch, with the reference's run-dir layout:
 per saved epoch, ``train_loss.txt`` and ``validation_loss.txt``.
 ``--model_dir`` resumes from the last checkpoint of that run dir, with its
 ``config.yaml``. ``--half`` is accepted and read nowhere, as in the JAX
-CLI. The LiDAR + 4D-radar models (``needs_radar``) get a radar cloud of
-``max_points // 8`` points per agent on synthetic scenes, as the JAX CLI
-draws it. RTNH and MDD configs raise before anything is built, and so do a
-radar-only AdaFusion config and a BM2CP config without a dataset (the JAX
-CLI cannot train either on synthetic scenes).
+CLI. The LiDAR + 4D-radar models (``needs_radar``: MDD among them, RTNH
+not, as the JAX CLI decides) get a radar cloud of ``max_points // 8``
+points per agent on synthetic scenes, as the JAX CLI draws it; RTNH reads
+the LiDAR cloud where a batch has no radar (ROADMAP §3). Every batch's
+labels carry ``epoch``, the 1-based epoch (MDD's loss schedules its term by
+it), as in the JAX CLI. A radar-only AdaFusion config and a BM2CP config
+without a dataset raise before anything is built (the JAX CLI cannot train
+either on synthetic scenes).
 """
 
 from __future__ import annotations
@@ -125,28 +128,23 @@ def needs_radar(hypes) -> bool:
     return any(k in core for k in ("l4dr", "lrf", "interf", "mdd"))
 
 
-def refuse_unported(hypes, synthetic: bool = False) -> None:
-    """Raise NotImplementedError for a config the port cannot train: RTNH and
-    MDD (ROADMAP §1 item 7); and, on synthetic scenes, a radar-only
-    SpatialCooper / PFA-Net (``use_modality: processed_radar`` among the
-    model args, ``4DRadar/V2XR_adafusion.yaml``), whose name the JAX CLI's
-    ``needs_radar`` leaves out, so its batches carry no radar cloud for the
-    model to read, and BM2CP, which cannot train there in the JAX CLI either
-    (ROADMAP §3)."""
+def refuse_on_synthetic(hypes) -> None:
+    """Raise NotImplementedError for a config the port cannot train on
+    synthetic scenes: a radar-only SpatialCooper / PFA-Net (``use_modality:
+    processed_radar`` among the model args, ``4DRadar/V2XR_adafusion.yaml``),
+    whose name the JAX CLI's ``needs_radar`` leaves out, so its batches
+    carry no radar cloud for the model to read, and BM2CP, which cannot
+    train there in the JAX CLI either (ROADMAP §3)."""
     core = hypes["model"]["core_method"].lower()
-    if any(k in core for k in ("mdd", "rtnh")):
-        raise NotImplementedError(
-            f"'{hypes['model']['core_method']}' is not ported yet "
-            "(ROADMAP §1 item 7)")
     radar_only = (str(hypes["model"]["args"].get("use_modality", ""))
                   == "processed_radar")
-    if synthetic and radar_only and not needs_radar(hypes):
+    if radar_only and not needs_radar(hypes):
         raise NotImplementedError(
             "this config encodes the radar cloud (model.args.use_modality: "
             "processed_radar), but synthetic scenes carry radar points only "
             "for the l4dr / lrf / interf / mdd models, as the JAX CLI draws "
             "them: it trains and serves on a V2X-R dataset (ROADMAP §3)")
-    if synthetic and "bm2cp" in core:
+    if "bm2cp" in core:
         raise NotImplementedError(
             "BM2CP trains on a dataset only: the synthetic batches carry no "
             "camera blocks for it (its config gives no agent type the cam "
@@ -160,7 +158,7 @@ def synthetic_batches(hypes, layout, batch_size, steps, seed, device="cuda"):
     on ``device``; seg configs get rasterized seg labels, camera configs the
     per-type camera stacks at the first camera type's ``final_dim``, drawn
     per sample after its scene (the JAX CLI's order)."""
-    refuse_unported(hypes, synthetic=True)
+    refuse_on_synthetic(hypes)
     anchors = generate_anchor_grid(hypes["postprocess"]["anchor_args"])
     standup = anchor_standup_boxes(anchors)
     rng = np.random.default_rng(seed)
@@ -188,7 +186,6 @@ def main(argv=None) -> str:
     opt = parse_args(argv)
     dev = resolve_device(opt.device)
     hypes = load_yaml(opt.hypes_yaml, opt.model_dir or None)
-    refuse_unported(hypes)
     tp = hypes["train_params"]
     epochs = opt.epochs or int(tp["epoches"])
     batch_size = opt.batch_size or int(tp["batch_size"])
@@ -204,7 +201,7 @@ def main(argv=None) -> str:
               + (f"{len(val_loader.dataset)} val samples" if val_loader
                  else "no validate_dir") + f"; grad_accum {accum}")
     else:
-        refuse_unported(hypes, synthetic=True)
+        refuse_on_synthetic(hypes)
         train_loader = val_loader = None
         steps_per_epoch = opt.steps_per_epoch or int(tp.get("steps_per_epoch", 50))
         print(f"training on synthetic scenes on {dev}; grad_accum {accum}")
@@ -241,6 +238,8 @@ def main(argv=None) -> str:
                 hypes, layout, batch_size, steps_per_epoch, opt.seed + epoch + 1,
                 device=dev))
         for batch in epoch_iter:
+            # epoch-scheduled loss terms (point_pillar_loss_mdd) read it
+            batch["labels"]["epoch"] = float(epoch + 1)
             parts = train_step(state, batch)
             losses.append({k: float(v) for k, v in parts.items()})
         means = {k: float(np.mean([p[k] for p in losses])) for k in losses[0]}

@@ -33,7 +33,7 @@ from airv2x_tpu_torch.models.registry import compute_dtype
 from airv2x_tpu_torch.parallel.train import (
     TrainState, backbone_fix_prefixes, freeze_by_path, make_optimizer,
     make_train_step, trainable_parameters)
-from airv2x_tpu_torch.tools.train import refuse_unported, synthetic_batches
+from airv2x_tpu_torch.tools.train import synthetic_batches
 from airv2x_tpu_torch.utils.checkpoint import (
     find_best_epoch, load_model_weights, save_checkpoint, setup_train_dir)
 from airv2x_tpu_torch.utils.device import resolve_device
@@ -84,7 +84,6 @@ def main(argv=None) -> str:
     opt = parse_args(argv)
     dev = resolve_device(opt.device)
     hypes = load_yaml(opt.hypes_yaml)
-    refuse_unported(hypes)
     tp = hypes["train_params"]
     epochs = opt.epochs or int(tp["epoches"])
     batch_size = opt.batch_size or int(tp["batch_size"])

@@ -11,7 +11,7 @@ airv2x_tpu/utils/torch_convert.py (torch -> flax):
     (in, out, kh, kw) with the spatial taps flipped (torch scatters the
     kernel as is, ``lax.conv_transpose`` correlates)
   * BatchNorm params scale / bias and batch_stats mean / var are copied
-  * LayerNorm scale / bias            -> weight / bias
+  * LayerNorm and GroupNorm scale / bias -> weight / bias
   * biases are copied as they are
   * a raw parameter that a module owns itself (V2X-ViT's ``relation_att``,
     ``relation_msg``, ``pos_embedding``) is copied as it is: both packages
@@ -40,7 +40,7 @@ from airv2x_tpu_torch.models.nn import MaskedBatchNorm
 # modules whose parameters stay f32 under the serving cast, besides those
 # whose class sets ``KEEP_F32 = True``: the JAX package keeps f32 parameters
 # and computes BatchNorm and LayerNorm statistics and affines in f32
-_F32_MODULES = (nn.BatchNorm2d, MaskedBatchNorm, nn.LayerNorm)
+_F32_MODULES = (nn.BatchNorm2d, MaskedBatchNorm, nn.LayerNorm, nn.GroupNorm)
 
 
 class _Variables:
@@ -88,7 +88,7 @@ def _leaf(module, scope, v: _Variables):
         if isinstance(module, nn.BatchNorm2d):
             sd["num_batches_tracked"] = np.zeros((), np.int64)
         return sd
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return {"weight": v.take("params", scope, "scale"),
                 "bias": v.take("params", scope, "bias")}
     kernel = None
@@ -194,7 +194,7 @@ def cast_weights_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the model's floating weights to the compute ``dtype`` in place,
     except the parameters and statistics of every BatchNorm-type module
     (``nn.BatchNorm2d`` and its subclass, ``MaskedBatchNorm``), of every
-    LayerNorm and of every module whose class sets ``KEEP_F32`` (its
+    LayerNorm and GroupNorm and of every module whose class sets ``KEEP_F32`` (its
     submodules included; V2X-ViT's RTE), the own parameters that a module's
     ``F32_PARAMS`` names (SCOPE's LSTM biases and initial cell state), and
     the non-persistent buffers (constants such as the camera frustum), which
@@ -265,10 +265,11 @@ def init_flax_like_(model: nn.Module, seed: int) -> nn.Module:
 
 def _init_own_leaves_(mod: nn.Module, g: torch.Generator) -> None:
     """flax's initialisers of the leaves that are neither dense, conv nor
-    BatchNorm, from ``g``: LayerNorm scale 1 and bias 0, and whatever the
+    BatchNorm, from ``g``: LayerNorm and GroupNorm scale 1 and bias 0, and
+    whatever the
     module's own ``flax_init_(g)`` draws."""
     with torch.no_grad():
-        if isinstance(mod, nn.LayerNorm):
+        if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif hasattr(mod, "flax_init_"):

@@ -109,8 +109,9 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      backbone pass), a profile window, kept detections or class
      histograms; then one det scene with perturbed poses and delays: finite
      outputs, the ROI mask on the card equal to the CPU's, and the f32
-     model's fused map and psm / rm / obj on the card against the CPU's
-     (TINY_TOL x (1 + scale)); a ``v2xvit`` JSON line;
+     model at one layer per backbone stage and one transformer block
+     (``shallow_hypes``) with its fused map and psm / rm / obj on the card
+     against the CPU's (TINY_TOL x (1 + scale)); a ``v2xvit`` JSON line;
   12. (run after phase 11) the SCOPE temporal det path at full width
      (``hypes_yaml/opv2v/opv2v_scope.yaml``, nothing cut: 5 vehicles, 2
      frames, 20,000 points per agent, bf16, seeded random weights), 8
@@ -139,8 +140,10 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      memory, launch counts (K1 3, K2 1 per det scene, K4a 16 in ``pallas``),
      a ``pallas`` profile window of one scene with the busy by stage and the idle share,
      kept detections or class histograms; one perturbed det scene per
-     fusion kind (cobevt, v2vnet, when2com) through the f32 model on the
-     card and on the CPU (TINY_TOL x (1 + scale), V2VNet's ROI mask card == CPU); and
+     fusion kind (cobevt, v2vnet, when2com) through the f32 model at one
+     layer per backbone stage and one fusion block or round
+     (``shallow_hypes``) on the card and on the CPU (TINY_TOL x (1 +
+     scale), V2VNet's ROI mask card == CPU); and
      phase 13's on-disk scenario scored once by the V2VNet det model
      through ``inference_multi_scenario`` in ``pallas`` (a finite AP table,
      K1 3, K4a 16, K2 at least 2 launches per scene); a ``family`` JSON line;
@@ -311,7 +314,23 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      on InterF; K4a 16, 48 on L4DR, 0 on the ResNet backbones; K2 for the
      NMS and the AP) and its outputs finite; then L4DR and the LiDAR +
      radar AttFusion twin trained at batch 2 on the split with the
-     repeated-batch check; ``v2xr`` and ``v2xr_train`` JSON lines;
+     repeated-batch check; ``v2xr`` and ``v2xr_train`` JSON lines; the
+     split's LiDAR clouds carry V2X-R's weather label (V2XR_WEATHER_NOISE
+     of the points noise);
+  23. RTNH, MDD and HEAL's AlignNet (``phase_tiny_alignnet``,
+     ``phase_rtnh_mdd``, ``phase_alignnet`` after phase 22's serving,
+     ``phase_rtnh_mdd_train`` after its training): the tiny HEAL with each
+     of AlignNet's seven methods on the card against the CPU (keep sets,
+     NMS decision margins, K1 3 / K2 1); RTNH and MDD whole at full width
+     on 2 loaded scenes of phase 22's split in both modes (launches per
+     scene asserted: RTNH K1 0 / K4a 0, MDD K1 2 / K4a ``mdd_k4a`` (the
+     gate's count, 16), K2 for the NMS and the AP; every ``pallas`` kernel
+     input held to its plain version; a one-scene profile window); HEAL's
+     LiDAR det YAML with a deformable ``resnet3x3`` and an ``sdta``
+     AlignNet at full width on phase 19's scenes (K1 3 / K4a 0 / K2 1);
+     RTNH and MDD trained at batch 2 (labels' ``epoch`` 1; MDD's batches
+     with the clean-point mask, its loss with ``diff_loss``); an
+     ``rtnh_mdd_alignnet`` and an ``rtnh_mdd_train`` JSON line;
   4b. (run after phase 16, like the other training phases) one train step of
      the tiny configs, det and seg, on the card against the same step on
      the CPU: the same weights (copied), batch and keep fraction u, f32 with
@@ -359,7 +378,7 @@ next of up to REPEAT_BATCHES batches is taken the same way, and the
 training fails when it learned none (``learned_a_batch``).
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11, 12, 15, 16 and 18-22), each counted CLI run of phases 13, 15, 16 and 21,
+11, 12, 15, 16 and 18-23), each counted CLI run of phases 13, 15, 16 and 21,
 each evaluation of phases 17, 18 and 19 and each single run of phase 22,
 and read just after; the ``kernels`` line sums them over those runs. Every profile window
 gives each kernel, copy and memset PyTorch launched to the one stage whose
@@ -1104,6 +1123,29 @@ def cut_hypes(path: str) -> dict:
     hypes = load_yaml(path)
     hypes["model"]["args"]["max_cav"] = dict(NUM_AGENTS)
     hypes["train_params"]["max_cav"] = dict(NUM_AGENTS)
+    return hypes
+
+
+def shallow_hypes(hypes: dict) -> dict:
+    """A copy of a full-width config at one layer per backbone stage, one
+    transformer block and one fusion round (``layer_nums``, ``depth``,
+    ``num_iteration`` anywhere in the model args), its widths unchanged:
+    the card-vs-CPU comparisons of phases 11 and 15 run it, since the CPU's
+    forward of the whole depth left the card idle for over a minute."""
+    import copy
+
+    hypes = copy.deepcopy(hypes)
+
+    def walk(d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "layer_nums":
+                d[k] = [1] * len(v)
+            elif k in ("depth", "num_iteration") and isinstance(v, int):
+                d[k] = 1
+
+    walk(hypes["model"]["args"])
     return hypes
 
 
@@ -2673,14 +2715,16 @@ def v2xvit_perturbed(card, hypes, model, run):
 
 
 def v2xvit_f32_vs_cpu(card, hypes):
-    """The perturbed det scene through the full-width f32 model (seeded
-    random weights, TF32 off, pinned cuDNN, ``auto``) on the card and on the
-    CPU: the fused ego map and psm / rm / obj within TINY_TOL x (1 +
-    scale)."""
+    """The perturbed det scene through the full-width f32 model at one
+    layer per backbone stage and one transformer block (``shallow_hypes``;
+    seeded random weights, TF32 off, pinned cuDNN, ``auto``) on the card
+    and on the CPU: the fused ego map and psm / rm / obj within TINY_TOL x
+    (1 + scale)."""
     from airv2x_tpu_torch.data.synthetic import batch_to_torch
     from airv2x_tpu_torch.models import build_model
     from airv2x_tpu_torch.utils.weights import init_random_
 
+    hypes = shallow_hypes(hypes)
     models = {d: init_random_(build_model(hypes, device=d), seed=0)
               for d in ("cpu", "cuda")}
     scene = perturbed_scene(hypes, models["cpu"].layout)
@@ -3235,16 +3279,21 @@ def phase_family(card):
 
 def family_f32_vs_cpu(card, name):
     """One perturbed det scene (``perturbed_scene``: perturbed poses and
-    ``pairwise_t_full``) through the full-width f32 ``name`` model (phase
-    15's weights, copied to the CPU; TF32 off, pinned cuDNN, ``auto``) on
-    the card and on the CPU: the fused ego map and psm / rm / obj within
-    TINY_TOL x (1 + scale); V2VNet's ROI mask on the card equal to the
-    CPU's (at full width some of its 1.27 M samples lie within 1e-5 of 0.5,
-    or on it: the two compute the sample coordinates bit for bit)."""
+    ``pairwise_t_full``) through the full-width f32 ``name`` model at one
+    layer per backbone stage and one fusion block or round
+    (``shallow_hypes``; seeded random weights drawn on the card, copied to
+    the CPU; TF32 off, pinned cuDNN, ``auto``) on the card and on the CPU:
+    the fused ego map and psm / rm / obj within TINY_TOL x (1 + scale);
+    V2VNet's ROI mask on the card equal to the CPU's (at full width some of
+    its 1.27 M samples lie within 1e-5 of 0.5, or on it: the two compute
+    the sample coordinates bit for bit)."""
     from airv2x_tpu_torch.data.synthetic import batch_to_torch
     from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
 
-    hypes, card_model = family_model(family_path("det", name))
+    hypes = shallow_hypes(cut_hypes(family_path("det", name)))
+    card_model = init_random_(build_model(hypes, device="cuda"), seed=0,
+                              device="cuda")
     models = {"cpu": build_model(hypes, device="cpu"), "cuda": card_model}
     models["cpu"].load_state_dict(card_model.state_dict())
     scene = perturbed_scene(hypes, card_model.layout)
@@ -6566,7 +6615,7 @@ def phase_tiny_flat_rest(card, device="cuda"):
                     n = res["cuda"][2]
                     if n != {k: want.get(k, 0) for k in n}:
                         raise AssertionError(f"tiny {name} {mode}: launches {n}")
-                margin = nms_margin(res["cpu"][1], hypes["postprocess"]["nms_thresh"])
+                margin = nms_decision_margin(res["cpu"][1], hypes, TINY_SCOPE_TOP_K)
                 label = (f"phase 21 tiny {name} {mode} card vs CPU [{card}] "
                          f"(NMS margin {margin:.3e}, limit {ROI_MARGIN})")
                 errs = compare(label, res[device][0], res["cpu"][0], keys)
@@ -6858,7 +6907,7 @@ def phase_flat_rest_train(card, disk_roots):
 # Phase 22: V2X-R (LiDAR, 4D radar and LiDAR + radar fusion)
 
 V2XR_DIR = "hypes_yaml/V2X-R"
-# the 27 YAMLs the port serves (RTNH and MDD are ROADMAP §1 item 7)
+# the 27 YAMLs phase 22 serves (RTNH and MDD: phase 23)
 V2XR_YAMLS = tuple(f"LiDAR/V2XR_{n}.yaml" for n in (
     "adafusion", "attfuse", "coalign", "cobevt", "scope", "sicp", "v2xvit",
     "where2comm")) + tuple(f"4DRadar/V2XR_{n}.yaml" for n in (
@@ -6887,6 +6936,7 @@ V2XR_TIMED = (
 V2XR_TRAIN = ("L_4DR_Fusion/V2XR_L4DR.yaml", "L_4DR_Fusion/V2XR_AttFuse.yaml")
 V2XR_RADAR_EVERY = 16  # the radar cloud: every 16th LiDAR point (~3,100)
 V2XR_RADAR_NOISE = 0.15  # m, on x, y and z
+V2XR_WEATHER_NOISE = 0.1  # the share of each LiDAR cloud labelled weather noise
 # InterF's pillar cap per agent, cut from its YAML's 32,000: its attention
 # energy is (B, 32, N, N) with N = 5 agents x the cap (ROADMAP §3); at 4,000
 # one point slot's (1, N, N) is 0.8 GB in bf16
@@ -6896,17 +6946,22 @@ INTERF_VOXELS = 4000
 def write_v2xr_split(root, rng):
     """A V2X-R split: phase 18's OPV2V split (``write_opv2v_split``) plus a
     ``<stamp>_radar.pcd`` per cav and stamp, every V2XR_RADAR_EVERY-th
-    point of its LiDAR cloud jittered by N(0, V2XR_RADAR_NOISE) m."""
+    point of its LiDAR cloud jittered by N(0, V2XR_RADAR_NOISE) m; each
+    LiDAR cloud rewritten with V2X-R's weather label, V2XR_WEATHER_NOISE of
+    its points marked noise (MDD's clean-point mask: phase 23)."""
     from airv2x_tpu_torch.data.pcd import read_pcd, write_pcd
 
     write_opv2v_split(root, rng)
     scen = os.path.join(root, DISK_SCENARIO)
     for cav in sorted(os.listdir(scen)):
         for t in range(DISK_STAMPS):
-            pts = read_pcd(os.path.join(scen, cav, f"{t:06d}.pcd"))
+            path = os.path.join(scen, cav, f"{t:06d}.pcd")
+            pts = read_pcd(path)
             radar = pts[::V2XR_RADAR_EVERY].copy()
             radar[:, :3] += rng.normal(0, V2XR_RADAR_NOISE, (len(radar), 3))
             write_pcd(os.path.join(scen, cav, f"{t:06d}_radar.pcd"), radar)
+            write_pcd(path, pts, label=(rng.uniform(size=len(pts))
+                                        < V2XR_WEATHER_NOISE).astype(np.float32))
 
 
 def v2xr_hypes(path, core=None):
@@ -7116,6 +7171,338 @@ def phase_v2xr_train(card, work):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: V2X-R finished (RTNH, MDD) and HEAL's AlignNet
+
+RTNH_MDD = (("rtnh", "4DRadar/V2XR_RTNH.yaml"),
+           ("mdd", "L_4DR_Fusion_with_MDD/V2XR_AttFuse.yaml"))
+RTNH_MDD_SCENES = 2  # loaded scenes of phase 22's split timed per config
+# AlignNet's methods with the args the tiny models take (the card's tiny
+# HEAL and tests/test_torch_alignnet.py)
+ALIGNNET_METHODS = {
+    "identity": {}, "scaligner": {"num_of_blocks": 2, "num_of_layers": 2},
+    "resnet1x1": {"num_of_blocks": 1},
+    "resnet3x3": {"num_of_blocks": 1, "deform": True},
+    "cbam": {"num_of_blocks": 2}, "convnext": {"num_of_blocks": 2},
+    "sdta": {"num_of_blocks": 2}}
+# the full-width HEAL copies: no shipped YAML sets an alignnet key
+HEAL_ALIGNNET = (("resnet3x3_deform", {"core_method": "resnet3x3", "args": {
+    "num_of_blocks": 1, "deform": True}}),
+                 ("sdta", {"core_method": "sdta", "args": {"num_of_blocks": 1}}))
+HEAL_LIDAR = ("lidar", "det", "airv2x_heal/collab")
+# the tiny AlignNet models' init_random_ seed: the first from TINY_HETERO_SEED
+# (14) up whose every NMS decision on the CPU lies more than 10 x ROI_MARGIN
+# from the threshold for all seven methods (seed 14's: 3.4e-4)
+TINY_ALIGNNET_SEED = 19
+
+
+def alignnet_hypes(hypes, cfg):
+    """A copy of ``hypes`` with ``cfg`` under the model args' alignnet key."""
+    import copy
+
+    hypes = copy.deepcopy(hypes)
+    hypes["model"]["args"]["alignnet"] = copy.deepcopy(cfg)
+    return hypes
+
+
+def mdd_k4a(hypes):
+    """K4a launches per MDD scene in ``pallas``: the stride-1 ConvBNReLUs of
+    each backbone stage whose NHWC input the support gate admits in bf16
+    (``ops/conv3x3.py:supports_conv3x3``), printed with each stage's
+    estimate of the grid form's block against the gate's budget."""
+    from airv2x_tpu_torch.ops import conv3x3 as k4
+    from airv2x_tpu_torch.ops.voxelize import pillar_kwargs
+
+    nx, ny, _ = pillar_kwargs(hypes["preprocess"])["grid_size"]
+    bb = hypes["model"]["args"]["base_bev_backbone"]
+    maps = int(hypes["train_params"]["max_cav"])
+    count, h, w = 0, ny, nx
+    for n, stride, c in zip(bb["layer_nums"], bb["layer_strides"],
+                            bb["num_filters"]):
+        h, w = h // int(stride), w // int(stride)
+        shape = (maps, h, w, c)
+        est = k4.grid_block_bytes(shape, torch.bfloat16, c)
+        ok = k4.supports_conv3x3(shape, torch.bfloat16, c)
+        print(f"MDD backbone stage at {shape} bf16: the grid "
+              f"form's blocks {est / 1e6:.1f} MB of the gate's "
+              f"{k4.VMEM_BUDGET / 1e6:.1f} MB: admitted {ok}")
+        count += int(n) if ok else 0
+    return count
+
+
+def phase_rtnh_mdd(card, work):
+    """Phase 23 (a): RTNH and MDD whole at full width on phase 22's V2X-R
+    split (5 vehicles, RTNH's 8 x 200 x 704 radar grid, MDD's 704 x 200
+    pillars with its radar-conditioned chain of 3 UNet passes), bf16, batch
+    1, random weights (RTNH's BatchNorm statistics from one scene), the
+    radar read (``use_radar``), RTNH_MDD_SCENES loaded scenes in ``auto`` and
+    ``pallas`` (``time_disk``: launches asserted per scene, RTNH K1 0 / K4a
+    0 / K2 1 + the AP's, MDD K1 2 / K4a ``mdd_k4a`` / K2 1 + the AP's; every
+    ``pallas`` kernel input held to its plain version, K2 on RTNH's boxes
+    and K4a at MDD's 512-wide stage among them), a one-scene profile."""
+    from airv2x_tpu_torch.eval.ap import eval_final_results, new_result_stat
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = True  # PyTorch's defaults for bf16
+    cudnn.benchmark, cudnn.deterministic = False, False
+    root = os.path.join(work, "v2xr")
+    res = {"card": card, "configs": {}, "kernel_checks": []}
+    launches = {}
+    for name, path in RTNH_MDD:
+        t0 = time.perf_counter()
+        hypes = v2xr_hypes(path)
+        items = disk_items(hypes, "opv2v", root, use_radar=True,
+                           limit=RTNH_MDD_SCENES)
+        if name == "rtnh":
+            per_scene = (0, 0)
+            model = disk_model(hypes, calibrate_on=items[0][0])
+        else:
+            per_scene = (2, mdd_k4a(hypes))
+            if per_scene[1] != disk_convs(hypes):
+                raise AssertionError(f"MDD: the gate admits {per_scene[1]} of "
+                                     f"{disk_convs(hypes)} convs (pallas raises)")
+            model = disk_model(hypes)
+        label = f"phase 23 {name} ({path})"
+        r = {"yaml": path, "radar_points": [int(b["radar_points_mask"].sum())
+                                            for b, _ in items]}
+        checked = set()
+        for mode in ("auto", "pallas"):
+            stat = new_result_stat()
+            with conv_mode(mode):
+                r[mode] = time_disk(f"{label} {mode} [{card}]",
+                                    disk_step(hypes, model, stat), items, hypes,
+                                    mode, checked if mode == "pallas" else None,
+                                    per_scene=per_scene)
+            res["kernel_checks"] += r[mode].pop("kernel_checks")
+            r[mode]["ap"] = eval_final_results(stat)
+            for k, v in r[mode]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        with conv_mode("pallas"):
+            r["profile"] = phase_profile(
+                f"{label} pallas [{card}]", disk_step(hypes, model,
+                                                      new_result_stat()),
+                items, top=6, n=PROFILED_SCENES)
+        prof = r["profile"] or {}
+        r["seconds"] = time.perf_counter() - t0
+        print(f"{label} [{card}]: ms/scene auto {r['auto']['ms']:.3f}, pallas "
+              f"{r['pallas']['ms']:.3f}; busy "
+              f"{prof.get('busy_ms', float('nan')):.3f} ms/scene, idle "
+              f"{prof.get('idle_share', float('nan')):.3f} (pallas); peak "
+              f"{max(r[m]['peak_mib'] for m in ('auto', 'pallas')):.1f} MiB; "
+              f"launches per scene {r['pallas']['launches_per_scene']}; radar "
+              f"points {r['radar_points']}; kept {r['pallas']['kept']}; "
+              f"{r['seconds']:.1f} s")
+        res["configs"][name] = r
+        del model, items
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def nms_decision_margin(det, hypes, top_k):
+    """The smallest distance from the NMS threshold of any NMS decision of
+    a decode (on the CPU, plain IoU): each candidate's largest IoU with a
+    kept candidate ranked above it decides whether it is suppressed, so IoUs
+    that move by less than this leave the keep set as it is (with many
+    candidates, some pair that decides nothing lies near the threshold)."""
+    from airv2x_tpu_torch.ops import geometry as geo
+    from airv2x_tpu_torch.ops.nms import rotated_nms
+    from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
+
+    lr, thr = hypes["preprocess"]["cav_lidar_range"], hypes["postprocess"]["nms_thresh"]
+    corners, scores = det.corners.float().cpu(), det.scores.float().cpu()
+    valid = (scores > 0) & geo.keep_reasonable_boxes(corners, z_min=float(lr[2]),
+                                                      z_max=float(lr[5]))
+    quads = corners[:, :4, :2].contiguous()
+    keep, _ = rotated_nms(quads, scores, valid, thr, top_k=top_k)
+    idx = torch.nonzero(valid).flatten()  # the pool is in score order
+    if len(idx) < 2:
+        return 1.0
+    iou = quad_iou_plain(quads[idx], quads[idx]).triu(1) * keep[idx][:, None]
+    return float((iou[:, 1:].amax(0) - thr).abs().min())
+
+
+def phase_tiny_alignnet(card, device="cuda"):
+    """Phase 23 (b): the tiny HEAL (TINY_HETERO) with each ALIGNNET_METHODS
+    AlignNet, ``init_random_`` weights (TINY_ALIGNNET_SEED; the deformable
+    convs' offsets random, so their taps move off the grid), on phase 4f's
+    scene on ``device`` against the CPU, f32, TF32 off, pinned cuDNN:
+    psm / rm / obj within TINY_TOL x (1 + scale), equal keep sets, K1 3 /
+    K4a 0 / K2 1 launches asserted, every NMS decision's margin bounded
+    (``nms_decision_margin``).
+    ``phase_tiny_alignnet("cpu", device="cpu")`` runs it on the CPU."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.data.synthetic import batch_to_torch
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_random_
+
+    set_tf32(False)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    base = load_yaml(TINY)
+    scene = tiny_family_scene(base)
+    devices = ("cpu", device)
+    batch = {d: batch_to_torch(scene, d) for d in devices}
+    out = {}
+    try:
+        for method, args in ALIGNNET_METHODS.items():
+            hypes = alignnet_hypes(tiny_hetero_hypes(base, "airv2x_heal"),
+                                   {"core_method": method, "args": args})
+            res = {}
+            for d in dict.fromkeys(devices):
+                model = init_random_(build_model(hypes, device=d),
+                                     seed=TINY_ALIGNNET_SEED)
+                decode, _ = det_decoder(hypes, d, TINY_SCOPE_TOP_K)
+                kernels.reset_launch_counts()
+                with torch.inference_mode():
+                    o = model(batch[d])
+                    dets = decode(o)
+                res[d] = (o, dets, dict(kernels.LAUNCHES))
+            want = ({"pillar_encode": 3, "quad_iou": 1} if device == "cuda"
+                    else {})
+            n = {k: v for k, v in res[device][2].items() if v}
+            margin = nms_decision_margin(res["cpu"][1], hypes, TINY_SCOPE_TOP_K)
+            label = (f"phase 23 tiny HEAL + AlignNet {method} [{card}] ({n}; NMS "
+                     f"margin {margin:.3e}, limit {ROI_MARGIN})")
+            errs = compare(label, res[device][0], res["cpu"][0],
+                           ("psm", "rm", "obj", "comm_rate"))
+            same = bool(torch.equal(res[device][1].mask.cpu(), res["cpu"][1].mask))
+            kept = int(res["cpu"][1].mask.sum())
+            print(f"{label}: keep sets equal {same}, {kept} kept")
+            if n != want or not same or not kept or margin <= ROI_MARGIN:
+                raise AssertionError(f"{label}: launches {n} (want {want}), keep "
+                                     f"sets equal {same}, {kept} kept")
+            out[method] = {"kept": kept, "nms_margin": margin,
+                           "max_abs_err": errs}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    return out
+
+
+def phase_alignnet(card):
+    """Phase 23 (c): HEAL's LiDAR det YAML (cut as phase 5) with each
+    HEAL_ALIGNNET AlignNet at full width (64 channels at 100 x 352 over 6
+    agents), bf16, random weights with phase 19's BatchNorm calibration, on
+    phase 19's perturbed LiDAR scenes in ``auto`` and ``pallas``
+    (``time_path``: K1 3 / K4a 0 / K2 1 per scene asserted, the ``pallas``
+    warm-up's kernel inputs held to their plain versions), a one-scene
+    profile, the kept detections checked."""
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.models.base import SlotLayout
+    from airv2x_tpu_torch.utils.weights import cast_weights_, init_random_
+
+    t_phase = time.perf_counter()
+    base = hetero_hypes(*HEAL_LIDAR)
+    lidar = hetero_scenes(base, SlotLayout.from_args(base["model"]["args"]))
+    res = {"card": card, "configs": {}, "kernel_checks": []}
+    checked, launches = set(), {}
+    want = {"pillar_encode": 3, "quad_iou": 1, "conv3x3": 0}
+    for name, cfg in HEAL_ALIGNNET:
+        t0 = time.perf_counter()
+        h = alignnet_hypes(base, cfg)
+        model = init_random_(build_model(h, device="cuda"), seed=0, device="cuda")
+        calibrate_bn_(model, lidar[0])
+        cast_weights_(model, torch.bfloat16)
+        run = camera_step(h, model)
+        label = f"phase 23 HEAL + AlignNet {name}"
+        r = {}
+        for mode in ("auto", "pallas"):
+            with conv_mode(mode):
+                if mode == "pallas":
+                    seen = {}
+                    with recorded_kernel_inputs(seen):
+                        for b in lidar:
+                            run(b, no_mark)
+                    res["kernel_checks"] += check_kernel_inputs(
+                        f"{label} [{card}]", seen, checked)
+                r[mode] = time_path(f"{label} {mode} [{card}]", run, lidar, want,
+                                    runs=HETERO_RUNS)
+            r[mode]["launches_per_scene"] = want
+            r[mode]["kept"] = check_det(f"{label} {mode}", r[mode].pop("results"),
+                                        det_decoder(h)[1])
+            for k, v in r[mode]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        with conv_mode("pallas"):
+            r["profile"] = phase_profile(f"{label} pallas [{card}]", run, lidar,
+                                         top=6, n=PROFILED_SCENES)
+        prof = r["profile"] or {}
+        r["seconds"] = time.perf_counter() - t0
+        print(f"{label} [{card}]: ms/scene auto {r['auto']['ms']:.3f}, pallas "
+              f"{r['pallas']['ms']:.3f}; busy "
+              f"{prof.get('busy_ms', float('nan')):.3f} ms/scene, idle "
+              f"{prof.get('idle_share', float('nan')):.3f} (pallas); peak "
+              f"{max(r[m]['peak_mib'] for m in ('auto', 'pallas')):.1f} MiB; "
+              f"launches per scene {want}; {r['seconds']:.1f} s")
+        res["configs"][name] = r
+        del model, run
+        torch.cuda.empty_cache()
+    del lidar
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_rtnh_mdd_train(card, work):
+    """Phase 23 (d): RTNH and MDD trained at full width on phase 22's split,
+    batch 2 through ``RealDataLoader`` with the radar clouds, every batch's
+    labels carrying ``epoch`` 1 as the train CLI sets it; MDD's batches
+    carry the clean-point mask (``de_points_mask``, the LiDAR points whose
+    weather label is 0: V2XR_WEATHER_NOISE of them are not) and its loss
+    the ``diff_loss`` term. As phase 22 trains (``phase_train``: 2 warm-up
+    steps, TRAIN_MODEL_STEPS timed, the repeated-batch check; no kernel
+    launches in training)."""
+    from airv2x_tpu_torch.data.loader import RealDataLoader
+    from airv2x_tpu_torch.data.opv2v_dataset import OPV2VDataset
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.weights import init_flax_like_
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "v2xr")
+    res = {"card": card, "configs": {}}
+    for name, path in RTNH_MDD:
+        t0 = time.perf_counter()
+        hypes = v2xr_hypes(path)
+        assert int(hypes["train_params"]["batch_size"]) == TRAIN_BATCH
+        loader = RealDataLoader(OPV2VDataset(hypes, root, train=True, seed=0,
+                                             use_radar=True),
+                                hypes, TRAIN_BATCH, seed=0, num_workers=2,
+                                device="cuda")
+        batches = list(loader.batches(0))
+        for b in batches:
+            b["labels"]["epoch"] = 1.0
+        r = {}
+        if name == "mdd":
+            r["clean_share"] = [float(b["de_points_mask"].sum()
+                                      / b["points_mask"].sum()) for b in batches]
+            if not all(0.85 < v < 0.95 for v in r["clean_share"]):
+                raise AssertionError(f"MDD's clean-point share {r['clean_share']}")
+        model = init_flax_like_(build_model(hypes, device="cuda", train=True),
+                                seed=0)
+        t1 = time.perf_counter()
+        r.update(phase_train(f"phase 23 {path} training", card, hypes, model,
+                             batches, steps=TRAIN_MODEL_STEPS,
+                             repeats=TRAIN_MODEL_REPEATS, autotune=False,
+                             profiled=0))
+        losses = r.pop("losses")
+        if name == "mdd" and not all(p["diff_loss"] > 0 for p in losses):
+            raise AssertionError(f"MDD training without its diff_loss: {losses}")
+        r["setup_s"], r["seconds"] = t1 - t0, time.perf_counter() - t0
+        print(f"phase 23 {path} [{card}]: trained in {r['seconds']:.1f} s "
+              f"(loader and model {r['setup_s']:.1f})" + (
+                  f"; clean-point share {r['clean_share']}" if name == "mdd"
+                  else ""))
+        res["configs"][name] = r
+        del model, batches
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def k4_row(name, launches, k4, form):
     """The kernels-line row of K4a (``form`` "a") or K4b ("b"): per scene
     of 32 launches, bf16 as the main path runs it, and f32 beside it."""
@@ -7278,6 +7665,21 @@ def main() -> int:
                              if m in ("auto", "pallas") else r)
                          for m, r in c.items()} for name, c in v.items()}
                  if k == "configs" else v) for k, v in v2xr.items()})}))
+        t0 = time.perf_counter()
+        tiny_align = phase_tiny_alignnet(card)
+        rtnh_mdd = phase_rtnh_mdd(card, disk_work)
+        align = phase_alignnet(card)
+        marks["phase 23 serving"] = time.perf_counter() - t0
+        print(json.dumps({"rtnh_mdd_alignnet": {
+            "tiny_alignnet_card_vs_cpu": tiny_align, **{
+                part: dict({k: ({name: {m: ({kk: vv for kk, vv in r.items()
+                                             if kk != "launches"}
+                                            if m in ("auto", "pallas") else r)
+                                        for m, r in c.items()}
+                                 for name, c in v.items()}
+                                if k == "configs" else v)
+                            for k, v in res.items()})
+                for part, res in (("rtnh_mdd", rtnh_mdd), ("alignnet", align))}}}))
         # the training phases run after every serving phase, so that nothing
         # they leave on the card shows in the serving paths' peak memory
         t0 = time.perf_counter()
@@ -7311,6 +7713,10 @@ def main() -> int:
         marks["phase 22 training"] = v2xr_train["seconds"]
         marks["phase 22"] = marks["phase 22 serving"] + v2xr_train["seconds"]
         print(json.dumps({"v2xr_train": v2xr_train}))
+        rtnh_mdd_train = phase_rtnh_mdd_train(card, disk_work)
+        marks["phase 23 training"] = rtnh_mdd_train["seconds"]
+        marks["phase 23"] = marks["phase 23 serving"] + rtnh_mdd_train["seconds"]
+        print(json.dumps({"rtnh_mdd_train": rtnh_mdd_train}))
     finally:
         shutil.rmtree(disk_work, ignore_errors=True)
         shutil.rmtree(cam_work, ignore_errors=True)
@@ -7332,7 +7738,8 @@ def main() -> int:
                 + hetero["launches"].get(k, 0) + hetero_train["launches"].get(k, 0)
                 + eb["launches"].get(k, 0) + flat_rest["launches"].get(k, 0)
                 + late["launches"].get(k, 0) + flat_train["launches"].get(k, 0)
-                + v2xr["launches"].get(k, 0)
+                + v2xr["launches"].get(k, 0) + rtnh_mdd["launches"].get(k, 0)
+                + align["launches"].get(k, 0)
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
           f"15's on-disk V2VNet run: {v2v_disk}; in phase 16's timed and CLI "
@@ -7346,9 +7753,10 @@ def main() -> int:
           f"{flat_rest['launches']}, its counted late-fusion CLI runs: "
           f"{late['launches']} and its KD teacher's forwards: "
           f"{flat_train['launches']}; in phase 22's timed and single runs: "
-          f"{v2xr['launches']}")
+          f"{v2xr['launches']}; in phase 23's timed runs: RTNH and MDD "
+          f"{rtnh_mdd['launches']}, HEAL + AlignNet {align['launches']}")
     print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15, "
-          "16, 18, 19, 20, 21 and 22), the counted phase 13, 15, 16 and 21 CLI "
+          "16, 18, 19, 20, 21, 22 and 23), the counted phase 13, 15, 16 and 21 CLI "
           "runs, phase 17's, 18's and 19's evaluations, phase 21's KD teacher "
           f"and phase 22's single runs: {launches}")
     marks["whole script"] = time.perf_counter() - t_start

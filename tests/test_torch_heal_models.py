@@ -113,8 +113,8 @@ def _port(name, var, task="det"):
 
 def test_registry_has_the_three_names():
     assert set(NAMES) <= set(MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 52  # with the five early / BM2CP names,
-    # DiscoNet, How2comm, CoAlign and V2X-R's 19
+    assert len(MODEL_REGISTRY) == 56  # with the five early / BM2CP names,
+    # DiscoNet, How2comm, CoAlign, V2X-R's 19, RTNH's and MDD's two each
 
 
 def test_tiny_scenes_exercise_the_warps(hetero_run):
@@ -300,7 +300,11 @@ def test_initialisers_cover_the_adapter_leaves(init, variant):
 
 
 def test_alignnet_config_is_refused():
-    hypes = CHIP_SMOKE.tiny_hetero_hypes(load_yaml(TINY), "airv2x_heal")
-    hypes["model"]["args"]["alignnet"] = {"core_method": "convnext"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(hypes, device="cpu")
+    """HEAL builds the ``alignnet`` key's AlignNet (its parity tests are in
+    tests/test_torch_alignnet.py); STAMP, as the JAX package's, reads no
+    such key."""
+    for name, built in (("airv2x_heal", True), ("airv2x_stamp", False)):
+        hypes = CHIP_SMOKE.tiny_hetero_hypes(load_yaml(TINY), name)
+        hypes["model"]["args"]["alignnet"] = {"core_method": "convnext"}
+        model = build_model(hypes, device="cpu")
+        assert (model.alignnet is not None) == built, name

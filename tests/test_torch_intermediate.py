@@ -632,7 +632,10 @@ def test_registry_has_the_family():
         "point_pillar_interf", "point_pillar_InterF",
         *(f"point_pillar_{n}_lrf" for n in (
             "intermediate", "v2xvit", "cobevt", "where2comm", "coalign",
-            "scope", "spatialcooper", "sicp"))}
+            "scope", "spatialcooper", "sicp")),
+        # RTNH and MDD (tests/test_torch_rtnh.py, tests/test_torch_mdd.py)
+        "RTNH_intermediate", "rtnh_intermediate",
+        "point_pillar_intermediate_lrf_MDD", "point_pillar_mdd"}
     assert MODEL_REGISTRY["airv2x_intermediate"] is MODEL_REGISTRY["airv2x_attfusion"]
     assert JAX_REGISTRY["airv2x_intermediate"] is JAX_REGISTRY["airv2x_attfusion"]
 

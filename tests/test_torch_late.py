@@ -191,9 +191,9 @@ def _abstract_batch(hypes):
 
 
 def test_registry_has_33_names():
-    # the 33 names of the AirV2X, OPV2V and DAIR families, and the 19 of
-    # V2X-R (tests/test_torch_v2xr_models.py)
-    assert len(MODEL_REGISTRY) == 33 + 19
+    # the 33 names of the AirV2X, OPV2V and DAIR families, and the 23 of
+    # V2X-R (tests/test_torch_v2xr_models.py; RTNH's and MDD's two each)
+    assert len(MODEL_REGISTRY) == 33 + 23
     assert {"point_pillar_disconet", "point_pillar_how2comm",
             "point_pillar_coalign"} <= set(MODEL_REGISTRY)
 

@@ -160,10 +160,9 @@ def test_dataset_matches_jax(root, crop_margins, kind):
 
 
 def test_dataset_refusals(root):
-    """The MDD clean-point mask raises and names its ROADMAP item; JAX
-    serves it. The camera branch and the radar branch, once refused, build
-    (tests/test_torch_bm2cp_data.py and tests/test_torch_v2xr_data.py hold
-    their samples)."""
+    """The camera branch, the radar branch and the MDD clean-point mask
+    build (tests/test_torch_bm2cp_data.py, tests/test_torch_v2xr_data.py
+    and tests/test_torch_mdd.py hold their samples); eval reads no mask."""
     cam = hypes()
     cam["model"]["args"]["vehicle"] = {"modalities": ["lidar", "cam"],
                                        "cam": {"data_aug_conf": {}}}
@@ -173,9 +172,8 @@ def test_dataset_refusals(root):
     assert radar[0][0]["radar_points"].shape == (4, 2048 // 4, 4)
     mdd = hypes()
     mdd["model"]["core_method"] = "point_pillar_mdd"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        OPV2VDataset(mdd, root, train=True)
-    assert len(OPV2VDataset(mdd, root, train=False)) == 2  # eval reads no mask
+    assert OPV2VDataset(mdd, root, train=True).with_de
+    assert not OPV2VDataset(mdd, root, train=False).with_de  # eval reads no mask
     assert len(JaxOPV2V(hypes(), root, use_radar=True)) == 2
 
 

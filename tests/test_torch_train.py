@@ -624,16 +624,16 @@ def test_cli_refuses_real_root_dir_and_missing_card(tmp_path):
     root = tmp_path / "dataset"
     root.mkdir()
     hypes["root_dir"] = str(root)
-    # MDD (the one LiDAR + radar ``_lrf`` model not ported) is refused
-    # before the CLI builds a loader or a run dir (camera configs train since
-    # camera training was ported, the other radar configs since V2X-R was:
-    # tests/test_torch_train_camera.py, tests/test_torch_v2xr_data.py)
-    hypes["model"]["core_method"] = "point_pillar_intermediate_lrf_MDD"
+    # a root_dir without samples falls back to synthetic scenes, where a
+    # radar-only model the CLI draws no radar cloud for is refused before
+    # the CLI builds a loader or a run dir
+    hypes["model"]["core_method"] = "point_pillar_spatialcooper"
+    hypes["model"]["args"]["use_modality"] = "processed_radar"
     cfg = tmp_path / "cfg.yaml"
     with open(cfg, "w") as f:
         yaml.safe_dump(jax.tree.map(lambda v: v.tolist() if hasattr(v, "tolist")
                                     else v, hypes), f)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="processed_radar"):
         train_cli.main(["--hypes_yaml", str(cfg), "--device", "cpu",
                         "--log_dir", str(tmp_path / "logs")])
     assert not (tmp_path / "logs").exists()

@@ -268,9 +268,10 @@ def test_cli_trains_a_camera_config_on_disk(tmp_path, monkeypatch):
     assert True in seen and False in seen  # train batches, then validation
 
 
-# the ``_lrf`` family's MDD twin is the one radar config the CLI still
-# refuses (ROADMAP §1 item 7); BM2CP on synthetic scenes (ROADMAP §3)
-REFUSED = {"point_pillar_lrf": "point_pillar_intermediate_lrf_MDD",
+# on synthetic scenes the CLI refuses a radar-only model the JAX CLI draws
+# no radar cloud for (SpatialCooper with ``use_modality: processed_radar``)
+# and BM2CP (ROADMAP §3)
+REFUSED = {"point_pillar_lrf": "point_pillar_spatialcooper",
            "airv2x_bm2cp": "airv2x_bm2cp"}
 
 
@@ -278,9 +279,12 @@ REFUSED = {"point_pillar_lrf": "point_pillar_intermediate_lrf_MDD",
 def test_cli_refuses_radar_and_bm2cp(tmp_path, core):
     hypes = load_yaml(TINY)
     hypes["model"]["core_method"] = REFUSED[core]
+    if core == "point_pillar_lrf":
+        hypes["model"]["args"]["use_modality"] = "processed_radar"
     cfg = _write_config(tmp_path / "cfg.yaml", hypes)
     with pytest.raises(NotImplementedError,
-                       match="item 7" if core == "point_pillar_lrf" else "BM2CP"):
+                       match="processed_radar" if core == "point_pillar_lrf"
+                       else "BM2CP"):
         train_cli.main(["--hypes_yaml", cfg, "--device", "cpu",
                         "--log_dir", str(tmp_path / "logs")])
     assert not (tmp_path / "logs").exists()  # refused before any run dir

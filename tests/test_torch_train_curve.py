@@ -12,6 +12,13 @@ Each step's keep fraction is the port's ``chip_smoke.clean_keep_fraction``
 of that step's batch at the port's current weights (its cut on a relative
 confidence gap of at least 1e-5); the JAX step reads it through a host
 callback, so one jitted step serves every value.
+
+The JAX step compiles with the persistent compilation cache off: an entry
+of the shared cache directory (tests/conftest.py), compiled for another
+machine type, was loaded for this step's float64 program with its
+``jax.random.uniform`` replaced by a host callback, and reading the loss
+back then failed (``CpuCallback error ... Incorrect output dtype for return
+value #0: Expected: float64, Actual: float32``).
 """
 
 import jax
@@ -67,7 +74,18 @@ def batches():
         for _ in range(STEPS)]
 
 
-def test_float64_loss_curve_matches_jax(monkeypatch):
+@pytest.fixture
+def no_compilation_cache():
+    """The persistent compilation cache off for one test, then restored."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)
+
+
+def test_float64_loss_curve_matches_jax(monkeypatch, no_compilation_cache):
     jh, th = gate_hypes(jax_load_yaml), gate_hypes(load_yaml)
     stream = batches()
     variables = variables_for(jh, stream[0])

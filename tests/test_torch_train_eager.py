@@ -5,8 +5,10 @@ from one bridged initialisation; V2VNet det in float64; When2com's fusion
 in float64 in train mode (the whole When2com det step in float64:
 tests/test_torch_train_when2com_f64.py).
 
-The float64 references run eagerly (``make_train_step(..., jit=False)``,
-the V2VNet det step; ``jax.grad`` of When2com's fusion); the f32 JAX steps
+The float64 references run eagerly (the V2VNet det step, but for its
+spine and optimizer update: ``torch_train_helpers.jax_step(...,
+jit="spine")``; ``jax.grad`` of When2com's fusion, but for its policy CNN
+and key / query nets); the f32 JAX steps
 jit with XLA_OPT0 (XLA's CPU backend without its LLVM optimisations), as an
 eager f32 step compiles each primitive alone (about 100 s) and a float64
 step at XLA_OPT0 runs for minutes. The port meets both: the eager float64
@@ -34,8 +36,8 @@ from tests.test_torch_train import F64_GRAD_TOL, STEP_GRAD_TOL
 from tests.torch_port_helpers import CHIP_SMOKE, one_torch_thread, random_variables
 from tests.torch_train_helpers import (
     XLA_OPT0, check_f64_gradients, check_gradients, check_loss_parts,
-    check_params_and_stats, jax_step, labelled_batch, port_step, run_both,
-    tiny_hypes, twin, variables_for)
+    check_params_and_stats, jax_step, jit_submodules, labelled_batch, port_step,
+    run_both, tiny_hypes, twin, variables_for)
 
 CASES = (("airv2x_v2vnet", "det"), ("airv2x_v2vnet", "seg"),
          ("airv2x_when2com", "det"), ("airv2x_when2com", "seg"))
@@ -86,13 +88,13 @@ def test_eager_train_step_params_and_bn_stats_match_jax(step_run):
 
 def test_v2vnet_gradients_match_jax_f64(batch):
     """V2VNet det with both packages in float64 (the JAX package's f32
-    islands kept), the JAX step eager: every gradient leaf to F64_GRAD_TOL
-    of its scale, and the loss parts as in f32."""
+    islands kept), the JAX step eager but for its spine: every gradient
+    leaf to F64_GRAD_TOL of its scale, and the loss parts as in f32."""
     jh = tiny_hypes(jax_load_yaml, "airv2x_v2vnet", "det")
     th = tiny_hypes(load_yaml, "airv2x_v2vnet", "det")
     var = variables_for(jh, batch)
     _, stats, jparts, grads = jax_step(jh, batch, var, dtype=jnp.float64,
-                                       jit=False)
+                                       jit="spine")
     model, parts = port_step(th, batch, var, double=True)
     check_loss_parts(parts, jparts)
     check_f64_gradients(model, twin(th, grads, stats, double=True))
@@ -100,8 +102,9 @@ def test_v2vnet_gradients_match_jax_f64(batch):
 
 def test_when2com_fusion_train_gradients_match_jax_f64(batch):
     """When2com's fusion in train mode (the policy CNN's BNs on batch
-    statistics) in float64, JAX eager, at 16 x 16 maps of 16 channels: the
-    gradients of every parameter and of the input maps, and the updated
+    statistics) in float64, JAX eager but for the policy CNN and the key /
+    query nets (each jitted, ``jit_submodules``), at 16 x 16 maps of 16
+    channels: the gradients of every parameter and of the input maps, and the updated
     running statistics, on the batch's poses and agent mask. Every parameter to F64_GRAD_TOL
     of its scale plus 1e-9 of the largest gradient: the conv biases that a
     BatchNorm follows and the key net's last bias (a shift of every
@@ -125,8 +128,9 @@ def test_when2com_fusion_train_gradients_match_jax_f64(batch):
                                   xx, am, ptf, True, mutable=["batch_stats"])
             return jnp.sum(out * r), upd["batch_stats"]
 
-        (gp, gx), stats = jax.grad(loss, argnums=(0, 1), has_aux=True)(
-            v64["params"], jnp.asarray(x))
+        with jit_submodules(("PolicyNet_0", "key_net", "query_net")):
+            (gp, gx), stats = jax.grad(loss, argnums=(0, 1), has_aux=True)(
+                v64["params"], jnp.asarray(x))
         gp, gx, stats = jax.tree.map(np.asarray, (gp, gx, stats))
     tmod = When2comFusion(args, 16)
     load_flax_variables(tmod, var)

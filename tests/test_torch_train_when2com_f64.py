@@ -1,9 +1,12 @@
 """When2com det, the whole tiny model's train step with both packages in
-float64 (the JAX package's f32 islands kept), the JAX step eager
-(``make_train_step(..., jit=False)``): XLA's CPU jit miscompiles the JAX
-When2com step in float64 as in f32 (total loss 389.03 jitted, 390.4996
-eager and in the port), and an eager float64 step takes about three
-minutes, so this file holds that one step. The loss parts to the flagship's
+float64 (the JAX package's f32 islands kept), the JAX step eager but for
+its spine (``torch_train_helpers.jax_step(..., jit="spine")``: the point
+encoder, backbone, shrink conv and heads, the fusion's policy CNN and key /
+query nets and the optimizer's update jitted; the warp, the rest of the
+fusion, the model's glue and the loss eager): XLA's CPU jit
+miscompiles the JAX When2com step in float64 as in f32 (total loss 389.03
+jitted, 390.4996 eager and in the port), and the float64 step takes one
+to two minutes, so this file holds that one step. The loss parts to the flagship's
 STEP_LOSS_TOL; every gradient leaf to ``chip_smoke.WHEN2COM_F64_GRAD_TOL``
 of its scale plus WHEN2COM_F64_GRAD_FLOOR of the largest (the warp grid's
 f32 island: tests/train_reference_probes.py); the updated parameters as
@@ -33,7 +36,7 @@ def step_run():
     th = tiny_hypes(load_yaml, "airv2x_when2com", "det")
     var = variables_for(jh, batch)
     params, stats, jparts, grads = jax_step(jh, batch, var, dtype=jnp.float64,
-                                            jit=False)
+                                            jit="spine")
     model, parts = port_step(th, batch, var, double=True)
     return dict(model=model, parts=parts, jparts=jparts,
                 wd=float(th["optimizer"]["args"]["weight_decay"]),

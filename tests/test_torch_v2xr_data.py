@@ -10,9 +10,10 @@
     single, temporal (the current frame's radar) and without ``proj_first``,
     sample for sample against JAX's, the radar keys included; the ego mask
     is not applied to radar; ``RealDataLoader`` batches carry the keys;
-  * the train CLI's refusals: RTNH and MDD name ROADMAP item 7, a
-    radar-only AdaFusion config on synthetic scenes says why, the LiDAR +
-    radar models pass.
+  * the train CLI's refusals: a radar-only AdaFusion config on synthetic
+    scenes says why; RTNH, MDD and the LiDAR + radar models pass;
+  * the train CLI's synthetic batches of RTNH (no radar: it encodes the
+    LiDAR cloud, ROADMAP §3) and MDD (a radar cloud) equal JAX's.
 """
 
 import os
@@ -162,8 +163,11 @@ def test_cli_synthetic_scenes_carry_radar_where_the_model_reads_it():
     likewise."""
     layout = SlotLayout(counts=(3, 0, 0))
     for name, radar in (("point_pillar_intermediate_lrf", True),
-                        ("point_pillar_spatialcooper", False)):
-        h = v2xr_hypes(name)
+                        ("point_pillar_spatialcooper", False),
+                        ("rtnh_intermediate", False),
+                        ("point_pillar_intermediate_lrf_MDD", True)):
+        h = v2xr_hypes("point_pillar_intermediate_lrf")
+        h["model"]["core_method"] = name
         h["preprocess"]["max_points"] = 512
         assert train.needs_radar(h) == radar
         want = next(jax_train.synthetic_batches(h, JaxSlotLayout(counts=(3, 0, 0)),
@@ -188,21 +192,24 @@ def _yaml(path):
 @pytest.mark.parametrize("path", ["4DRadar/V2XR_RTNH.yaml",
                                   "L_4DR_Fusion_with_MDD/V2XR_AttFuse.yaml"])
 def test_refuse_unported_names_item_7(path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train.refuse_unported(_yaml(path))
+    """RTNH and MDD pass the CLI's refusal on synthetic scenes: RTNH
+    encodes the LiDAR cloud there, MDD the radar cloud the CLI draws for it
+    (ROADMAP §3)."""
+    h = _yaml(path)
+    train.refuse_on_synthetic(h)
+    assert train.needs_radar(h) == ("MDD" in path)
 
 
 def test_refuse_radar_only_adafusion_on_synthetic_scenes():
     """``4DRadar/V2XR_adafusion.yaml`` encodes the radar cloud, which the
     synthetic scenes give only the l4dr / lrf / interf / mdd models (the JAX
     CLI's ``needs_radar``): refused there with the reason, served on a
-    dataset; the LiDAR + radar configs pass on both."""
+    dataset; the LiDAR + radar configs pass."""
     ada = _yaml("4DRadar/V2XR_adafusion.yaml")
     with pytest.raises(NotImplementedError, match="processed_radar"):
-        train.refuse_unported(ada, synthetic=True)
-    train.refuse_unported(ada)
+        train.refuse_on_synthetic(ada)
     for path in ("LiDAR/V2XR_adafusion.yaml", "L_4DR_Fusion/V2XR_L4DR.yaml",
                  "L_4DR_Fusion/V2XR_AdaFusion.yaml",
                  "L_4DR_Fusion/V2XR_InterFusion.yaml",
                  "4DRadar/V2XR_PFA_net.yaml"):
-        train.refuse_unported(_yaml(path), synthetic=True)
+        train.refuse_on_synthetic(_yaml(path))

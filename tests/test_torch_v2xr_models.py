@@ -39,9 +39,6 @@ from airv2x_tpu_torch.models.registry import MODEL_REGISTRY
 from airv2x_tpu_torch.utils.weights import load_flax_variables
 from tests.test_point_pillar_family import EXTRAS
 from airv2x_tpu_torch.data.postprocess import decode_detections
-from airv2x_tpu_torch.ops import geometry as geo
-from airv2x_tpu_torch.ops.nms import rotated_nms
-from airv2x_tpu_torch.ops.quad_iou import quad_iou_plain
 from tests.test_torch_coalign import TOP_K, keep_sets
 from tests.test_torch_point_pillar_family import RANGE, TOL, V2XVIT, tiny_hypes
 from tests.torch_port_helpers import (
@@ -89,10 +86,10 @@ SEEDS = {"point_pillar_l4dr": 6, "point_pillar_L4DR": 6,
 
 def nms_decision_margin(hypes, out):
     """The smallest distance from the NMS threshold of any NMS decision of
-    the port's decode, per sample: for each candidate, the largest IoU with
-    a kept candidate ranked above it decides whether it is suppressed, so
-    IoUs that move by less than this margin leave every keep set as it is
-    (the candidates' other pairs decide nothing)."""
+    the port's decode, per sample (``chip_smoke.py:nms_decision_margin``:
+    each candidate's largest IoU with a kept candidate ranked above it
+    decides whether it is suppressed, so IoUs that move by less than this
+    margin leave every keep set as it is)."""
     anchors = torch.from_numpy(generate_anchor_grid(
         hypes["postprocess"]["anchor_args"]))
     lr = torch.tensor(hypes["preprocess"]["cav_lidar_range"])
@@ -103,17 +100,7 @@ def nms_decision_margin(hypes, out):
         det = decode_detections(psm, out["rm"][b], psm, anchors, torch.eye(4), lr,
                                 num_class=1, obj_threshold=0.2, nms_thresh=thr,
                                 top_k=TOP_K)
-        valid = (det.scores > 0) & geo.keep_reasonable_boxes(
-            det.corners, z_min=float(lr[2]), z_max=float(lr[5]))
-        keep, _ = rotated_nms(det.corners[:, :4, :2], det.scores, valid, thr,
-                              top_k=TOP_K)
-        order = torch.sort(torch.where(valid, det.scores, -torch.inf),
-                           descending=True, stable=True)[1][:int(valid.sum())]
-        quads = det.corners[order][:, :4, :2].contiguous()
-        iou = quad_iou_plain(quads, quads).triu(1) * keep[order][:, None]
-        if len(order) > 1:
-            decisive = iou[:, 1:].amax(0)
-            margin = min(margin, float((decisive - thr).abs().min()))
+        margin = min(margin, CHIP_SMOKE.nms_decision_margin(det, hypes, TOP_K))
     return margin
 
 
@@ -157,7 +144,7 @@ def test_every_port_module_imports_first():
 def test_registry_has_the_v2xr_names():
     names = set(CASES) | {TEMPORAL}
     assert names <= set(MODEL_REGISTRY) and len(names) == 19
-    assert len(MODEL_REGISTRY) == 52
+    assert len(MODEL_REGISTRY) == 56  # and RTNH's and MDD's two names each
 
 
 @pytest.fixture(scope="module")

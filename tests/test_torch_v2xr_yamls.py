@@ -1,12 +1,12 @@
 """The V2X-R YAMLs in the port against the JAX package on the CPU:
 
-  * the 27 in-scope YAMLs (8 under ``LiDAR/``, 10 under ``L_4DR_Fusion/``,
-    9 under ``4DRadar/``: all but RTNH) built through the registry at full
-    width on the meta device (no weight materialised) against the JAX
-    model's abstract init: the bridge's names and shapes equal the port's
-    state_dict, strict;
-  * RTNH and MDD raise NotImplementedError naming ROADMAP item 7, in the
-    registry and in the MDD training dataset;
+  * all 29 YAMLs (8 under ``LiDAR/``, 10 under ``L_4DR_Fusion/``, 10 under
+    ``4DRadar/``, MDD's under ``L_4DR_Fusion_with_MDD/``) built through the
+    registry at full width on the meta device (no weight materialised)
+    against the JAX model's abstract init: the bridge's names and shapes
+    equal the port's state_dict, strict;
+  * RTNH and MDD build through the registry and MDD's training dataset
+    reads the clean-point mask;
   * the ``4DRadar/`` twins of attfuse, cobevt, coalign, scope, sicp, v2xvit
     and where2comm compute what their ``LiDAR/`` twins compute: their model
     sections differ only in ``use_modality``, which only PFA-Net and
@@ -38,16 +38,20 @@ from tests.test_torch_v2xr_models import SICP
 from tests.torch_port_helpers import CHIP_SMOKE, REPO, one_torch_thread  # noqa: F401
 
 V2XR = os.path.join(REPO, "hypes_yaml", "V2X-R")
-UNPORTED = ("4DRadar/V2XR_RTNH.yaml", "L_4DR_Fusion_with_MDD/V2XR_AttFuse.yaml")
+# RTNH's and MDD's YAMLs
+RTNH_MDD = ("4DRadar/V2XR_RTNH.yaml", "L_4DR_Fusion_with_MDD/V2XR_AttFuse.yaml")
 YAMLS = sorted(os.path.relpath(p, V2XR) for p in glob.glob(
-    os.path.join(V2XR, "*", "*.yaml")) if os.path.relpath(p, V2XR) not in UNPORTED)
+    os.path.join(V2XR, "*", "*.yaml")))
 TWINS = ("attfuse", "cobevt", "coalign", "scope", "sicp", "v2xvit", "where2comm")
 
 
 def test_the_in_scope_yamls_are_27():
+    """All 29: every directory's YAMLs, RTNH's and MDD's among them."""
     dirs = [p.split("/")[0] for p in YAMLS]
     assert (len(YAMLS), dirs.count("LiDAR"), dirs.count("L_4DR_Fusion"),
-            dirs.count("4DRadar")) == (27, 8, 10, 9)
+            dirs.count("4DRadar"), dirs.count("L_4DR_Fusion_with_MDD")) == (
+                29, 8, 10, 10, 1)
+    assert set(RTNH_MDD) <= set(YAMLS)
     names = {load_yaml(os.path.join(V2XR, p))["model"]["core_method"]
              for p in YAMLS}
     assert names <= set(MODEL_REGISTRY)
@@ -98,14 +102,18 @@ def test_yaml_builds_and_bridges_at_full_width(path):
         assert model.backbone.stages[0].layers[0].conv.weight.shape[1] == 128
 
 
-@pytest.mark.parametrize("path", UNPORTED)
+@pytest.mark.parametrize("path", RTNH_MDD)
 def test_rtnh_and_mdd_raise_naming_item_7(path):
+    """Both build through the registry (on the meta device: no weight
+    materialised), and MDD's training dataset reads the clean-point mask."""
     hypes = load_yaml(os.path.join(V2XR, path))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_model(hypes, device="cpu")
+    args = dict(hypes["model"]["args"], preprocess=hypes["preprocess"],
+                postprocess=hypes["postprocess"])
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[hypes["model"]["core_method"]](args)
+    assert model.layout.total == 5
     if "MDD" in path:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            OPV2VDataset(hypes, "", train=True, use_radar=True)
+        assert OPV2VDataset(hypes, "", train=True, use_radar=True).with_de
 
 
 def test_only_pfanet_and_spatialcooper_read_use_modality():

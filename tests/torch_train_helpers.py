@@ -6,7 +6,8 @@ statistics), at the tolerances of the flagship's step tests
 (tests/test_torch_train.py, which states how they were measured).
 
 The JAX step records the gradients it applied through a debug callback in
-the optimizer's update. ``jit=False`` runs the JAX step eagerly and
+the optimizer's update. ``jit=False`` runs the JAX step eagerly,
+``jit="spine"`` eagerly but for the model's spine and the update, and
 ``compiler_options=XLA_OPT0`` jits it without LLVM's optimisations, which
 V2VNet and When2com need: XLA's CPU jit miscompiles their fusions (ROADMAP
 §3). In float64
@@ -17,9 +18,11 @@ grids, the losses).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,15 +73,75 @@ def jax_model(hypes, dtype=jnp.float32):
     return JAX_REGISTRY[hypes["model"]["core_method"]](args=args, dtype=dtype)
 
 
+# the submodules that ``jax_step(jit="spine")`` jits: the point encoder, the
+# BEV backbone and its shrink / compression convs, the heads, and within
+# When2com's fusion its policy CNN and key / query nets (not its warp)
+SPINE = ("encoder", "backbone", "shrink_conv", "compressor", "heads",
+         "seg_head", "fusion_net/PolicyNet_0", "fusion_net/key_net",
+         "fusion_net/query_net")
+
+
+@contextlib.contextmanager
+def jit_submodules(paths):
+    """Within the block, every flax submodule whose scope path (names
+    joined by "/", from the root model) is in ``paths`` runs as one jitted
+    call (its variables in, its mutated collections written back);
+    everything else runs as it would. In an eager step this compiles each
+    such submodule once instead of each of its primitives."""
+    cache, inside = {}, []
+
+    def interceptor(next_fun, args, kwargs, context):
+        mod = context.module
+        if (inside or context.method_name != "__call__"
+                or "/".join(mod.path) not in paths):
+            return next_fun(*args, **kwargs)
+        unbound, variables = mod.unbind()
+        mutable = tuple(c for c in variables if mod.is_mutable_collection(c))
+        leaves, treedef = jax.tree.flatten((args, kwargs))
+        dyn = tuple(isinstance(a, (jax.Array, np.ndarray)) for a in leaves)
+        static = tuple(a for a, d in zip(leaves, dyn) if not d)
+        key = (type(mod), mod.path, treedef, static, dyn, mutable)
+        if key not in cache:
+            def call(v, arrays, unbound=unbound):
+                it, st = iter(arrays), iter(static)
+                a, kw = jax.tree.unflatten(
+                    treedef, [next(it) if d else next(st) for d in dyn])
+                if not mutable:
+                    return unbound.apply(v, *a, **kw), {}
+                return unbound.apply(v, *a, **kw, mutable=list(mutable))
+            cache[key] = jax.jit(call)
+        inside.append(mod.path)
+        try:
+            out, updated = cache[key](
+                dict(variables), [a for a, d in zip(leaves, dyn) if d])
+        finally:
+            inside.pop()
+        for col, tree in updated.items():
+            for name, value in tree.items():
+                mod.put_variable(col, name, value)
+        return out
+
+    with nn.intercept_methods(interceptor):
+        yield
+
+
 def jax_step(hypes, batch, variables, *, accum=1, u=None, jit=True,
              dtype=jnp.float32, compiler_options=None):
     """One JAX ``make_train_step`` update (adamw + the config's schedule)
     with the keep fraction ``u`` injected where given; ``compiler_options``
-    go to the jitted step's compile. Returns (params, batch_stats, loss
-    parts, the gradients applied), numpy."""
+    go to the jitted step's compile. ``jit=False`` runs the step eagerly;
+    ``jit="spine"`` runs it eagerly but for the model's SPINE submodules
+    and the optimizer's update, each jitted: the warps, the rest of the
+    fusion, the model's glue and the loss stay eager (on the V2VNet and
+    When2com float64 det steps the loss parts are bit for bit the eager
+    step's, every gradient within 1e-12 of it, at a third to half of its
+    time: ``python -m tests.train_reference_probes``). Returns (params,
+    batch_stats, loss parts, the gradients applied), numpy."""
     x64 = dtype == jnp.float64
+    spine = jit == "spine"
     grads = []
-    with jax.enable_x64(x64), pytest.MonkeyPatch.context() as mp:
+    with (jax.enable_x64(x64), pytest.MonkeyPatch.context() as mp,
+          jit_submodules(SPINE if spine else ())):
         if u is not None:
             _inject_keep_fraction(mp, u, dtype)
         tx, _ = jax_train.make_optimizer(hypes, STEPS_PER_EPOCH)
@@ -88,6 +151,9 @@ def jax_step(hypes, batch, variables, *, accum=1, u=None, jit=True,
                 lambda gg: grads.append(jax.tree.map(np.asarray, gg)), g)
             return tx.update(g, s, p)
 
+        if spine:
+            update = jax.jit(update)
+            mp.setattr(optax, "apply_updates", jax.jit(optax.apply_updates))
         rec_tx = optax.GradientTransformation(tx.init, update)
         cast = f64 if x64 else np.asarray
         model = jax_model(hypes, dtype)
@@ -95,7 +161,7 @@ def jax_step(hypes, batch, variables, *, accum=1, u=None, jit=True,
         state = jax_train.create_train_state(model, var, rec_tx)
         step = jax_train.make_train_step(model, jax_build_loss(hypes), rec_tx,
                                          donate=False, accum_steps=accum,
-                                         jit=jit,
+                                         jit=jit is True,
                                          compiler_options=compiler_options)
         new_state, parts = step(
             state, jax.tree.map(lambda a: jnp.asarray(cast(a)), batch),

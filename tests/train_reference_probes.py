@@ -12,15 +12,20 @@
     V2X-ViT det ``MaskedBatchNorm``'s f32 statistics summed in f32 (the
     order of the sums decides their last bit) instead of accumulated in
     f64 and rounded once; for When2com det the normalized warp's sample
-    grid in f64 instead of f32.
+    grid in f64 instead of f32;
+  * the V2VNet and When2com float64 det steps with ``jit="spine"`` against
+    the eager ones: their times, the loss parts, and the largest
+    differences of the gradients, parameters and BN statistics.
 
 Run it from the repository root (CPU, a few minutes):
 
     JAX_PLATFORMS=cpu python -m tests.train_reference_probes
 """
 
+import time
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -136,8 +141,33 @@ def v2xvit_seg_rounding():
               "leaf's scale from JAX's float64 ones")
 
 
+def spine_against_eager(name):
+    """The float64 det step with ``jit="spine"`` against the eager one: the
+    loss parts equal or not, and the largest difference of a gradient leaf,
+    of an updated parameter and of a BN statistic."""
+    batch = labelled_batch()
+    jh = tiny_hypes(jax_load_yaml, name, "det")
+    variables = variables_for(jh, batch)
+    runs = {}
+    for jit in (False, "spine"):
+        t0 = time.perf_counter()
+        runs[jit] = jax_step(jh, batch, variables, dtype=jnp.float64, jit=jit)
+        runs[jit] += (time.perf_counter() - t0,)
+    (p0, s0, l0, g0, t0), (p1, s1, l1, g1, t1) = runs[False], runs["spine"]
+
+    def most(a, b):
+        return max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                   for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+    print(f"{name} det, float64 step: eager {t0:.1f} s, spine {t1:.1f} s; "
+          f"loss parts equal {l0 == l1}; largest difference of a gradient "
+          f"{most(g0, g1):.3e}, of a parameter {most(p0, p1):.3e}, of a BN "
+          f"statistic {most(s0, s1):.3e}")
+
+
 def main():
     torch.set_num_threads(1)
+    for name in ("airv2x_v2vnet", "airv2x_when2com"):
+        spine_against_eager(name)
     when2com_losses()
     v2xvit_seg_rounding()
     cases = (
