@@ -129,8 +129,8 @@ def infer_bf16(run_dir: str, num_scenes: int, eval_seed: int) -> dict:
     process (``load_run``'s serving cast)."""
     hypes, model, _ = load_run(run_dir, "cuda")
     cast_weights_(model, torch.bfloat16)
-    table, _ = inference_multi_scenario.evaluate(hypes, model, "cuda", "",
-                                                 num_scenes, eval_seed)
+    table, _, _ = inference_multi_scenario.evaluate(hypes, model, "cuda", "",
+                                                    num_scenes, eval_seed)
     return table
 
 

@@ -132,6 +132,9 @@ class SceneDets(NamedTuple):
     gt_corners: torch.Tensor  # (G, 4, 2) valid gt quads, same device
     gt_labels: np.ndarray  # (G,)
     rate: float  # communication rate
+    boxes: np.ndarray  # (K, 7) kept hwl boxes
+    corners3d: torch.Tensor  # (K, 8, 3) kept box corners, model's device
+    gt_corners3d: torch.Tensor  # (G, 8, 3) valid gt box corners, same device
 
 
 def late_batch(batch: dict) -> dict:
@@ -189,13 +192,16 @@ def det_step(hypes, model, device, obj_threshold: float = 0.0,
                                         eye, lidar_range, **kw)
             keep = det.mask
             gm = gt["mask"].astype(bool)
-            gt_c = geo.boxes_to_corners_bev(
+            gt_c3 = geo.boxes_to_corners_3d(
                 torch.from_numpy(gt["boxes"][gm]).to(dev), order="hwl")
+        corners3d = det.corners[keep]
         return SceneDets(
-            corners=det.corners[keep][:, :4, :2], scores=det.scores[keep].cpu().numpy(),
-            labels=det.labels[keep].cpu().numpy(), gt_corners=gt_c,
+            corners=corners3d[:, :4, :2], scores=det.scores[keep].cpu().numpy(),
+            labels=det.labels[keep].cpu().numpy(), gt_corners=gt_c3[:, :4, :2],
             gt_labels=np.asarray(gt["classes"])[gm],
-            rate=float(out.get("comm_rate", 0.0 if late else 1.0)))
+            rate=float(out.get("comm_rate", 0.0 if late else 1.0)),
+            boxes=det.boxes[keep].cpu().numpy(), corners3d=corners3d,
+            gt_corners3d=gt_c3)
 
     return step
 

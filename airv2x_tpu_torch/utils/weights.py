@@ -145,21 +145,35 @@ def flax_state_dict(model: nn.Module, variables: dict) -> dict:
 
 
 class _LeafPath:
-    """Stands in for a flax leaf in ``_walk``: its path, kept through the
-    bridge's layout operations."""
+    """Stands in for a flax leaf in ``_walk``: its path, and the bridge's
+    layout operations on the way to the torch tensor, which ``to_flax``
+    undoes."""
 
-    def __init__(self, path: tuple):
-        self.path = path
+    def __init__(self, path: tuple, ops: tuple = ()):
+        self.path, self.ops = path, ops
 
     @property
     def T(self):  # noqa: N802 (numpy's name)
-        return self
+        return _LeafPath(self.path, self.ops + (("T", None),))
 
-    def __getitem__(self, _):
-        return self
+    def __getitem__(self, idx):
+        return _LeafPath(self.path, self.ops + (("index", idx),))
 
-    def transpose(self, *_):
-        return self
+    def transpose(self, *axes):
+        axes = tuple(axes[0]) if len(axes) == 1 else axes
+        return _LeafPath(self.path, self.ops + (("transpose", axes),))
+
+    def to_flax(self, t: np.ndarray) -> np.ndarray:
+        """The flax leaf of torch tensor ``t`` (the bridge's layout
+        operations inverted, last first)."""
+        for op, arg in reversed(self.ops):
+            if op == "T":
+                t = t.T
+            elif op == "index":  # the ConvTranspose taps' flip
+                t = t[arg]
+            else:
+                t = t.transpose(np.argsort(arg))
+        return t
 
 
 class _Paths:
@@ -175,6 +189,25 @@ def flax_paths(model: nn.Module) -> dict:
     out: dict = {}
     _walk(model, (), "", _Paths(), out)
     return {k: v.path for k, v in out.items() if isinstance(v, _LeafPath)}
+
+
+def flax_variables(model: nn.Module) -> dict:
+    """``model``'s weights as a flax ``{"params": ..., "batch_stats": ...}``
+    tree of numpy float32 arrays (``flax_state_dict`` inverted), the target
+    a reference checkpoint converts into (``utils/torch_convert.py``)."""
+    leaves: dict = {}
+    _walk(model, (), "", _Paths(), leaves)
+    sd = model.state_dict()
+    tree: dict = {}
+    for name, leaf in leaves.items():
+        if not isinstance(leaf, _LeafPath):
+            continue
+        node = tree
+        for p in leaf.path[:-1]:
+            node = node.setdefault(p, {})
+        t = sd[name].detach().to("cpu", torch.float32).numpy()
+        node[leaf.path[-1]] = np.ascontiguousarray(leaf.to_flax(t))
+    return tree
 
 
 def load_flax_variables(model: nn.Module, variables: dict) -> None:

@@ -174,6 +174,18 @@ Phases; a failure in any of them ends the run with a non-zero exit code:
      cannot fail), as must the same weights' f32 table in ``pallas`` mode
      (K4); the bf16 table is printed beside them; an ``eval`` JSON line
      with phases 13 and 14;
+  24. (run at the end of phase 13, on its run dir and split) the tools
+     (``phase_tools``) at full width, bf16, in ``auto`` and ``pallas``:
+     ``inference_w_noise`` at 3 noise levels, ``inference_multi_scenario
+     --track --save_vis --vis_3d``, a reference-named ``.pth`` of the run
+     dir's model through ``convert_checkpoint`` (0 skipped, 0 leftovers,
+     the ``.pth`` and the converted run dir loading the model tensor for
+     tensor) and ``inference_pretrained``, ``abl_object_dist``,
+     ``debug_utils`` (its round-trip assertion), ``inference_tiny`` and
+     ``vis_feat``, then ``demo --epochs 1 --steps 2``; K1 3 / K4a 32 (in
+     ``pallas``) per scene and K2 per NMS and IoU call asserted, every
+     kernel input held to its plain version, the tracks, PNGs and
+     ``noise_sweep.json`` written; a ``tools`` JSON line;
   16. (run after phase 14) the camera configs on disk at full width: an
      on-disk scenario with cameras (``write_scenario`` with
      ``camera_hw``: 3 timestamps, phase 5's agents, 6 / 4 / 1 smooth seeded
@@ -378,7 +390,8 @@ next of up to REPEAT_BATCHES batches is taken the same way, and the
 training fails when it learned none (``learned_a_batch``).
 
 Launch counts are reset just before each timed path run (phases 5, 7, 10,
-11, 12, 15, 16 and 18-23), each counted CLI run of phases 13, 15, 16 and 21,
+11, 12, 15, 16 and 18-23), each counted CLI run of phases 13, 15, 16, 21
+and 24,
 each evaluation of phases 17, 18 and 19 and each single run of phase 22,
 and read just after; the ``kernels`` line sums them over those runs. Every profile window
 gives each kernel, copy and memset PyTorch launched to the one stage whose
@@ -3714,7 +3727,9 @@ def phase_eval(card):
     its launches counted (K1 3, K4a 32 in ``pallas``, K2 at least 2 per det
     scene: NMS and AP) and the AP's (det, gt) corners caught for
     ``phase_ap_k2``, a profile window of 3 det scenes (load, forward +
-    decode, AP), then 3 steps of the train CLI on the scenario."""
+    decode, AP), then 3 steps of the train CLI on the scenario; last, phase
+    24 (``phase_tools``) on the scenario and the det run dir, its result
+    under "tools"."""
     import shutil
 
     from airv2x_tpu_torch import kernels
@@ -3837,9 +3852,238 @@ def phase_eval(card):
 
         res["train"] = eval_train(card, hypes, work)
         res["launches"] = total
+        res["tools"] = phase_tools(card, hypes, det_dir, root, work)
         return res
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# Phase 24: the tools on phase 13's cut flagship run dir and split, bf16,
+# in ``auto`` and ``pallas``. TOOL_SCENES synthetic scenes per noise level
+# and per pretrained / ablation / tiny run, TOOL_NOISE noise levels
+TOOL_SCENES = 2
+TOOL_NOISE = ("0", "0.2", "0.4")
+TOOL_RANGE = "70.4,40"  # the ablation's crop: a 352 x 200 grid
+TOOL_MAPS = 8  # vis_feat's heatmaps (a full-width PNG each)
+
+
+def phase_tools(card, hypes, det_dir, root, work):
+    """Phase 24: the tool CLIs at full width on the card, on phase 13's cut
+    flagship (``det_dir``: bf16, phase 5's seeded random weights) and its
+    written split (``root``), each in ``auto`` and ``pallas``:
+    ``inference_w_noise`` (TOOL_NOISE levels x TOOL_SCENES scenes),
+    ``inference_multi_scenario --track --save_vis --vis_3d`` on the split,
+    a reference-named ``.pth`` of the run dir's model
+    (``reference_state_dict(values=True)``) through ``convert_checkpoint``
+    (0 skipped, 0 leftovers; the ``.pth``, converted in memory, and the
+    converted ``net_epoch1`` must load the run dir's model on the card
+    tensor for tensor) and ``inference_pretrained`` from the ``.pth`` and
+    from the converted ``net_epoch1`` (the same AP), ``abl_object_dist``
+    (TOOL_RANGE), ``debug_utils`` (its own AP@0.7 assertion, its IoUs on
+    K2), ``inference_tiny`` (TOOL_SCENES samples of the split) and
+    ``vis_feat`` (TOOL_MAPS maps); then ``demo --epochs 1 --steps 2``.
+    Launches asserted per run: K1 3 / K4a 32 (``pallas``, else 0) per model
+    scene, K2 one per decode (NMS) plus each IoU the AP, the ablation's
+    buckets and the round trip computed; every kernel input held to its
+    plain version
+    (``check_kernel_inputs``, after the counts are read). ``tracks.txt``,
+    the PNGs and ``noise_sweep.json`` must be written and non-empty."""
+    from airv2x_tpu_torch import kernels
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.eval import ap
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.tools import (
+        abl_object_dist, convert_checkpoint, debug_utils, demo,
+        inference_multi_scenario, inference_pretrained, inference_tiny,
+        inference_w_noise, vis_feat)
+    from airv2x_tpu_torch.utils.checkpoint import load_model_weights
+    from airv2x_tpu_torch.utils.torch_convert import reference_state_dict
+    from airv2x_tpu_torch.utils.weights import flax_variables
+
+    import shutil
+
+    from airv2x_tpu_torch.data.airv2x_dataset import AirV2XDataset
+
+    t_phase = time.perf_counter()
+    split = len(AirV2XDataset(hypes, root, train=False))
+    model = load_model_weights(det_dir, 1, build_model(hypes, device="cuda"))
+    sd = reference_state_dict(hypes, flax_variables(model), values=True)
+    del model
+    pth = os.path.join(work, "net_epoch1.pth")
+    torch.save({"model_state_dict": {"module." + k: torch.from_numpy(v)
+                                     for k, v in sd.items()}}, pth)
+    res = {"card": card, "runs": {}, "kernel_checks": []}
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    checked = set()
+    iou_calls = [0]
+    wrapped = [(ap, ap.quad_iou), (debug_utils, debug_utils.quad_iou)]
+
+    def counting(fn):
+        def call(*a, **kw):
+            iou_calls[0] += 1
+            return fn(*a, **kw)
+        return call
+
+    def run(name, mode, main, argv, model_scenes, nms=None):
+        label = f"phase 24 {name} {mode} [{card}]"
+        seen = {}
+        for mod, fn in wrapped:
+            mod.quad_iou = counting(fn)
+        iou_calls[0] = 0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with conv_mode(mode), recorded_kernel_inputs(seen):
+                out = main(argv + ["--device", "cuda"])
+                torch.cuda.synchronize()
+        finally:
+            for mod, fn in wrapped:
+                mod.quad_iou = fn
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        want = {"pillar_encode": 3 * model_scenes,
+                "conv3x3": 32 * model_scenes if mode == "pallas" else 0,
+                "quad_iou": (model_scenes if nms is None else nms) + iou_calls[0],
+                "conv3x3_allmaps": 0, "pillar_reduce": 0}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        res["kernel_checks"] += check_kernel_inputs(label, seen, checked)
+        print(f"{label}: {seconds:.2f} s, launches {launches}")
+        res["runs"].setdefault(name, {})[mode] = dict(seconds=seconds,
+                                                      launches=launches)
+        return out
+
+    def nonempty(*paths):
+        for path in paths:
+            if not os.path.isfile(path) or os.path.getsize(path) == 0:
+                raise AssertionError(f"phase 24: {path} missing or empty")
+
+    n_noise = len(TOOL_NOISE) * TOOL_SCENES
+    for mode in ("auto", "pallas"):
+        out = run("inference_w_noise", mode, inference_w_noise.main,
+                  ["--model_dir", det_dir, "--num_scenes", str(TOOL_SCENES),
+                   "--noise_levels", *TOOL_NOISE], n_noise)
+        nonempty(os.path.join(det_dir, "noise_sweep.json"))
+        res["runs"]["inference_w_noise"][mode].update(
+            ms_per_scene=out["ms_per_scene"],
+            ap={k: v for k, v in out.items() if k != "ms_per_scene"})
+
+        if os.path.exists(os.path.join(det_dir, "tracks.txt")):
+            os.remove(os.path.join(det_dir, "tracks.txt"))
+        vis = os.path.join(det_dir, "vis")
+        shutil.rmtree(vis, ignore_errors=True)
+        out = run("inference_multi_scenario --track --save_vis --vis_3d", mode,
+                  inference_multi_scenario.main,
+                  ["--model_dir", det_dir, "--track", "--save_vis", "--vis_3d"],
+                  split)
+        frames = min(split, 8)
+        nonempty(os.path.join(det_dir, "tracks.txt"), *(
+            os.path.join(vis, f"frame{k}_{i:04d}.png")
+            for i in range(frames) for k in ("", "3d")))
+        lines = open(os.path.join(det_dir, "tracks.txt")).read().splitlines()
+        if len(lines) != split:
+            raise AssertionError(f"phase 24: {len(lines)} track lines for {split} "
+                                 "frames")
+        res["runs"]["inference_multi_scenario --track --save_vis --vis_3d"][
+            mode].update(ms_per_scene=out["ms_per_scene"],
+                         combined=out["COMBINED"], track_lines=len(lines),
+                         tracks=len({w for line in lines for w in line.split()
+                                     if w.startswith("id=")}))
+
+        conv_dir = os.path.join(work, f"converted_{mode}")
+        asg = run("convert_checkpoint", mode, convert_checkpoint.main,
+                  ["--checkpoint", pth, "--hypes_yaml",
+                   os.path.join(det_dir, "config.yaml"), "--output", conv_dir],
+                  0, nms=0)
+        if asg.skipped or asg.torch_leftovers:
+            raise AssertionError(f"phase 24: the conversion skipped {asg.skipped} "
+                                 f"and left {asg.torch_leftovers}")
+        # the .pth (converted in memory) and the converted net_epoch1 load
+        # the run dir's model on the card, tensor for tensor
+        yaml = load_yaml(os.path.join(det_dir, "config.yaml"))
+        want = inference_pretrained.load_model(
+            yaml, os.path.join(det_dir, "net_epoch1"), "cuda").state_dict()
+        for path in (pth, os.path.join(conv_dir, "net_epoch1")):
+            got = inference_pretrained.load_model(yaml, path, "cuda").state_dict()
+            bad = sorted(set(want) ^ set(got)) + [
+                k for k in want if k in got and not torch.equal(want[k], got[k])]
+            if bad:
+                raise AssertionError(f"phase 24: {path} loads apart from the run "
+                                     f"dir's model in {len(bad)} tensors: {bad[:5]}")
+        n_tensors = len(want)
+        del want, got
+        aps = []
+        for src, path in (("pth", pth), ("net_epoch1",
+                                         os.path.join(conv_dir, "net_epoch1"))):
+            out_dir = os.path.join(work, f"pretrained_{src}_{mode}")
+            out = run(f"inference_pretrained {src}", mode, inference_pretrained.main,
+                      ["--model_path", path, "--hypes_yaml",
+                       os.path.join(det_dir, "config.yaml"), "--num_scenes",
+                       str(TOOL_SCENES), "--out_dir", out_dir, "--save_vis_n", "1"],
+                      TOOL_SCENES)
+            nonempty(os.path.join(out_dir, "results.txt"),
+                     os.path.join(out_dir, "vis_0000.png"))
+            aps.append({k: v for k, v in out.items() if k != "ms_per_scene"})
+            res["runs"][f"inference_pretrained {src}"][mode].update(
+                ms_per_scene=out["ms_per_scene"], ap=aps[-1])
+        if aps[0] != aps[1]:
+            raise AssertionError(f"phase 24: the .pth and its converted run dir "
+                                 f"read apart: {aps}")
+        res["runs"]["convert_checkpoint"][mode].update(
+            assigned=len(asg.assigned), skipped=0, leftovers=0,
+            tensors_equal=n_tensors)
+
+        out = run("abl_object_dist", mode, abl_object_dist.main,
+                  ["--model_dir", det_dir, "--num_scenes", str(TOOL_SCENES),
+                   "--range", TOOL_RANGE], TOOL_SCENES)
+        res["runs"]["abl_object_dist"][mode].update(
+            ms_per_scene=out["ms_per_scene"], overall=out["overall"])
+
+        out = run("debug_utils", mode, debug_utils.main,
+                  ["--model_dir", det_dir, "--num_scenes", str(TOOL_SCENES),
+                   "--out", os.path.join(work, f"debug_{mode}.png")], 0,
+                  nms=TOOL_SCENES)
+        nonempty(os.path.join(work, f"debug_{mode}.png"))
+        res["runs"]["debug_utils"][mode].update(
+            ap_70=out["ap_70"], worst_corner_m=out["worst_corner_m"])
+
+        out = run("inference_tiny", mode, inference_tiny.main,
+                  ["--model_dir", det_dir, "--max_samples", str(TOOL_SCENES)],
+                  TOOL_SCENES)
+        nonempty(*(os.path.join(vis, f"{k}_{i:05d}.png")
+                   for i in range(TOOL_SCENES) for k in ("bev", "3d")))
+        res["runs"]["inference_tiny"][mode].update(ms_per_scene=out["ms_per_scene"])
+
+        feat_dir = os.path.join(work, f"feat_{mode}")
+        maps = run("vis_feat", mode, vis_feat.main,
+                   ["--hypes_yaml", os.path.join(det_dir, "config.yaml"),
+                    "--output_dir", feat_dir, "--max_maps", str(TOOL_MAPS)], 1,
+                   nms=0)
+        if len(maps) != TOOL_MAPS:
+            raise AssertionError(f"phase 24 vis_feat: {len(maps)} maps written")
+        nonempty(*maps)
+        res["runs"]["vis_feat"][mode].update(maps=len(maps))
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    got = demo.main(["--epochs", "1", "--steps", "2", "--log_dir",
+                     os.path.join(work, "demo"), "--num_scenes", "2",
+                     "--device", "cuda"])
+    launches = dict(kernels.LAUNCHES)
+    if not (launches["pillar_encode"] and launches["quad_iou"]):
+        raise AssertionError(f"phase 24 demo: launches {launches}")
+    nonempty(os.path.join(got["run_dir"], "demo_summary.json"))
+    for k, v in launches.items():
+        total[k] += v
+    res["runs"]["demo"] = dict(seconds=time.perf_counter() - t0, launches=launches,
+                               ap=got["ap"])
+    res["launches"] = total
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 24 [{card}]: {res['seconds']:.1f} s, launches {total}, "
+          f"{len(res['kernel_checks'])} kernel inputs held to the plain versions")
+    return res
 
 
 # Phase 16: the camera configs on disk. CAMERA_SCENES timestamps of
@@ -5312,7 +5556,8 @@ def disk_convs(hypes):
 KERNEL_CALL_SITES = (("airv2x_tpu_torch.ops.fast_pillars", "pillar_encode"),
                      ("airv2x_tpu_torch.models.nn", "conv3x3_same"),
                      ("airv2x_tpu_torch.ops.nms", "quad_iou"),
-                     ("airv2x_tpu_torch.eval.ap", "quad_iou"))
+                     ("airv2x_tpu_torch.eval.ap", "quad_iou"),
+                     ("airv2x_tpu_torch.tools.debug_utils", "quad_iou"))
 
 
 @contextlib.contextmanager
@@ -7599,11 +7844,15 @@ def main() -> int:
     family = phase_family(card)
     t0 = mark("phase 15", t0)
     ev = phase_eval(card)
+    tools = ev.pop("tools")
+    marks["phase 24"] = tools["seconds"]
     gate = phase_ap_gate(card)
-    mark("phases 13-14", t0)
+    mark("phases 13-14, 24", t0)
     print(json.dumps({"eval": {"card": card, **{k: v for k, v in ev.items()
                                                if k != "launches"},
                                "ap_gate": gate}}))
+    print(json.dumps({"tools": {k: v for k, v in tools.items()
+                                if k != "launches"}}))
     cam_work = scratch_dir("chip_smoke_camera_")  # phase 20 reads it again
     cam_disk = phase_camera_disk(card, cam_work)
     marks["phase 16"] = cam_disk["seconds"]
@@ -7739,7 +7988,7 @@ def main() -> int:
                 + eb["launches"].get(k, 0) + flat_rest["launches"].get(k, 0)
                 + late["launches"].get(k, 0) + flat_train["launches"].get(k, 0)
                 + v2xr["launches"].get(k, 0) + rtnh_mdd["launches"].get(k, 0)
-                + align["launches"].get(k, 0)
+                + align["launches"].get(k, 0) + tools["launches"].get(k, 0)
                 for k in det["auto"]["launches"]}
     print(f"launches in the counted phase 13 runs: {ev['launches']}; in phase "
           f"15's on-disk V2VNet run: {v2v_disk}; in phase 16's timed and CLI "
@@ -7754,11 +8003,12 @@ def main() -> int:
           f"{late['launches']} and its KD teacher's forwards: "
           f"{flat_train['launches']}; in phase 22's timed and single runs: "
           f"{v2xr['launches']}; in phase 23's timed runs: RTNH and MDD "
-          f"{rtnh_mdd['launches']}, HEAL + AlignNet {align['launches']}")
+          f"{rtnh_mdd['launches']}, HEAL + AlignNet {align['launches']}; in "
+          f"phase 24's tool runs: {tools['launches']}")
     print("launches over the timed main-path runs (phases 5, 7, 10, 11, 12, 15, "
-          "16, 18, 19, 20, 21, 22 and 23), the counted phase 13, 15, 16 and 21 CLI "
-          "runs, phase 17's, 18's and 19's evaluations, phase 21's KD teacher "
-          f"and phase 22's single runs: {launches}")
+          "16, 18, 19, 20, 21, 22 and 23), the counted phase 13, 15, 16, 21 and "
+          "24 CLI runs, phase 17's, 18's and 19's evaluations, phase 21's KD "
+          f"teacher and phase 22's single runs: {launches}")
     marks["whole script"] = time.perf_counter() - t_start
     print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in marks.items()}}))
     k1_main = k1[("make_scene", torch.bfloat16)]  # the main path writes bf16

@@ -47,7 +47,7 @@ from tests.test_torch_point_pillar_family import tiny_hypes as flat_hypes
 from tests.torch_port_helpers import one_torch_thread, random_variables  # noqa: F401
 from tests.torch_train_helpers import (
     STEPS_PER_EPOCH, check_gradients, check_loss_parts, check_params_and_stats,
-    f64, jax_model, twin)
+    f64, f64_convs_by_taps, jax_model, twin)
 
 TOL = 1e-4  # whole-model outputs, f32, x (1 + scale)
 MODULE_TOL = 1e-5
@@ -180,8 +180,8 @@ def test_disconet_loss_and_gradients_match_jax(args):
 def _jax_kd_step(sh, th, batch, s_var, t_var):
     """The JAX tool's step body (airv2x_tpu/tools/train_w_kd.py) in float64,
     one AdamW update of the config's schedule: (params, batch_stats, parts,
-    grads), numpy."""
-    with jax.enable_x64(True):
+    grads), numpy; the convolutions as ``conv_by_taps``."""
+    with jax.enable_x64(True), f64_convs_by_taps():
         cast = lambda tree: jax.tree.map(lambda a: jnp.asarray(f64(a)), tree)  # noqa: E731
         student, teacher = jax_model(sh, jnp.float64), jax_model(th, jnp.float64)
         loss_fn = jax_build_loss(sh)
@@ -204,10 +204,10 @@ def _jax_kd_step(sh, th, batch, s_var, t_var):
             total, parts = loss_fn(s_out, jb["labels"])
             return total, (parts, updates["batch_stats"])
 
-        (_, (parts, stats)), grads = jax.value_and_grad(compute, has_aux=True)(
-            sv["params"])
-        upd, _ = tx.update(grads, tx.init(sv["params"]), sv["params"])
-        params = optax.apply_updates(sv["params"], upd)
+        (_, (parts, stats)), grads = jax.jit(jax.value_and_grad(
+            compute, has_aux=True))(sv["params"])
+        upd, _ = jax.jit(tx.update)(grads, tx.init(sv["params"]), sv["params"])
+        params = jax.jit(optax.apply_updates)(sv["params"], upd)
         return (jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, stats),
                 {k: float(v) for k, v in parts.items()},
                 jax.tree.map(np.asarray, grads))

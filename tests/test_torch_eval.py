@@ -358,12 +358,80 @@ def test_seg_cli_matches_jax(seg_dirs, fixture_root, monkeypatch, source):
 
 def test_cli_refusals(det_dirs, seg_dirs):
     _, port_dir = det_dirs
-    for flag in ("--track", "--save_vis", "--vis_3d"):
-        with pytest.raises(NotImplementedError):
-            inference_multi_scenario.main(["--model_dir", port_dir,
-                                           "--device", "cpu", flag])
     with pytest.raises(SystemExit):
         inference_airv2x_seg.main(["--model_dir", port_dir, "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             inference_multi_scenario.main(["--model_dir", seg_dirs[1]])
+
+
+def test_track_and_vis_match_jax(det_dirs, fixture_root, monkeypatch):
+    """``--track --save_vis --vis_3d`` on the fixture split: the port's
+    ``tracks.txt`` is JAX's line for line, and the geometry embeddings
+    JAX's tool gives its tracker are the port's ``geometry_embedding`` to
+    1e-6. The BEV frames: each is drawn from points within 1e-5 m of JAX's
+    (the loaders' transforms round apart) and gt and detections within
+    1e-4 m, and is pixel for pixel
+    JAX's ``visualize`` of what the port passed it; against JAX's own frame
+    it is equal off the box outlines, which may differ where a corner's
+    last-bit difference changes how many samples a drawn edge takes. The
+    perspective frames are written (JAX draws them with OpenCV where it is
+    installed, the port in numpy: tests/test_torch_visualization.py holds
+    them to JAX's numpy path)."""
+    from PIL import Image
+
+    from airv2x_tpu.models import tracking as jax_tracking
+    from airv2x_tpu.visualization import bev_canvas as jax_bev
+    from airv2x_tpu_torch.models.tracking import geometry_embedding
+
+    fed, drawn = [], {"jax": [], "port": []}
+    update = jax_tracking.Tracker.update
+
+    def recording(self, boxes, emb):
+        fed.append((np.array(boxes), np.array(emb)))
+        return update(self, boxes, emb)
+
+    def drawing(who, fn):
+        def call(pred, gt, pts, lr, save_path=None, **kw):
+            drawn[who].append((np.array(pred), np.array(gt), np.array(pts)))
+            return fn(pred, gt, pts, lr, save_path=save_path, **kw)
+        return call
+
+    monkeypatch.setattr(jax_tracking.Tracker, "update", recording)
+    monkeypatch.setattr(jax_bev, "visualize", drawing("jax", jax_bev.visualize))
+    monkeypatch.setattr(inference_multi_scenario, "visualize",
+                        drawing("port", inference_multi_scenario.visualize))
+    argv = ["--test_dir", fixture_root, "--track", "--save_vis", "--vis_3d"]
+    _run_both(jax_multi.main, inference_multi_scenario.main, *det_dirs, argv,
+              monkeypatch)
+    tracks = [open(os.path.join(d, "tracks.txt")).read().splitlines()
+              for d in det_dirs]
+    assert tracks[0] == tracks[1] and len(tracks[1]) >= 2
+    assert any("id=" in line for line in tracks[1])
+    lr = load_yaml(TINY)["preprocess"]["cav_lidar_range"]
+    assert fed
+    for boxes, emb in fed:
+        np.testing.assert_allclose(geometry_embedding(boxes, lr), emb, atol=1e-6,
+                                   rtol=0)
+    frames = sorted(f for f in os.listdir(os.path.join(det_dirs[0], "vis"))
+                    if f.startswith("frame_"))
+    assert frames and frames == sorted(
+        f for f in os.listdir(os.path.join(det_dirs[1], "vis"))
+        if f.startswith("frame_"))
+    assert len(drawn["jax"]) == len(drawn["port"]) == len(frames)
+    outline = np.array([jax_bev.PRED_COLOR, jax_bev.GT_COLOR])
+    for f, (jp, jg, jpts), (pp, pg, ppts) in zip(frames, drawn["jax"], drawn["port"]):
+        np.testing.assert_allclose(ppts, jpts, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(pg, jg[:, :4, :2], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(pp, jp, atol=1e-4, rtol=0)
+        assert len(pp), f"{f}: no detection drawn: a weak test"
+        got, want = (np.asarray(Image.open(os.path.join(d, "vis", f)))
+                     for d in reversed(det_dirs))
+        np.testing.assert_array_equal(
+            got, jax_bev.visualize(pp, pg, ppts, lr), err_msg=f)
+        on_box = ((got[..., None, :] == outline).all(-1).any(-1)
+                  | (want[..., None, :] == outline).all(-1).any(-1))
+        np.testing.assert_array_equal(got[~on_box], want[~on_box], err_msg=f)
+        print(f, "pixels apart on the outlines:", int((got != want).any(-1).sum()))
+        assert os.path.getsize(os.path.join(det_dirs[1], "vis",
+                                            f.replace("frame_", "frame3d_"))) > 0

@@ -1237,3 +1237,46 @@ def test_bm2cp_voxel_pooling_bf16_within_bound_of_f32(cuda):
     assert float(count.max()) > 10  # cells gather many frustum points
     assert bool(((got - exact).abs() <= bound).all()), float(
         ((got - exact).abs() / bound).max())
+
+
+@pytest.mark.parametrize("n", [1, 37])
+def test_tracking_head_on_card_matches_cpu(cuda, n):
+    """``TrackingHead`` on the card against the CPU (f32, TF32 off): the
+    unit embeddings to 1e-5."""
+    from airv2x_tpu_torch.models.tracking import TrackingHead
+
+    torch.manual_seed(3)
+    head = TrackingHead(64, 128).eval()
+    feats = torch.randn(100, 352, 64)
+    boxes = torch.randn(n, 7)
+    with torch.no_grad():
+        want = head(feats, boxes)
+        got = copy.deepcopy(head).to(cuda)(feats.to(cuda), boxes.to(cuda))
+    assert got.shape == (n, 128)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    assert torch.allclose(torch.linalg.vector_norm(got, dim=-1),
+                          torch.ones(n, device=cuda), atol=1e-5)
+
+
+def test_reference_checkpoint_loads_onto_a_card_model(cuda):
+    """A reference-named state dict of the full-width flagship converted
+    onto a model on the card: nothing skipped or left over, and every
+    weight equal to the same conversion onto a CPU model moved to the card."""
+    from airv2x_tpu_torch.config import load_yaml
+    from airv2x_tpu_torch.models import build_model
+    from airv2x_tpu_torch.utils.torch_convert import (
+        load_reference_checkpoint, reference_state_dict)
+    from airv2x_tpu_torch.utils.weights import flax_variables
+
+    hypes = load_yaml(os.path.join(REPO, "hypes_yaml/airv2x/lidar/det/where2comm.yaml"))
+    cpu = build_model(hypes, device="cpu")
+    sd = {"module." + k: torch.from_numpy(v) for k, v in
+          reference_state_dict(hypes, flax_variables(cpu), seed=5).items()}
+    card = build_model(hypes, device="cuda")
+    asg = load_reference_checkpoint(card, sd, hypes)
+    assert not asg.skipped and not asg.torch_leftovers and len(asg.assigned) > 50
+    load_reference_checkpoint(cpu, sd, hypes)
+    want = cpu.to(cuda).state_dict()
+    for k, v in card.state_dict().items():
+        assert v.device.type == "cuda", k
+        assert torch.equal(v, want[k]), k

@@ -22,7 +22,9 @@ from airv2x_tpu_torch.tools import train as port_train
 
 CLIS = ("train", "inference", "inference_airv2x", "inference_airv2x_seg",
         "inference_multi_scenario", "train_multi_stage", "chip_ap_gate",
-        "train_w_kd", "pose_graph_pre_calc")
+        "train_w_kd", "pose_graph_pre_calc", "convert_checkpoint",
+        "inference_pretrained", "inference_w_noise", "abl_object_dist",
+        "debug_utils", "inference_tiny", "vis_data_sequence", "vis_feat", "demo")
 # JAX options the port leaves out on purpose
 EXCEPTIONS = {
     # rematerialisation of the backbone stages: torch checkpointing is queued

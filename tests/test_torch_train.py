@@ -402,29 +402,24 @@ def _inject_keep_fraction(mp, u, dtype=jnp.float32):
 
 def _jax_step(hypes, batch, variables, accum, u):
     """One JAX ``make_train_step`` update (jitted, adamw + multistep) with
-    the keep fraction ``u`` injected, and the gradients it applied (recorded
-    through a debug callback in the optimizer's update)."""
+    the keep fraction ``u`` injected, and the gradients it applied (read
+    from the optimizer's first moment: tests/torch_train_helpers.py's
+    ``applied_gradients``)."""
+    from tests.torch_train_helpers import applied_gradients
+
     tx, _ = jax_train.make_optimizer(hypes, 50)
-    grads = []
-
-    def update(g, s, p=None):
-        jax.debug.callback(lambda gg: grads.append(jax.tree.map(np.asarray, gg)), g)
-        return tx.update(g, s, p)
-
-    rec_tx = optax.GradientTransformation(tx.init, update)
     model = jax_build_model(hypes)
-    state = jax_train.create_train_state(model, variables, rec_tx)
-    step = jax_train.make_train_step(model, jax_build_loss(hypes), rec_tx,
+    state = jax_train.create_train_state(model, variables, tx)
+    step = jax_train.make_train_step(model, jax_build_loss(hypes), tx,
                                      donate=False, accum_steps=accum)
     with pytest.MonkeyPatch.context() as mp:
         _inject_keep_fraction(mp, u)
         new_state, parts = step(state, jax.tree.map(jnp.asarray, batch),
                                 jax.random.PRNGKey(7))
-        jax.effects_barrier()
-    (g,) = grads
     return (jax.tree.map(np.asarray, new_state.params),
             jax.tree.map(np.asarray, new_state.batch_stats),
-            {k: float(v) for k, v in parts.items()}, g)
+            {k: float(v) for k, v in parts.items()},
+            applied_gradients(new_state.opt_state))
 
 
 @pytest.fixture(scope="module", params=[("det", 1), ("seg", 1), ("det", 2)],

@@ -21,7 +21,7 @@ from tests.test_torch_train_camera import (  # noqa: F401 (the batch fixture)
     CAMERA_LOSS_TOL, CAMERA_STAT_TOL, batch, camera_step_run)
 from tests.torch_port_helpers import one_torch_thread, random_variables
 from tests.torch_train_helpers import (
-    check_gradients, check_loss_parts, check_params_and_stats)
+    check_gradients, check_loss_parts, check_params_and_stats, conv_by_taps)
 
 CASES = (("airv2x_cobevt", "lidar+cam"), ("airv2x_when2com", "lidar+cam"))
 
@@ -76,14 +76,16 @@ def test_lss_camera_encoder_gradients_match_jax_f64(batch, monkeypatch):
     f32 in both, and its points lie more than CELL_MARGIN of a cell from a
     boundary (test_camera_batch_clears_the_cell_margin); JAX's upsampling
     grid runs in float64 (``_upsample_exact``), as the port's
-    ``F.interpolate`` does. Every parameter's gradient to F64_GRAD_TOL of
-    its scale, plus 1e-9 of the largest (a bias that a train-mode
-    BatchNorm follows reads rounding noise); the running statistics after
-    the step to 1e-6."""
+    ``F.interpolate`` does, and its float64 convolutions as
+    ``torch_train_helpers.conv_by_taps``. Every parameter's gradient to
+    F64_GRAD_TOL of its scale, plus 1e-9 of the largest (a bias that a
+    train-mode BatchNorm follows reads rounding noise); the running
+    statistics after the step to 1e-6."""
     from tests.torch_port_helpers import CHIP_SMOKE
 
     monkeypatch.setattr(jtrunks, "upsample_align_corners", _upsample_exact)
     monkeypatch.setattr(jlss, "upsample_align_corners", _upsample_exact)
+    monkeypatch.setattr(jax.lax, "conv_general_dilated", conv_by_taps)
     cfg = dict(CHIP_SMOKE.TINY_CAM, use_depth_gt=False)
     mask = np.asarray(batch["agent_mask"], bool)
     cam = {k: np.asarray(v)[mask][:2] for k, v in batch["cam_vehicle"].items()}

@@ -20,6 +20,7 @@ from airv2x_tpu_torch.models.camera import lss, trunks
 from airv2x_tpu_torch.utils.weights import flax_state_dict, load_flax_variables
 from tests.test_torch_train import F64_GRAD_TOL
 from tests.torch_port_helpers import one_torch_thread, random_variables
+from tests.torch_train_helpers import f64_convs_by_taps
 
 
 # --- the trunks' and the BEV encoder's train mode --------------------------------
@@ -84,8 +85,9 @@ def test_camera_module_train_mode_matches_flax(name):
 @pytest.mark.parametrize("name", sorted(MODULES))
 def test_camera_module_gradients_match_jax_f64(name):
     """The camera trunks and the BEV encoder in train mode with both
-    packages in float64: the gradient of every parameter to F64_GRAD_TOL
-    of its scale, plus 1e-9 of the largest gradient for the leaves whose
+    packages in float64 (JAX's convolutions as
+    ``torch_train_helpers.conv_by_taps``): the gradient of every parameter
+    to F64_GRAD_TOL of its scale, plus 1e-9 of the largest gradient for the leaves whose
     exact gradient is 0 (a bias that a train-mode BatchNorm follows reads
     rounding noise)."""
     jcls, tcls, shape, _ = MODULES[name]
@@ -93,11 +95,12 @@ def test_camera_module_gradients_match_jax_f64(name):
     x = rng.normal(0.3, 1.0, shape)
     jmod, tmod = jcls(), tcls()
     var = random_variables(jmod, x.astype(np.float32), seed=53, train=False)
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), f64_convs_by_taps():
         jmod64 = jcls(dtype=jnp.float64)
         v64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)), var)
         jx = jnp.asarray(x)
-        out0 = jmod64.apply(v64, jx, True, mutable=["batch_stats"])[0]
+        out0 = jax.eval_shape(lambda v, a: jmod64.apply(
+            v, a, True, mutable=["batch_stats"])[0], v64, jx)
         rs = [rng.normal(size=o.shape)
               for o in (out0 if isinstance(out0, tuple) else (out0,))]
 

@@ -37,7 +37,7 @@ from tests.torch_port_helpers import CHIP_SMOKE, one_torch_thread, random_variab
 from tests.torch_train_helpers import (
     XLA_OPT0, check_f64_gradients, check_gradients, check_loss_parts,
     check_params_and_stats, jax_step, jit_submodules, labelled_batch, port_step,
-    run_both, tiny_hypes, twin, variables_for)
+    f64_convs_by_taps, run_both, tiny_hypes, twin, variables_for)
 
 CASES = (("airv2x_v2vnet", "det"), ("airv2x_v2vnet", "seg"),
          ("airv2x_when2com", "det"), ("airv2x_when2com", "seg"))
@@ -103,7 +103,8 @@ def test_v2vnet_gradients_match_jax_f64(batch):
 def test_when2com_fusion_train_gradients_match_jax_f64(batch):
     """When2com's fusion in train mode (the policy CNN's BNs on batch
     statistics) in float64, JAX eager but for the policy CNN and the key /
-    query nets (each jitted, ``jit_submodules``), at 16 x 16 maps of 16
+    query nets (each jitted, ``jit_submodules``; the convolutions as
+    ``conv_by_taps``), at 16 x 16 maps of 16
     channels: the gradients of every parameter and of the input maps, and the updated
     running statistics, on the batch's poses and agent mask. Every parameter to F64_GRAD_TOL
     of its scale plus 1e-9 of the largest gradient: the conv biases that a
@@ -119,7 +120,7 @@ def test_when2com_fusion_train_gradients_match_jax_f64(batch):
     ptf = batch["pairwise_t_full"].astype(np.float64)
     var = random_variables(JaxWhen2com(args=args), x.astype(np.float32), am,
                            ptf.astype(np.float32), seed=71)
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), f64_convs_by_taps():
         jmod = JaxWhen2com(args=args, dtype=jnp.float64)
         v64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)), var)
 

@@ -5,8 +5,11 @@ together (loss parts, every gradient leaf, the updated parameters and BN
 statistics), at the tolerances of the flagship's step tests
 (tests/test_torch_train.py, which states how they were measured).
 
-The JAX step records the gradients it applied through a debug callback in
-the optimizer's update. ``jit=False`` runs the JAX step eagerly,
+The gradients the JAX step applied are read from its optimizer's state
+(``applied_gradients``: a first AdamW update from a zero state leaves
+(1 - b1) g as its first moment), so that the jitted step holds no host
+callback and XLA's persistent compilation cache can keep it (a program
+with a host callback is never cached). ``jit=False`` runs the JAX step eagerly,
 ``jit="spine"`` eagerly but for the model's spine and the update, and
 ``compiler_options=XLA_OPT0`` jits it without LLVM's optimisations, which
 V2VNet and When2com need: XLA's CPU jit miscompiles their fusions (ROADMAP
@@ -19,6 +22,7 @@ grids, the losses).
 from __future__ import annotations
 
 import contextlib
+import functools
 import copy
 import math
 
@@ -125,6 +129,74 @@ def jit_submodules(paths):
         yield
 
 
+_XLA_CONV = jax.lax.conv_general_dilated
+_NHWC = ("NHWC", "HWIO", "NHWC")
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
+def _conv_taps(x, w, strides, padding, depthwise, precision):
+    """NHWC x HWIO, jitted: an eager float64 ``jnp.pad`` of jax 0.9.0 on
+    the CPU returned wrong values in repeated calls (ROADMAP §3)."""
+    kh, kw, _, _ = w.shape
+    x = jnp.pad(x, ((0, 0), *padding, (0, 0)))
+    sh, sw = strides
+    oh, ow = (x.shape[1] - kh) // sh + 1, (x.shape[2] - kw) // sw + 1
+    out = None
+    for i in range(kh):
+        for j in range(kw):
+            tap = x[:, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
+            y = (tap * w[i, j, 0] if depthwise else jax.lax.dot_general(
+                tap, w[i, j], (((3,), (0,)), ((), ())), precision=precision))
+            out = y if out is None else out + y
+    return out
+
+
+def conv_by_taps(lhs, rhs, window_strides, padding, lhs_dilation=None,
+                 rhs_dilation=None, dimension_numbers=None, feature_group_count=1,
+                 batch_group_count=1, precision=None, preferred_element_type=None,
+                 **kw):
+    """``jax.lax.conv_general_dilated`` for a float64 2-D NHWC convolution
+    (undilated; dense or depthwise) as a sum over the kernel's taps of
+    strided slices times the tap's weights (a matmul; depthwise, a
+    product); any other convolution goes to ``lax.conv_general_dilated``.
+    The same sums in another order (float64 rounding apart, ~1e-15 of
+    the scale), at a fraction of the time: XLA's CPU convolution in
+    float64 took 110 of the When2com float64 step's 155 s on an 8-core x86
+    host (its policy net's 3x3 convs at 64 -> 512 channels, forward and
+    gradient)."""
+    call = dict(lhs_dilation=lhs_dilation, rhs_dilation=rhs_dilation,
+                dimension_numbers=dimension_numbers,
+                feature_group_count=feature_group_count,
+                batch_group_count=batch_group_count, precision=precision,
+                preferred_element_type=preferred_element_type, **kw)
+    if (lhs.ndim != 4 or lhs.dtype != jnp.float64 or rhs.dtype != jnp.float64
+            or kw or preferred_element_type is not None or batch_group_count != 1
+            or any(d != 1 for d in (lhs_dilation or ()) + (rhs_dilation or ()))
+            or jax.lax.conv_dimension_numbers(lhs.shape, rhs.shape, dimension_numbers)
+            != jax.lax.conv_dimension_numbers(lhs.shape, rhs.shape, _NHWC)):
+        return _XLA_CONV(lhs, rhs, window_strides, padding, **call)
+    kh, kw_, cg, cout = rhs.shape
+    depthwise = feature_group_count == lhs.shape[-1] == cout and cg == 1
+    if isinstance(padding, str):
+        padding = jax.lax.padtype_to_pads(lhs.shape[1:3], (kh, kw_),
+                                          window_strides, padding)
+    padding = tuple(tuple(int(p) for p in pair) for pair in padding)
+    if (not (feature_group_count == 1 or depthwise)
+            or min(p for pair in padding for p in pair) < 0):
+        return _XLA_CONV(lhs, rhs, window_strides, padding, **call)
+    return _conv_taps(lhs, rhs, tuple(window_strides), padding, depthwise, precision)
+
+
+@contextlib.contextmanager
+def f64_convs_by_taps():
+    """Within the block, ``jax.lax.conv_general_dilated`` is
+    ``conv_by_taps``: the JAX package's float64 2-D convolutions run as sums
+    of matmuls over the kernel's taps, every other convolution as before."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, "conv_general_dilated", conv_by_taps)
+        yield
+
+
 def jax_step(hypes, batch, variables, *, accum=1, u=None, jit=True,
              dtype=jnp.float32, compiler_options=None):
     """One JAX ``make_train_step`` update (adamw + the config's schedule)
@@ -135,43 +207,50 @@ def jax_step(hypes, batch, variables, *, accum=1, u=None, jit=True,
     fusion, the model's glue and the loss stay eager (on the V2VNet and
     When2com float64 det steps the loss parts are bit for bit the eager
     step's, every gradient within 1e-12 of it, at a third to half of its
-    time: ``python -m tests.train_reference_probes``). Returns (params,
-    batch_stats, loss parts, the gradients applied), numpy."""
+    time: ``python -m tests.train_reference_probes``). In float64 the
+    convolutions run as ``conv_by_taps``. Returns (params, batch_stats, loss
+    parts, the gradients applied), numpy."""
     x64 = dtype == jnp.float64
     spine = jit == "spine"
-    grads = []
     with (jax.enable_x64(x64), pytest.MonkeyPatch.context() as mp,
-          jit_submodules(SPINE if spine else ())):
+          jit_submodules(SPINE if spine else ()),
+          f64_convs_by_taps() if x64 else contextlib.nullcontext()):
         if u is not None:
             _inject_keep_fraction(mp, u, dtype)
         tx, _ = jax_train.make_optimizer(hypes, STEPS_PER_EPOCH)
-
-        def update(g, s, p=None):
-            jax.debug.callback(
-                lambda gg: grads.append(jax.tree.map(np.asarray, gg)), g)
-            return tx.update(g, s, p)
-
         if spine:
-            update = jax.jit(update)
+            tx = optax.GradientTransformation(tx.init, jax.jit(tx.update))
             mp.setattr(optax, "apply_updates", jax.jit(optax.apply_updates))
-        rec_tx = optax.GradientTransformation(tx.init, update)
         cast = f64 if x64 else np.asarray
         model = jax_model(hypes, dtype)
         var = jax.tree.map(lambda a: jnp.asarray(cast(a)), variables)
-        state = jax_train.create_train_state(model, var, rec_tx)
-        step = jax_train.make_train_step(model, jax_build_loss(hypes), rec_tx,
+        state = jax_train.create_train_state(model, var, tx)
+        step = jax_train.make_train_step(model, jax_build_loss(hypes), tx,
                                          donate=False, accum_steps=accum,
                                          jit=jit is True,
                                          compiler_options=compiler_options)
         new_state, parts = step(
             state, jax.tree.map(lambda a: jnp.asarray(cast(a)), batch),
             jax.random.PRNGKey(7))
-        jax.effects_barrier()
-        out = (jax.tree.map(np.asarray, new_state.params),
-               jax.tree.map(np.asarray, new_state.batch_stats),
-               {k: float(v) for k, v in parts.items()})
-    (g,) = grads
-    return out + (g,)
+        return (jax.tree.map(np.asarray, new_state.params),
+                jax.tree.map(np.asarray, new_state.batch_stats),
+                {k: float(v) for k, v in parts.items()},
+                applied_gradients(new_state.opt_state))
+
+
+ADAM_B1 = 0.9  # optax's adam / adamw default, which the JAX package keeps
+
+
+def applied_gradients(opt_state):
+    """The gradients of a first AdamW update from a zero state, numpy: its
+    first moment is (1 - b1) g (optax ``scale_by_adam``), so g is within
+    an ulp of mu / (1 - b1)."""
+    adam = [s for s in jax.tree.leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    (state,) = adam
+    assert int(state.count) == 1, "not the first update"
+    return jax.tree.map(lambda m: np.asarray(m) / (1 - ADAM_B1), state.mu)
 
 
 def port_step(hypes, batch, variables, *, accum=1, u=None, double=False,
